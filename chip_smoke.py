@@ -1,0 +1,552 @@
+"""End-to-end smoke run of ray_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+  1. card: name, and name + power limit from nvidia-smi;
+  2. build: compile the CUDA kernels from ray_tpu_torch/ops/csrc;
+  3. kernels vs plain: each kernel against its plain PyTorch version at
+     Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16),
+     with the kernel's, the plain version's and one PyTorch library
+     call's times, and the least time the card could take;
+  4. engine: InferenceEngine on the `8b` preset at full width and depth
+     (random bf16 weights from a seeded generator), mixed prefill+decode
+     ticks then pure decode, through add_request/step; both kernels'
+     launch counters must move; the same requests on
+     decode_impl="gather" must give the same greedy tokens (or differ
+     only at a stated near-tie); the same holds for a small f32 engine;
+  5. summary: one {"kernels": [...]} line, the card line, then the
+     {"ok": true, "device": ...} line last.
+
+Imports neither jax nor ray_tpu. Exits non-zero before printing any
+result when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# data-sheet peaks of an H100 SXM at its full power limit (NVIDIA)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
+
+DECODE_TOL = 3e-2     # bf16 output: both sides round f32 results once;
+#                       one bf16 ulp at |x| < 4 is 1.6e-2
+STAT_RTOL = 1e-3      # float32 row max / denominator, summed in other order
+RAGGED_TOL = 3e-2     # as DECODE_TOL
+NEAR_TIE = 0.05       # logit gap under which a greedy flip between the
+#                       two engines counts as a near tie: bf16
+#                       activations summed in another order
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ decode kernel
+
+def decode_case(gen, dev, lens, max_pages, H=32, KVH=8, D=128, page=16,
+                dtype=torch.bfloat16):
+    B = len(lens)
+    num_pages = B * max_pages + 1
+    k_pages = torch.randn((num_pages, page, KVH, D), generator=gen,
+                          device=dev).to(dtype)
+    v_pages = torch.randn((num_pages, page, KVH, D), generator=gen,
+                          device=dev).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev)
+    tables = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    k_new = torch.randn((B, KVH, D), generator=gen, device=dev).to(dtype)
+    v_new = torch.randn((B, KVH, D), generator=gen, device=dev).to(dtype)
+    return dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables,
+                seq_lens=seq_lens, k_new=k_new, v_new=v_new)
+
+
+def check_decode(gen, dev, label, lens, max_pages):
+    from ray_tpu_torch.ops import paged_attention as pa
+    import torch.nn.functional as F
+    c = decode_case(gen, dev, lens, max_pages)
+    args = (c["q"], c["k_pages"], c["v_pages"], c["tables"], c["seq_lens"])
+    out, m, l = pa.paged_decode_attention(*args, return_stats=True)
+    ref, m_ref, l_ref = pa.paged_decode_attention_plain(*args,
+                                                        return_stats=True)
+    out_n = pa.paged_decode_with_new_token(*args, c["k_new"], c["v_new"])
+    ref_n = pa.paged_decode_with_new_token_plain(*args, c["k_new"],
+                                                 c["v_new"])
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    err_n = (out_n.float() - ref_n.float()).abs().max().item()
+    m_err = ((m - m_ref).abs() / m_ref.abs().clamp(min=1)).max().item()
+    l_err = ((l - l_ref).abs() / l_ref.abs().clamp(min=1)).max().item()
+    log(f"[decode {label}] lens={lens} max_pages={max_pages} "
+        f"max_abs_err out={err:.3e} with_new_token={err_n:.3e} "
+        f"(tol {DECODE_TOL}); m rel={m_err:.2e} l rel={l_err:.2e} "
+        f"(tol {STAT_RTOL})")
+    for name, e, tol in (("out", err, DECODE_TOL),
+                         ("with_new_token", err_n, DECODE_TOL),
+                         ("m", m_err, STAT_RTOL), ("l", l_err, STAT_RTOL)):
+        if not (e <= tol):
+            raise AssertionError(f"decode {label}: {name} error {e} > {tol}")
+    new_args = args + (c["k_new"], c["v_new"])
+    ms = time_ms(lambda: pa.paged_decode_with_new_token(*new_args))
+    plain_ms = time_ms(lambda: pa.paged_decode_with_new_token_plain(
+        *new_args), iters=5)
+    # library yardstick: SDPA over the pre-gathered dense KV + new token
+    B, H, D = c["q"].shape
+    kvh = c["k_pages"].shape[2]
+    kg = pa.gather_layer(c["k_pages"], c["tables"])
+    vg = pa.gather_layer(c["v_pages"], c["tables"])
+    group = H // kvh
+    kd = torch.cat([kg, c["k_new"][:, None]], 1).repeat_interleave(
+        group, dim=2).transpose(1, 2).contiguous()
+    vd = torch.cat([vg, c["v_new"][:, None]], 1).repeat_interleave(
+        group, dim=2).transpose(1, 2).contiguous()
+    ctx = kg.shape[1]
+    length = c["seq_lens"].long().clamp(min=1)
+    idx = torch.arange(ctx + 1, device=dev)
+    mask = ((idx[None, :] < length[:, None]) | (idx[None, :] == ctx))
+    mask = mask[:, None, None, :]
+    qd = c["q"][:, :, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    # least work: each live cached key row read once (K and V), q and
+    # the new token read, out written; 4*H*D flops per live key
+    item = c["q"].element_size()
+    keys = int(length.sum().item())
+    nbytes = (2 * keys * kvh * D * item + B * H * D * item
+              + 2 * B * kvh * D * item + B * H * D * item
+              + B * 4 + keys // 16 * 4)
+    flops = 4 * H * D * (keys + B)
+    b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
+    log(f"[decode {label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=max(err, err_n), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# ------------------------------------------------------------ ragged kernel
+
+def ragged_case(gen, dev, segs, pad, max_pages, H=32, KVH=8, D=128,
+                page=16, dtype=torch.bfloat16):
+    B = len(segs)
+    num_pages = B * max_pages + 1
+    k_pages = torch.randn((num_pages, page, KVH, D), generator=gen,
+                          device=dev).to(dtype)
+    v_pages = torch.randn((num_pages, page, KVH, D), generator=gen,
+                          device=dev).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev)
+    tables = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+    t = sum(n for _, n in segs) + pad
+    slot_ids = torch.zeros(t, dtype=torch.int32)
+    positions = torch.zeros(t, dtype=torch.int32)
+    valid = torch.zeros(t, dtype=torch.bool)
+    cur = 0
+    for s, (start, n) in enumerate(segs):
+        slot_ids[cur:cur + n] = s
+        positions[cur:cur + n] = torch.arange(start, start + n)
+        valid[cur:cur + n] = True
+        cur += n
+    start = torch.tensor([s for s, _ in segs], dtype=torch.int32)
+    q = torch.randn((t, H, D), generator=gen, device=dev).to(dtype)
+    k_new = torch.randn((t, KVH, D), generator=gen, device=dev).to(dtype)
+    v_new = torch.randn((t, KVH, D), generator=gen, device=dev).to(dtype)
+    return dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables,
+                slot_ids=slot_ids.to(dev), positions=positions.to(dev),
+                valid=valid.to(dev), start=start.to(dev), k_new=k_new,
+                v_new=v_new)
+
+
+def check_ragged(gen, dev):
+    from ray_tpu_torch.ops import ragged_paged_attention as rpa
+    import torch.nn.functional as F
+    # a mixed tick at the engine's budget (512-token chunk cap + 8 slots):
+    # decode rows over contexts ending mid-page, a fresh single-token
+    # slot (start=0), a fresh 200-token chunk, a 300-token chunk over a
+    # 700-token context, and padding rows up to the 512 bucket
+    segs = [(33, 1), (130, 1), (1023, 1), (2047, 1), (3999, 1), (0, 1),
+            (0, 200), (700, 300)]
+    pad = 6
+    max_pages = 512                      # the engine's full table width
+    ctx_pages = 256                      # pow2 bucket covering start 3999
+    c = ragged_case(gen, dev, segs, pad, max_pages)
+    t = c["q"].shape[0]
+    max_seg = min(t, 512)
+    args = (c["q"], c["k_pages"], c["v_pages"], c["tables"], c["slot_ids"],
+            c["positions"], c["valid"], c["start"], c["k_new"], c["v_new"])
+    plan = rpa.ragged_plan(c["slot_ids"], c["positions"], c["valid"],
+                           c["start"], max_seg)
+    kw = dict(ctx_pages=ctx_pages, max_seg_len=max_seg)
+    out = rpa.ragged_paged_attention(*args, plan=plan, **kw)
+    ref = rpa.ragged_paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    pad_zero = bool((out[~c["valid"]] == 0).all().item())
+    log(f"[ragged] segs={segs} pad={pad} max_abs_err={err:.3e} "
+        f"(tol {RAGGED_TOL}); padding rows exact zero: {pad_zero}")
+    if not (err <= RAGGED_TOL) or not pad_zero:
+        raise AssertionError(f"ragged kernel disagrees: err {err}, "
+                             f"padding zero {pad_zero}")
+    ms = time_ms(lambda: rpa.ragged_paged_attention(*args, plan=plan, **kw))
+    plain_ms = time_ms(lambda: rpa.ragged_paged_attention_plain(*args, **kw),
+                       iters=5)
+    # library yardstick: SDPA per slot over pre-gathered context + the
+    # slot's own keys, padded to the longest segment, boolean mask
+    B = len(segs)
+    H, D = c["q"].shape[1], c["q"].shape[2]
+    kvh = c["k_pages"].shape[2]
+    smax = max(n for _, n in segs)
+    ctx = ctx_pages * c["k_pages"].shape[1]
+    tb = c["tables"][:, :ctx_pages].long()
+    kg = c["k_pages"][tb].reshape(B, ctx, kvh, D)
+    vg = c["v_pages"][tb].reshape(B, ctx, kvh, D)
+    qp = torch.zeros((B, smax, H, D), dtype=c["q"].dtype, device=dev)
+    kp = torch.zeros((B, smax, kvh, D), dtype=c["q"].dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    mask = torch.zeros((B, smax, ctx + smax), dtype=torch.bool, device=dev)
+    cur = 0
+    for s, (st, n) in enumerate(segs):
+        qp[s, :n] = c["q"][cur:cur + n]
+        kp[s, :n] = c["k_new"][cur:cur + n]
+        vp[s, :n] = c["v_new"][cur:cur + n]
+        mask[s, :, :st] = True
+        mask[s, :, ctx:ctx + smax] = torch.tril(torch.ones(
+            smax, smax, dtype=torch.bool, device=dev))
+        mask[s, :, ctx + n:] = False
+        cur += n
+    group = H // kvh
+    kd = torch.cat([kg, kp], 1).repeat_interleave(group, dim=2).transpose(
+        1, 2).contiguous()
+    vd = torch.cat([vg, vp], 1).repeat_interleave(group, dim=2).transpose(
+        1, 2).contiguous()
+    qd = qp.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask[:, None]))
+    item = c["q"].element_size()
+    ctx_keys = sum(st for st, _ in segs)
+    live = sum(n for _, n in segs)
+    nbytes = (2 * ctx_keys * kvh * D * item      # cached K, V read once
+              + t * H * D * item                # q
+              + 2 * t * kvh * D * item          # new K, V
+              + t * H * D * item)               # out
+    flops = sum(4 * H * D * (st + i + 1) for st, n in segs
+                for i in range(n))
+    b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
+    log(f"[ragged] T={t} live={live} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# ------------------------------------------------------------------ engine
+
+PROMPT_TEXTS = [
+    ("The history of paged attention begins with virtual memory. " * 26),
+    ("Continuous batching keeps every slot of the batch busy. " * 12),
+    ("A ragged batch packs decode rows and prefill chunks together. " * 5),
+    "Hopper adds the tensor memory accelerator and warpgroup MMA.",
+    "Hello, world!",
+    ("Llama-3 uses grouped-query attention with eight kv heads. " * 2),
+]
+
+
+def drive(eng, prompts, max_tokens, tag):
+    from ray_tpu_torch import Request, SamplingParams
+    reqs = [Request(f"{tag}{i}", list(p),
+                    SamplingParams(max_tokens=max_tokens))
+            for i, p in enumerate(prompts)]
+    for r in reqs[:3]:
+        eng.add_request(r)
+    tick_ms = []
+    pending = reqs[3:]
+    while eng.has_work() or pending:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if pending:
+            eng.add_request(pending.pop(0))
+    return [r.output_tokens for r in reqs], tick_ms
+
+
+def teacher_logits(eng, tokens):
+    """Next-token logits after `tokens`, one fresh single-slot forward
+    with the engine's weights and attention impl."""
+    from ray_tpu_torch.models.llama_infer import ragged_forward
+    cfg = eng.model_cfg
+    dev = eng.device
+    page = eng.config.page_size
+    n = len(tokens)
+    pages = -(-n // page)
+    kv = (cfg.n_layers, pages + 1, page, cfg.n_kv_heads, cfg.head_dim)
+    kp = torch.zeros(kv, dtype=cfg.dtype, device=dev)
+    vp = torch.zeros(kv, dtype=cfg.dtype, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    logits, _, _ = ragged_forward(
+        cfg, eng.params, torch.tensor(tokens, **i32),
+        torch.zeros(n, **i32), torch.arange(n, **i32),
+        torch.ones(n, dtype=torch.bool, device=dev), torch.zeros(1, **i32),
+        torch.tensor([n - 1], **i32), kp, vp,
+        torch.arange(pages, **i32)[None], ctx_pages=0, impl=eng.impl,
+        max_seg_len=n)
+    return logits[0]
+
+
+def run_engine(dev):
+    from ray_tpu_torch import (ByteTokenizer, EngineConfig, InferenceEngine,
+                               SamplingParams)
+    from ray_tpu_torch.ops import _kernels
+    tok = ByteTokenizer(128256)
+    prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+    log(f"[engine] prompt lengths {[len(p) for p in prompts]}")
+    kw = dict(model="8b", max_batch_size=8, page_size=16,
+              max_prefill_tokens=512, num_pages=1025, seed=0)
+    t0 = time.perf_counter()
+    eng = InferenceEngine(EngineConfig(decode_impl="kernel", **kw))
+    torch.cuda.synchronize()
+    log(f"[engine] 8b init (random bf16 weights, seed 0) "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"params {sum(p.numel() for p in _leaves(eng.params)) / 1e9:.3f}B")
+    # warm-up on a throwaway request so the timed run excludes one-time
+    # costs (kernel load, allocator growth)
+    eng.generate([prompts[4]], SamplingParams(max_tokens=2))
+    _kernels.reset_launch_counts()
+    eng.ticks = eng.dispatches = eng.ragged_ticks = eng.decode_ticks = 0
+    out_k, ticks_k = drive(eng, prompts, 16, "k")
+    counts = _kernels.launch_counts()
+    st = eng.stats()
+    log(f"[engine kernel] ticks={st['ticks']} ragged={st['ragged_ticks']} "
+        f"decode={st['decode_ticks']} launches={counts}")
+    log(f"[engine kernel] tick ms: median {statistics.median(ticks_k):.2f} "
+        f"all {[round(x, 2) for x in ticks_k]}")
+    for name in ("paged_decode", "ragged_paged"):
+        if counts[name] <= 0:
+            raise AssertionError(f"main path never launched {name}")
+    n_layers = eng.model_cfg.n_layers
+    if counts["ragged_paged"] != n_layers * st["ragged_ticks"] or \
+            counts["paged_decode"] != n_layers * st["decode_ticks"]:
+        raise AssertionError("launch counts do not match ticks x layers")
+    for o in out_k:
+        if len(o) != 16 or not all(0 <= t < 128256 for t in o):
+            raise AssertionError(f"bad output stream {o}")
+    prof = run_profile(eng, prompts)
+    geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
+                           params=eng.params)
+    out_g, ticks_g = drive(geng, prompts, 16, "g")
+    log(f"[engine gather] tick ms: median {statistics.median(ticks_g):.2f}")
+    exact = compare_streams(eng, geng, prompts, out_k, out_g, "8b bf16")
+    del geng
+    # strict parity at a small size: f32 model, tokens must match exactly
+    small = dict(model="tiny", max_batch_size=4, page_size=16,
+                 max_prefill_tokens=64, num_pages=129, seed=1)
+    from ray_tpu_torch.models import llama
+    cfg32 = llama.config("tiny", dtype=torch.float32)
+    small["model"] = cfg32
+    e1 = InferenceEngine(EngineConfig(decode_impl="kernel", **small))
+    e2 = InferenceEngine(EngineConfig(decode_impl="gather", **small),
+                         params=e1.params)
+    sp = [p[:200] for p in prompts]
+    s1, _ = drive(e1, sp, 12, "s")
+    s2, _ = drive(e2, sp, 12, "s")
+    compare_streams(e1, e2, sp, s1, s2, "tiny f32")
+    return counts, dict(tick_ms_kernel=statistics.median(ticks_k),
+                        tick_ms_gather=statistics.median(ticks_g),
+                        ticks_ms_kernel=ticks_k, ticks_ms_gather=ticks_g,
+                        exact=exact, profile=prof)
+
+
+def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label):
+    """Greedy streams of the kernel and gather engines must be identical,
+    or first differ where the two candidates' logits lie within the
+    near-tie margin (the teacher-forced logits at the divergence point
+    are printed for both engines). Returns whether all were identical."""
+    exact = out_k == out_g
+    log(f"[engine {label}] kernel vs gather greedy streams identical: "
+        f"{exact}")
+    for i, (a, b) in enumerate(zip(out_k, out_g)):
+        if a == b:
+            continue
+        j = next(j for j in range(len(a)) if a[j] != b[j])
+        ctx = prompts[i] + a[:j]
+        lk = teacher_logits(eng_k, ctx)
+        lg = teacher_logits(eng_g, ctx)
+        top = lg.topk(2)
+        gap = abs(lg[a[j]].item() - lg[b[j]].item())
+        margin = NEAR_TIE
+        log(f"[engine {label}] request {i} diverges at output {j}: kernel "
+            f"token {a[j]}, gather token {b[j]}; gather top2 "
+            f"{top.indices.tolist()} {top.values.tolist()}; kernel top2 "
+            f"{lk.topk(2).indices.tolist()} {lk.topk(2).values.tolist()}; "
+            f"gap {gap:.4f} (near-tie margin {margin:.4f})")
+        if gap > margin:
+            raise AssertionError(f"{label} request {i}: kernel and gather "
+                                 f"engines differ beyond a near tie")
+    return exact
+
+
+def profile_ticks(eng, prompts, n_ticks, label):
+    """torch.profiler over `n_ticks` engine steps: the kernels with the
+    most device time, and device time against wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_ticks):
+            eng.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # device kernels only: an aten op's row repeats its kernels' time
+    evs = [e for e in prof.key_averages() if dev_us(e) > 0
+           and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not evs:
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0
+               and not e.key.startswith(("aten::", "cuda"))]
+    total = sum(dev_us(e) for e in evs) / 1e3
+    top = sorted(evs, key=dev_us, reverse=True)[:10]
+    log(f"[profile {label}] {n_ticks} ticks: kernels busy {total:.2f} ms "
+        f"on the device ({total / n_ticks:.2f} ms a tick); wall under the "
+        f"profiler {wall:.2f} ms")
+    rows = []
+    for e in top:
+        rows.append(dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
+                         calls=e.count))
+        log(f"[profile {label}]   {dev_us(e) / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+    return dict(ticks=n_ticks, profiled_wall_ms=wall, device_ms=total,
+                top=rows)
+
+
+def run_profile(eng, prompts):
+    """Profile mixed ticks (prefill chunks riding with decode rows), then
+    pure-decode ticks, of the kernel engine on fresh requests."""
+    from ray_tpu_torch import Request, SamplingParams
+    for i, p in enumerate(prompts):
+        # a fresh first token per prompt: no prefix-cache hit, so the
+        # prompts prefill in full and the first ticks are mixed ticks
+        eng.add_request(Request(f"prof{i}", [200 + i] + list(p),
+                                SamplingParams(max_tokens=40)))
+    mixed = profile_ticks(eng, prompts, 3, "mixed ticks")
+    while any(s.request is not None and not s.ready for s in eng.slots):
+        eng.step()
+    decode = profile_ticks(eng, prompts, 8, "decode ticks")
+    walls = []
+    for _ in range(8):                  # the same ticks, unprofiled
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    busy = decode["device_ms"] / decode["ticks"]
+    decode.update(tick_wall_ms=wall, idle_share=max(0.0, 1 - busy / wall))
+    log(f"[profile decode ticks] unprofiled tick {wall:.2f} ms, kernels "
+        f"{busy:.2f} ms: device idle {100 * decode['idle_share']:.1f}%")
+    while eng.has_work():
+        eng.step()
+    return dict(mixed=mixed, decode=decode)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the summary JSON to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    from ray_tpu_torch.ops import _kernels   # fails outside the repo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    log(f"[card] {name}; nvidia-smi: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    info = _kernels.build(verbose=True)
+    log(f"[build] {info['compiled']} in {time.perf_counter() - t0:.1f} s "
+        f"into {info['dir']}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    wide = check_decode(gen, dev, "512-page table",
+                        [0, 17, 256, 1000, 2049, 3000, 4095, 4096], 512)
+    narrow = check_decode(gen, dev, "8-page table",
+                          [1, 3, 16, 17, 64, 100, 127, 128], 8)
+    ragged = check_ragged(gen, dev)
+    counts, engine = run_engine(dev)
+    src = "ray_tpu_torch/ops/csrc/"
+    kernels = [
+        dict(name="ragged_paged", route="cuda", source=src + "ragged_paged.cu",
+             replaces="ray_tpu/ops/ragged_paged_attention.py:183",
+             launches=counts["ragged_paged"], **ragged),
+        dict(name="paged_decode", route="cuda", source=src + "paged_decode.cu",
+             replaces="ray_tpu/ops/paged_attention.py:225",
+             launches=counts["paged_decode"], **wide),
+        dict(name="paged_decode_narrow_table", route="cuda",
+             source=src + "paged_decode.cu",
+             replaces="ray_tpu/ops/paged_attention.py:158",
+             launches=counts["paged_decode"], **narrow),
+    ]
+    summary = {"kernels": kernels}
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(summary, card=card, engine=engine), f, indent=1)
+    print(json.dumps(summary), flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

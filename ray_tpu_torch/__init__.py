@@ -1,0 +1,13 @@
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's LLM serving path.
+
+Mirrors ``ray_tpu``'s layout (``models``, ``ops``, ``llm``). Device code
+is PyTorch; the Pallas kernels of the serving path are hand-written CUDA
+kernels for Hopper (``ops/csrc``). Imports torch and numpy, never jax and
+nothing of ``ray_tpu``.
+"""
+
+from .llm import (ByteTokenizer, EngineConfig, InferenceEngine, Request,
+                  SamplingParams)
+
+__all__ = ["ByteTokenizer", "EngineConfig", "InferenceEngine", "Request",
+           "SamplingParams"]

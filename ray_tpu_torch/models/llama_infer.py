@@ -1,0 +1,181 @@
+"""Cache-aware Llama forward passes for serving.
+
+PyTorch counterpart of ``ray_tpu/models/llama_infer.py``: the unified
+ragged forward (one call per engine tick with a prefilling slot) and
+the pure-decode step, over the shared paged pool
+``[n_layers, num_pages, page_size, KVH, D]``. ``impl`` picks the
+attention: "gather" (dense, the plain version) or "kernel" (the CUDA
+kernels on a CUDA tensor; their plain versions on a CPU tensor).
+
+Not here yet: tensor parallelism, LoRA, quantized pools.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.paged_attention import (gather_layer, paged_attention_on_gathered,
+                                   paged_decode_with_new_token, scatter_kv)
+from ..ops.ragged_paged_attention import (ragged_paged_attention,
+                                          ragged_plan,
+                                          ragged_prefill_decode_attention)
+from .llama import LlamaConfig, rms_norm, rope_frequencies
+
+IMPLS = ("gather", "kernel")
+
+
+def _rope_single(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, D) one token per row; cos/sin: (B, D//2)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    cos = cos[:, None, :]
+    sin = sin[:, None, :]
+    xf1, xf2 = x1.float(), x2.float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _proj(y: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """y @ w in the compute dtype (weights are already stored in it by
+    ``weights.params_from_numpy``; the cast is then a no-op)."""
+    return y @ w.to(dt)
+
+
+def _layer_body(cfg: LlamaConfig, dt, x, layer: Dict[str, torch.Tensor],
+                lead: int, rope_fn, attn_fn):
+    """ONE transformer layer, shared by the ragged and decode paths.
+    Returns (x, (k, v)) with k/v rope'd, ready for the KV scatter."""
+    y = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    q = _proj(y, layer["wq"], dt).reshape(lead, cfg.n_heads, cfg.head_dim)
+    k = _proj(y, layer["wk"], dt).reshape(lead, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(y, layer["wv"], dt).reshape(lead, cfg.n_kv_heads, cfg.head_dim)
+    q = rope_fn(q)
+    k = rope_fn(k)
+    attn = attn_fn(q, k, v)
+    x = x + _proj(attn.reshape(lead, cfg.q_dim), layer["wo"], dt)
+    y = rms_norm(x, layer["ln2"], cfg.norm_eps)
+    gate = F.silu(y @ layer["wg"].to(dt))
+    up = y @ layer["wi"].to(dt)
+    x = x + (gate * up) @ layer["wd"].to(dt)
+    return x, (k, v)
+
+
+def _layer(params, i: int) -> Dict[str, torch.Tensor]:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
+                   tokens: torch.Tensor, slot_ids: torch.Tensor,
+                   positions: torch.Tensor, valid: torch.Tensor,
+                   start: torch.Tensor, last_idx: torch.Tensor,
+                   k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   page_tables: torch.Tensor, ctx_pages: int = -1,
+                   impl: str = "gather", max_seg_len: int = -1
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unified ragged prefill+decode forward over a flat token batch.
+
+    tokens, slot_ids, positions: (T,) int32; valid: (T,) bool; start:
+    (B,) int32 tokens already cached per slot; last_idx: (B,) flat index
+    of each slot's last token (the logits source); page_tables:
+    (B, max_pages) int32. Returns (logits (B, V) float32, k_pages,
+    v_pages) with every valid token's KV written into the pools IN
+    PLACE at its position (invalid rows hit the scratch page)."""
+    _check_impl(impl)
+    t = tokens.shape[0]
+    dt = cfg.dtype
+    x = params["embed"].to(dt)[tokens.long()]             # (T, H)
+    cos, sin = rope_frequencies(cfg, positions)
+    if impl == "gather":
+        ctx_tables = (page_tables if ctx_pages < 0
+                      else page_tables[:, :ctx_pages])
+    else:
+        max_seg = t if max_seg_len < 0 else max(min(max_seg_len, t), 1)
+        # the segment map is the same for every layer: build it once
+        plan = ragged_plan(slot_ids, positions, valid, start, max_seg)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        if impl == "gather":
+            k_ctx = gather_layer(k_pages[i], ctx_tables)
+            v_ctx = gather_layer(v_pages[i], ctx_tables)
+
+            def attn_fn(q, k, v):
+                return ragged_prefill_decode_attention(
+                    q, k_ctx, v_ctx, k, v, slot_ids, positions, valid,
+                    start)
+        else:
+            def attn_fn(q, k, v, i=i):
+                return ragged_paged_attention(
+                    q, k_pages[i], v_pages[i], page_tables, slot_ids,
+                    positions, valid, start, k.contiguous(),
+                    v.contiguous(), ctx_pages=ctx_pages,
+                    max_seg_len=max_seg, plan=plan)
+        x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), t,
+                                lambda a: _rope_single(a, cos, sin),
+                                attn_fn)
+        ks.append(k)
+        vs.append(v)
+    k_rows = torch.stack(ks, dim=1)                      # (T, L, KVH, D)
+    v_rows = torch.stack(vs, dim=1)
+    scatter_kv(k_pages, v_pages, k_rows, v_rows,
+               page_tables[slot_ids.long()], positions, valid)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = x[last_idx.long()]                            # (B, H)
+    logits = last.float() @ params["lm_head"].float()
+    return logits, k_pages, v_pages
+
+
+def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
+                tokens: torch.Tensor, positions: torch.Tensor,
+                k_pages: torch.Tensor, v_pages: torch.Tensor,
+                page_tables: torch.Tensor, active: torch.Tensor,
+                impl: str = "gather"
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step for the whole running batch.
+
+    tokens: (B,) last sampled token per slot; positions: (B,) int32 its
+    absolute position (== cached tokens); active: (B,) bool. Returns
+    (logits (B, V) float32, k_pages, v_pages) with the new token's KV
+    written IN PLACE. The kernel impl passes the full-width table; the
+    kernel stops at each sequence's own last page."""
+    _check_impl(impl)
+    b = tokens.shape[0]
+    dt = cfg.dtype
+    x = params["embed"].to(dt)[tokens.long()]             # (B, H)
+    cos, sin = rope_frequencies(cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        if impl == "gather":
+            k_ctx = gather_layer(k_pages[i], page_tables)
+            v_ctx = gather_layer(v_pages[i], page_tables)
+
+            def attn_fn(q, k, v):
+                k_full = torch.cat([k_ctx, k[:, None]], dim=1)
+                v_full = torch.cat([v_ctx, v[:, None]], dim=1)
+                return paged_attention_on_gathered(
+                    q, k_full, v_full, positions, append_len=1)
+        else:
+            def attn_fn(q, k, v, i=i):
+                return paged_decode_with_new_token(
+                    q, k_pages[i], v_pages[i], page_tables, positions,
+                    k.contiguous(), v.contiguous())
+        x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), b,
+                                lambda a: _rope_single(a, cos, sin),
+                                attn_fn)
+        ks.append(k)
+        vs.append(v)
+    k_rows = torch.stack(ks, dim=1)                      # (B, L, KVH, D)
+    v_rows = torch.stack(vs, dim=1)
+    scatter_kv(k_pages, v_pages, k_rows, v_rows, page_tables, positions,
+               active)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x.float() @ params["lm_head"].float()
+    return logits, k_pages, v_pages

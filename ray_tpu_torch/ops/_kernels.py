@@ -1,0 +1,155 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded through ``ctypes`` (no PyTorch headers
+in the build, so a build takes seconds). Builds happen at first use,
+from the sources in this checkout only, into
+``<checkout>/build/ray_tpu_torch/<hash>/``; the hash covers every
+source and the compiler flags, so an edited source rebuilds and an
+unchanged one is reused. All sources compile in parallel, one ``nvcc``
+each.
+
+Every kernel has a launch counter (``Kernel.launches``) that its
+wrapper increments once per launch and nowhere else, so a run can show
+that its main path went through the kernel. Nothing here runs at
+import: the CPU tests import every module without ``nvcc`` present.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "ops", "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "ray_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class Kernel:
+    """One compiled source: its C entry point, argument types and
+    launch counter."""
+
+    def __init__(self, name: str, source: str, entry: str, argtypes):
+        self.name = name
+        self.source = source
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def fn(self):
+        if self._fn is None:
+            build()
+        return self._fn
+
+
+PAGED_DECODE = Kernel(
+    "paged_decode", "paged_decode.cu", "paged_decode_launch",
+    [_P] * 13 + [_I] * 9 + [_P])
+RAGGED_PAGED = Kernel(
+    "ragged_paged", "ragged_paged.cu", "ragged_paged_launch",
+    [_P] * 11 + [_I] * 11 + [_P])
+KERNELS: List[Kernel] = [PAGED_DECODE, RAGGED_PAGED]
+
+_lock = threading.Lock()
+_build_info: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of ray_tpu_torch "
+                       "build with nvcc (set CUDA_HOME)")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(os.listdir(CSRC)):
+        if f.endswith((".cu", ".cuh")):
+            h.update(f.encode())
+            with open(os.path.join(CSRC, f), "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Dict[str, object]:
+    """Compile (or reuse) and load every kernel library. Returns
+    {"dir", "seconds", "compiled": [names], "ptxas": {name: text}}."""
+    with _lock:
+        if all(k._fn is not None for k in KERNELS):
+            return _build_info
+        t0 = time.perf_counter()
+        out_dir = os.path.join(BUILD_ROOT, source_hash())
+        os.makedirs(out_dir, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for k in KERNELS:
+            so = os.path.join(out_dir, f"lib{k.name}.so")
+            if os.path.exists(so):
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, k.source)]
+            procs[k.name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, so)
+        ptxas = {}
+        failed = []
+        for name, (p, tmp, so) in procs.items():
+            text, _ = p.communicate()
+            ptxas[name] = text
+            if p.returncode != 0:
+                failed.append(f"{name} (rc {p.returncode}):\n{text}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for k in KERNELS:
+            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{k.name}.so"))
+            fn = getattr(lib, k.entry)
+            fn.argtypes = k.argtypes
+            fn.restype = ctypes.c_int
+            k._fn = fn
+        _build_info.update(dir=out_dir, seconds=time.perf_counter() - t0,
+                           compiled=sorted(procs), ptxas=ptxas)
+        if verbose:
+            for name, text in ptxas.items():
+                print(f"[nvcc {name}]\n{text}")
+        return _build_info
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a launch the C side refused (-1) or CUDA reported."""
+    if rc != 0:
+        what = ("arguments the kernel does not take" if rc == -1
+                else f"cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: {what}")
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def dtype_code(dtype) -> Optional[int]:
+    import torch
+    return {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}.get(dtype)

@@ -24,6 +24,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running or TPU-only; excluded from tier-1 CI")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (ray_tpu_torch CUDA kernels); skips "
+        "inside the test when none is present")
 
 
 @pytest.fixture()

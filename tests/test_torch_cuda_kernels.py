@@ -1,0 +1,201 @@
+"""ray_tpu_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs an NVIDIA GPU: it carries the `cuda`
+marker and skips, inside the test, without one. This file imports no
+jax, so it also runs where jax is absent:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: float32 1e-4/1e-5 (same products, another summation order);
+bfloat16 3e-2 absolute (both sides round one float32 result to bf16;
+one bf16 ulp at |x| < 4 is 1.6e-2).
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.ops import ragged_paged_attention as rpa
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode "
+                    "(their plain versions are tested against the JAX "
+                    "package in tests/test_torch_*_attention.py)")
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dev, dtype):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _decode_case(dev, dtype, lens, max_pages, H, KVH, D, page=16, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    P = B * max_pages + 1
+    tables = torch.randperm(P - 1, generator=gen, device=dev)[
+        :B * max_pages].reshape(B, max_pages).to(torch.int32)
+    return dict(
+        q=_randn(gen, (B, H, D), dev, dtype),
+        k=_randn(gen, (P, page, KVH, D), dev, dtype),
+        v=_randn(gen, (P, page, KVH, D), dev, dtype),
+        tables=tables,
+        lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+        k_new=_randn(gen, (B, KVH, D), dev, dtype),
+        v_new=_randn(gen, (B, KVH, D), dev, dtype))
+
+
+def _tol(dtype):
+    return (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+            else dict(atol=3e-2, rtol=0))
+
+
+DECODE_CASES = [
+    # dtype, lens, max_pages, H, KVH, D
+    (torch.bfloat16, [0, 31, 300, 640, 4096], 512, 32, 8, 128),
+    (torch.bfloat16, [1, 16, 17, 128], 8, 32, 8, 128),
+    (torch.float32, [5, 77, 256], 32, 8, 2, 64),
+    (torch.float16, [9, 1000], 64, 16, 16, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lens,max_pages,H,KVH,D", DECODE_CASES)
+def test_decode_kernel_matches_plain(dev, dtype, lens, max_pages, H, KVH,
+                                     D):
+    c = _decode_case(dev, dtype, lens, max_pages, H, KVH, D)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+    before = _kernels.PAGED_DECODE.launches
+    out, m, l = pa.paged_decode_attention(*args, return_stats=True)
+    ref, m_r, l_r = pa.paged_decode_attention_plain(*args,
+                                                    return_stats=True)
+    torch.cuda.synchronize()
+    assert _kernels.PAGED_DECODE.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, l_r, atol=1e-3, rtol=1e-4)
+    out = pa.paged_decode_with_new_token(*args, c["k_new"], c["v_new"])
+    ref = pa.paged_decode_with_new_token_plain(*args, c["k_new"],
+                                               c["v_new"])
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+def _ragged_case(dev, dtype, segs, pad, H, KVH, D, page=16, seed=1):
+    """[(start, n)] per slot: cached context of `start` tokens in the
+    pool, n tokens in the flat batch at positions start.., padding rows
+    after them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(segs)
+    max_pages = max(-(-max(s + n for s, n in segs) // page), 1)
+    P = B * max_pages + 1
+    tables = torch.randperm(P - 1, generator=gen, device=dev)[
+        :B * max_pages].reshape(B, max_pages).to(torch.int32)
+    t = sum(n for _, n in segs) + pad
+    slot_ids = torch.zeros(t, dtype=torch.int32)
+    positions = torch.zeros(t, dtype=torch.int32)
+    valid = torch.zeros(t, dtype=torch.bool)
+    cur = 0
+    for s, (start, n) in enumerate(segs):
+        slot_ids[cur:cur + n] = s
+        positions[cur:cur + n] = torch.arange(start, start + n)
+        valid[cur:cur + n] = True
+        cur += n
+    return (_randn(gen, (t, H, D), dev, dtype),
+            _randn(gen, (P, page, KVH, D), dev, dtype),
+            _randn(gen, (P, page, KVH, D), dev, dtype), tables,
+            slot_ids.to(dev), positions.to(dev), valid.to(dev),
+            torch.tensor([s for s, _ in segs], dtype=torch.int32,
+                         device=dev),
+            _randn(gen, (t, KVH, D), dev, dtype),
+            _randn(gen, (t, KVH, D), dev, dtype))
+
+
+RAGGED_CASES = [
+    # name, dtype, segs, pad, H, KVH, D
+    ("decode_only", torch.float32, [(5, 1), (11, 1), (3, 1), (80, 1)], 0,
+     4, 2, 64),
+    ("mixed", torch.float32, [(7, 1), (0, 5), (12, 1), (40, 70)], 0,
+     4, 2, 64),
+    ("gqa_group1", torch.float32, [(6, 2), (0, 3), (10, 1)], 0, 3, 3, 32),
+    ("gqa_group4", torch.float32, [(6, 2), (0, 3), (100, 1)], 0, 8, 2, 32),
+    ("start_zero", torch.float32, [(0, 1), (0, 4), (0, 1)], 0, 4, 2, 64),
+    ("padding_rows", torch.float32, [(5, 1), (0, 4)], 7, 4, 2, 64),
+    ("all_padding", torch.float32, [(0, 0)], 6, 4, 2, 64),
+    ("8b_mixed_bf16", torch.bfloat16,
+     [(33, 1), (1023, 1), (3999, 1), (0, 200), (700, 300)], 3, 32, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,segs,pad,H,KVH,D", RAGGED_CASES)
+def test_ragged_kernel_matches_plain(dev, name, dtype, segs, pad, H, KVH,
+                                     D):
+    args = _ragged_case(dev, dtype, segs, pad, H, KVH, D)
+    before = _kernels.RAGGED_PAGED.launches
+    out = rpa.ragged_paged_attention(*args)
+    ref = rpa.ragged_paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.RAGGED_PAGED.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    valid = args[6]
+    assert torch.all(out[~valid] == 0)
+    # static bounds that cover the live data change nothing
+    t = args[0].shape[0]
+    seg = max(max(n for _, n in segs), 1)
+    ctx = max(-(-max(s for s, _ in segs) // 16), 1)
+    bounded = rpa.ragged_paged_attention(*args, ctx_pages=ctx,
+                                         max_seg_len=min(seg, t))
+    torch.testing.assert_close(bounded, out, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    c = _decode_case(dev, torch.bfloat16, [3, 9], 4, 8, 2, 64)
+    args = [c["q"], c["k"], c["v"], c["tables"], c["lens"]]
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(*args[:3], args[3].long(), args[4])
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(args[0], args[1][..., :60].contiguous(),
+                                  args[2][..., :60].contiguous(),
+                                  *args[3:])
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(args[0], *args[1:3], args[3].cpu(),
+                                  args[4])
+
+
+@pytest.mark.cuda
+def test_engine_kernel_impl_matches_gather_f32(dev):
+    """Small float32 engine: greedy tokens of the kernel impl equal the
+    gather impl's, and both kernels' launch counters move."""
+    from ray_tpu_torch import (EngineConfig, InferenceEngine, Request,
+                               SamplingParams)
+    from ray_tpu_torch.models import llama
+    kw = dict(model=llama.config("debug", dtype=torch.float32),
+              max_batch_size=3, page_size=8, num_pages=64,
+              max_prefill_tokens=16, seed=9)
+    ek = InferenceEngine(EngineConfig(decode_impl="kernel", **kw))
+    eg = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
+                         params=ek.params)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (40, 23, 1, 33, 7, 19)]
+    outs = []
+    for eng in (ek, eg):
+        reqs = [Request(f"r{i}", p, SamplingParams(max_tokens=10))
+                for i, p in enumerate(prompts)]
+        _kernels.reset_launch_counts()
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        outs.append([r.output_tokens for r in reqs])
+        counts = _kernels.launch_counts()
+        if eng is ek:
+            assert counts["ragged_paged"] > 0 and counts["paged_decode"] > 0
+        else:
+            assert counts == {"ragged_paged": 0, "paged_decode": 0}
+    assert outs[0] == outs[1]

@@ -1,0 +1,242 @@
+"""ray_tpu_torch's InferenceEngine and sampler against ray_tpu's.
+
+- `_sample` is token-equal to the JAX sampler when fed JAX's own Gumbel
+  noise (jax.random.categorical(key, x) is argmax(x + gumbel(key))).
+- The port engine (device="cpu", params converted from the JAX
+  engine's) gives the same greedy tokens as the JAX engine with
+  decode_impl="gather" and async_readback=False (the port reads back
+  synchronously too; the JAX engine's pipelined readback gave
+  run-to-run different greedy tokens on the prefix-cache workload
+  below, so it is no oracle) on the staggered mixed workload of
+  tests/test_ragged_attention.py, with a repetition penalty, and with a
+  shared prompt prefix — on both of the port's attention impls (on the
+  CPU "kernel" runs the kernels' plain versions through the kernel
+  path's plumbing). Exact token equality: float32 debug model.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.llm._internal import engine as je
+from ray_tpu.models import llama as jl
+from ray_tpu_torch.llm._internal import engine as te
+from ray_tpu_torch.models import llama as tl
+
+torch.set_num_threads(1)
+
+
+# ---------------------------------------------------------------- sampler
+
+SAMPLER_CASES = [
+    # temps, top_ps, top_ks, rep_pens
+    ("mixed", [0.0, 0.7, 1.3, 1.0], [1.0, 0.9, 0.5, 1.0], [0, 5, 0, 1],
+     [1.0, 1.2, 0.8, 1.0]),
+    ("top_p_only", [1.0, 0.5, 2.0, 0.9], [0.3, 0.8, 0.95, 0.1],
+     [0, 0, 0, 0], [1.0, 1.0, 1.0, 1.0]),
+    ("top_k_only", [1.0, 1.0, 0.6, 3.0], [1.0, 1.0, 1.0, 1.0],
+     [1, 2, 7, 40], [1.3, 1.0, 1.0, 1.0]),
+]
+
+
+@pytest.mark.parametrize("name,temps,top_ps,top_ks,rep_pens",
+                         SAMPLER_CASES)
+def test_sample_matches_jax_with_jax_noise(name, temps, top_ps, top_ks,
+                                           rep_pens):
+    rng = np.random.default_rng(len(name))
+    B, V = 4, 64
+    for trial in range(5):
+        logits = (rng.normal(size=(B, V)) * 3).astype(np.float32)
+        seen = rng.random((B, V)) < 0.2
+        seeds = jnp.asarray(rng.integers(0, 2 ** 31 - 1, B), jnp.int32)
+        idx = jnp.asarray(rng.integers(0, 500, B), jnp.int32)
+        keys = je._row_sample_keys(seeds, idx)
+        noise = np.asarray(jax.vmap(
+            lambda k: jax.random.gumbel(k, (V,), jnp.float32))(keys))
+        f32 = lambda a: np.asarray(a, np.float32)
+        ref = np.asarray(je._sample(
+            jnp.asarray(logits), None, jnp.asarray(f32(temps)),
+            jnp.asarray(f32(top_ps)), jnp.asarray(np.asarray(top_ks,
+                                                              np.int32)),
+            jnp.asarray(f32(rep_pens)), jnp.asarray(seen), False,
+            row_keys=keys))
+        out = te._sample(
+            torch.from_numpy(logits), torch.from_numpy(f32(temps)),
+            torch.from_numpy(f32(top_ps)),
+            torch.tensor(top_ks, dtype=torch.int32),
+            torch.from_numpy(f32(rep_pens)), torch.from_numpy(seen),
+            gumbel=torch.from_numpy(noise))
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), ref, err_msg=f"{trial}")
+
+
+def test_sample_all_greedy_matches_jax():
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(5, 33)).astype(np.float32)
+    logits[2, 4] = logits[2, 9] = logits[2].max() + 1   # tie: first index
+    ref = np.asarray(je._sample(jnp.asarray(logits), None, None, None,
+                                all_greedy=True))
+    out = te._sample(torch.from_numpy(logits), None, None, all_greedy=True)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert out[2] == 4
+
+
+def test_gumbel_rows_depend_only_on_seed_and_index():
+    a = te.gumbel_rows([3, 3, 8], [10, 11, 10], 50, "cpu")
+    b = te.gumbel_rows([8, 3], [10, 10], 50, "cpu")
+    assert torch.equal(a[0], b[1]) and torch.equal(a[2], b[0])
+    assert not torch.equal(a[0], a[1])
+    assert torch.isfinite(a).all()
+
+
+# ----------------------------------------------------------------- engine
+
+ENGINE_KW = dict(max_batch_size=3, page_size=8, num_pages=64,
+                 max_prefill_tokens=16, seed=9)
+
+
+def _jax_engine(**over):
+    kw = dict(ENGINE_KW, model=jl.config("debug", dtype=jnp.float32),
+              prefill_buckets=(16, 32, 64), decode_impl="gather",
+              async_readback=False)
+    kw.update(over)
+    return je.InferenceEngine(je.EngineConfig(**kw))
+
+
+def _port_engine(jeng, impl, **over):
+    kw = dict(ENGINE_KW, model=tl.config("debug", dtype=torch.float32),
+              device="cpu", decode_impl=impl)
+    kw.update(over)
+    params = jax.tree_util.tree_map(np.asarray, jeng.params)
+    return te.InferenceEngine(te.EngineConfig(**kw), params=params)
+
+
+def _drive(eng, mod, prompts, **sp):
+    """Staggered mixed workload: more requests than slots, added while
+    earlier ones decode — ticks mix prefill chunks and decode rows."""
+    reqs = [mod.Request(f"r{i}", list(p), mod.SamplingParams(**sp))
+            for i, p in enumerate(prompts)]
+    for r in reqs[:2]:
+        eng.add_request(r)
+    for r in reqs[2:]:
+        eng.step()
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+    return [r.output_tokens for r in reqs]
+
+
+def _prompts():
+    rng = np.random.default_rng(3)
+    lens = (40, 23, 1, 33, 7, 19)
+    return [rng.integers(2, 250, n).tolist() for n in lens]
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX gather engine's outputs, computed once per workload."""
+    out = {}
+    out["greedy"] = _drive(_jax_engine(), je, _prompts(), max_tokens=12)
+    out["penalty"] = _drive(_jax_engine(), je, _prompts(), max_tokens=10,
+                            repetition_penalty=1.3)
+    return out
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("workload,sp", [
+    ("greedy", dict(max_tokens=12)),
+    ("penalty", dict(max_tokens=10, repetition_penalty=1.3)),
+])
+def test_engine_token_exact_vs_jax_gather(jax_runs, workload, sp, impl):
+    eng = _port_engine(_jax_engine(), impl)
+    out = _drive(eng, te, _prompts(), **sp)
+    assert out == jax_runs[workload]
+    st = eng.stats()
+    assert st["ragged_ticks"] > 0 and st["decode_ticks"] > 0
+    assert st["dispatches_per_step"] == 1.0
+    assert st["kv"]["used_pages"] == 0          # every page came back
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+def test_engine_prefix_cache_token_exact_vs_jax(impl):
+    rng = np.random.default_rng(5)
+    shared = rng.integers(2, 250, 24).tolist()
+    prompts = [shared + [5], shared + [9, 11]]
+    jeng = _jax_engine(enable_prefix_caching=True)
+    ref = [jeng.generate([list(p)], je.SamplingParams(max_tokens=8)
+                         )[0].output_tokens for p in prompts]
+    eng = _port_engine(jeng, impl, enable_prefix_caching=True)
+    outs = [eng.generate([list(p)], te.SamplingParams(max_tokens=8)
+                         )[0].output_tokens for p in prompts]
+    assert eng.allocator.cache_hit_tokens >= 16
+    assert outs == ref
+    cold = _port_engine(jeng, impl, enable_prefix_caching=False)
+    assert [cold.generate([list(p)], te.SamplingParams(max_tokens=8)
+                          )[0].output_tokens for p in prompts] == ref
+
+
+def test_sampled_stream_independent_of_batch():
+    """A sampled request's tokens depend on (seed, token index) only, not
+    on what else shares its ticks."""
+    jeng = _jax_engine()
+    sp = dict(max_tokens=8, temperature=0.9, top_p=0.9, top_k=20, seed=77)
+    alone = _port_engine(jeng, "gather")
+    req = te.Request("x", _prompts()[0], te.SamplingParams(**sp))
+    alone.add_request(req)
+    while alone.has_work():
+        alone.step()
+    busy = _port_engine(jeng, "gather")
+    others = [te.Request(f"o{i}", p, te.SamplingParams(max_tokens=5))
+              for i, p in enumerate(_prompts()[1:3])]
+    req2 = te.Request("y", _prompts()[0], te.SamplingParams(**sp))
+    for r in others + [req2]:
+        busy.add_request(r)
+    while busy.has_work():
+        busy.step()
+    assert req2.output_tokens == req.output_tokens
+    assert len(req.output_tokens) == 8
+
+
+def test_engine_stop_abort_and_limits():
+    jeng = _jax_engine()
+    eng = _port_engine(jeng, "gather")
+    first = eng.generate([_prompts()[1]], te.SamplingParams(max_tokens=4))[0]
+    stop = first.output_tokens[1]
+    r = eng.generate([_prompts()[1]], te.SamplingParams(
+        max_tokens=4, stop_token_ids=(stop,)))[0]
+    assert r.finish_reason == "stop" and r.output_tokens == \
+        first.output_tokens[:2]
+    a = te.Request("a", _prompts()[0], te.SamplingParams(max_tokens=30))
+    b = te.Request("b", _prompts()[3], te.SamplingParams(max_tokens=30))
+    eng.add_request(a)
+    eng.step()
+    eng.add_request(b)
+    assert eng.abort("b") and b.finish_reason == "abort"
+    assert eng.abort("a") and a.finish_reason == "abort"
+    assert not eng.abort("zzz")
+    assert not eng.has_work()
+    assert eng.stats()["kv"]["used_pages"] == 0
+    with pytest.raises(ValueError):
+        eng.add_request(te.Request("big", [1] * 250,
+                                   te.SamplingParams(max_tokens=10)))
+
+
+@pytest.mark.parametrize("over,exc", [
+    (dict(kv_dtype="int8"), ValueError),
+    (dict(decode_impl="pallas"), ValueError),
+    (dict(device="meta"), ValueError),
+])
+def test_engine_config_rejects_unported_options(over, exc):
+    kw = dict(device="cpu")
+    kw.update(over)
+    with pytest.raises(exc):
+        te.InferenceEngine(te.EngineConfig(**kw))
+
+
+def test_engine_config_unknown_fields_raise():
+    for field in ("async_readback", "unified_step", "mesh"):
+        with pytest.raises(TypeError):
+            te.EngineConfig(**{field: None})
+    assert te.InferenceEngine(te.EngineConfig(device="cpu")).impl == "gather"

@@ -1,0 +1,199 @@
+"""ray_tpu_torch.ops.paged_attention against ray_tpu.ops.paged_attention.
+
+The port's decode kernel runs only on a CUDA card; on the CPU its
+wrappers run the plain PyTorch versions, which are held here against
+the JAX Pallas kernels in interpret mode (as tests/test_paged_kernel.py
+runs them) and against the dense reference. The kernel itself is held
+against the plain version by tests/test_torch_cuda_kernels.py (and
+chip_smoke.py) on the card.
+
+Tolerances: float32 throughout, 2e-5 — the JAX kernels and the port sum
+the same float32 products in another order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import paged_attention as jpa
+from ray_tpu_torch.ops import paged_attention as tpa
+
+torch.set_num_threads(1)
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _case(seed, B, H, KVH, D, num_pages, page_size, max_pages, lens):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(num_pages, page_size, KVH, D)).astype(np.float32)
+    v = rng.normal(size=(num_pages, page_size, KVH, D)).astype(np.float32)
+    tables = rng.permutation(num_pages - 1)[:B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    k_new = rng.normal(size=(B, KVH, D)).astype(np.float32)
+    v_new = rng.normal(size=(B, KVH, D)).astype(np.float32)
+    return dict(q=q, k=k, v=v, tables=tables,
+                lens=np.asarray(lens, np.int32), k_new=k_new, v_new=v_new)
+
+
+def _t(c, *names):
+    return [torch.from_numpy(np.array(c[n])) for n in names]
+
+
+def _j(c, *names):
+    return [jnp.asarray(c[n]) for n in names]
+
+
+CASES = [
+    # name, B, H, KVH, D, num_pages, page_size, max_pages, lens
+    ("narrow", 3, 8, 4, 64, 32, 16, 8, [5, 37, 128]),
+    ("gqa4", 4, 8, 2, 32, 40, 8, 8, [1, 9, 64, 33]),
+    ("mha", 2, 4, 4, 32, 20, 4, 6, [24, 7]),
+]
+
+
+@pytest.mark.parametrize("name,B,H,KVH,D,P,page,maxp,lens", CASES)
+def test_decode_plain_matches_pallas_interpret(name, B, H, KVH, D, P, page,
+                                               maxp, lens):
+    """Plain decode (with stats) vs the one-page-per-step Pallas kernel
+    (`_paged_decode_kernel`, what interpret mode runs)."""
+    c = _case(len(name), B, H, KVH, D, P, page, maxp, lens)
+    out_j, m_j, l_j = jpa.paged_decode_attention(
+        *_j(c, "q", "k", "v", "tables", "lens"), return_stats=True,
+        interpret=True)
+    out_t, m_t, l_t = tpa.paged_decode_attention(
+        *_t(c, "q", "k", "v", "tables", "lens"), return_stats=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), **TOL)
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j), **TOL)
+
+
+def test_decode_plain_matches_multipage_interpret():
+    """Plain decode vs the multi-page Pallas kernel
+    (`_paged_decode_kernel_mp`, the TPU hot path) in interpret mode —
+    including the seq_len 0 row, which attends one key there and here."""
+    c = _case(3, 3, 8, 4, 64, 100, 8, 32, [0, 77, 256])
+    out_j, m_j, l_j = jpa._paged_decode_multipage(
+        *_j(c, "q", "k", "v", "tables", "lens"), ppb=4, interpret=True)
+    out_t, m_t, l_t = tpa.paged_decode_attention(
+        *_t(c, "q", "k", "v", "tables", "lens"), return_stats=True)
+    np.testing.assert_allclose(out_t.numpy(),
+                               np.asarray(out_j).reshape(3, 8, 64), **TOL)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j).reshape(3, 8),
+                               **TOL)
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j).reshape(3, 8),
+                               **TOL)
+
+
+@pytest.mark.parametrize("name,B,H,KVH,D,P,page,maxp,lens", CASES)
+def test_decode_with_new_token_matches_jax(name, B, H, KVH, D, P, page,
+                                           maxp, lens):
+    c = _case(7 + len(name), B, H, KVH, D, P, page, maxp, lens)
+    ref = jpa.paged_decode_with_new_token(
+        *_j(c, "q", "k", "v", "tables", "lens", "k_new", "v_new"),
+        interpret=True)
+    out = tpa.paged_decode_with_new_token(
+        *_t(c, "q", "k", "v", "tables", "lens", "k_new", "v_new"))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # and the dense reference with the new token appended
+    kt, vt, tb = _t(c, "k", "v", "tables")
+    kn, vn = _t(c, "k_new", "v_new")
+    k_full = torch.cat([tpa.gather_layer(kt, tb), kn[:, None]], 1)
+    v_full = torch.cat([tpa.gather_layer(vt, tb), vn[:, None]], 1)
+    dense = tpa.paged_attention_on_gathered(
+        torch.from_numpy(c["q"]), k_full, v_full,
+        torch.from_numpy(c["lens"]), append_len=1)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), **TOL)
+
+
+def test_gather_and_dense_attention_match_jax():
+    rng = np.random.default_rng(5)
+    L, P, page, KVH, D, B, H = 2, 12, 4, 2, 8, 3, 4
+    k = rng.normal(size=(L, P, page, KVH, D)).astype(np.float32)
+    v = rng.normal(size=(L, P, page, KVH, D)).astype(np.float32)
+    tables = rng.integers(0, P - 1, (B, 3)).astype(np.int32)
+    kj, vj = jpa.gather_kv(jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(tables))
+    kt, vt = tpa.gather_kv(torch.from_numpy(k), torch.from_numpy(v),
+                           torch.from_numpy(tables))
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(
+        tpa.gather_layer(torch.from_numpy(k[1]),
+                         torch.from_numpy(tables)).numpy(), np.asarray(kj[1]))
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    lens = np.asarray([3, 12, 7], np.int32)
+    for append in (0, 1):
+        ref = jpa.paged_attention_on_gathered(
+            jnp.asarray(q), kj[0], vj[0], jnp.asarray(lens),
+            append_len=append)
+        out = tpa.paged_attention_on_gathered(
+            torch.from_numpy(q), kt[0], vt[0], torch.from_numpy(lens),
+            append_len=append)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_kv_matches_jax(dtype):
+    """In-place scatter vs JAX's functional one: valid rows land on their
+    own pages at the same flat rows; invalid rows only touch the scratch
+    page (whose final contents depend on write order on both sides)."""
+    rng = np.random.default_rng(6)
+    L, P, page, KVH, D, N = 2, 24, 4, 2, 8, 9
+    k0 = rng.normal(size=(L, P, page, KVH, D)).astype(np.float32)
+    v0 = rng.normal(size=(L, P, page, KVH, D)).astype(np.float32)
+    tables = rng.permutation(P - 1)[:N * 2].reshape(N, 2).astype(np.int32)
+    positions = rng.integers(0, 2 * page, N).astype(np.int32)
+    valid = np.asarray([1, 1, 0, 1, 0, 1, 1, 0, 1], bool)
+    k_new = rng.normal(size=(N, L, KVH, D)).astype(np.float32)
+    v_new = rng.normal(size=(N, L, KVH, D)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    kj, vj = jpa.scatter_kv(
+        jnp.asarray(k0, jdt), jnp.asarray(v0, jdt), jnp.asarray(k_new, jdt),
+        jnp.asarray(v_new, jdt), jnp.asarray(tables),
+        jnp.asarray(positions), jnp.asarray(valid))
+    kt = torch.from_numpy(k0).to(tdt)
+    vt = torch.from_numpy(v0).to(tdt)
+    rk, rv = tpa.scatter_kv(kt, vt, torch.from_numpy(k_new).to(tdt),
+                            torch.from_numpy(v_new).to(tdt),
+                            torch.from_numpy(tables),
+                            torch.from_numpy(positions),
+                            torch.from_numpy(valid))
+    assert rk is kt and rv is vt                      # written in place
+    kj32 = np.asarray(kj.astype(jnp.float32))
+    vj32 = np.asarray(vj.astype(jnp.float32))
+    np.testing.assert_array_equal(kt.float().numpy()[:, :-1],
+                                  kj32[:, :-1])
+    np.testing.assert_array_equal(vt.float().numpy()[:, :-1],
+                                  vj32[:, :-1])
+    # each scratch row holds one invalid row's values, or its old ones
+    scratch = kt.float().numpy()[:, -1]               # [L, page, KVH, D]
+    old = torch.from_numpy(k0).to(tdt).float().numpy()[:, -1]
+    knew = torch.from_numpy(k_new).to(tdt).float().numpy()
+    by_row = {}
+    for i in np.flatnonzero(~valid):
+        by_row.setdefault(int(positions[i] % page), []).append(i)
+    for r in range(page):
+        if r in by_row:
+            assert any(np.array_equal(scratch[:, r], knew[i])
+                       for i in by_row[r])
+        else:
+            np.testing.assert_array_equal(scratch[:, r], old[:, r])
+
+
+def test_decode_args_are_checked():
+    c = _case(9, 2, 8, 4, 32, 10, 4, 3, [3, 5])
+    q, k, v, tb, ln = _t(c, "q", "k", "v", "tables", "lens")
+    tpa._check_decode_args(q, k, v, tb, ln)
+    with pytest.raises(TypeError):
+        tpa._check_decode_args(q, k, v, tb.long(), ln)
+    with pytest.raises(TypeError):
+        tpa._check_decode_args(q.double(), k, v, tb, ln)
+    with pytest.raises(ValueError):
+        tpa._check_decode_args(q[:, :6], k, v, tb, ln)
+    with pytest.raises(ValueError):
+        tpa._check_decode_args(q, k, v, tb.t().contiguous().t(), ln)
+    with pytest.raises(ValueError):
+        tpa._check_decode_args(q, k, v, tb, ln, k_new=q, v_new=q)
+    with pytest.raises(ValueError):
+        tpa.paged_decode_attention(q.to("meta"), k, v, tb, ln)

@@ -1,0 +1,199 @@
+"""ray_tpu_torch.ops.ragged_paged_attention against
+ray_tpu.ops.ragged_paged_attention.
+
+On the CPU the kernel entry `ragged_paged_attention` runs its plain
+version; here it is held against the JAX Pallas ragged kernel in
+interpret mode and the dense numpy oracle, on the segment cases of
+tests/test_ragged_attention.py (pure decode, pure prefill, mixed,
+single-token prompts, page-straddling chunks, padding rows, GQA
+widths, partial last pages, start=0, all padding). The segment map the
+CUDA kernel reads (`ragged_plan`) is checked here too; the kernel itself
+is held against the plain version by tests/test_torch_cuda_kernels.py
+(and chip_smoke.py) on the card.
+
+Tolerances: float32 — 2e-4/2e-5 against the oracle (the JAX op's own
+gate), 2e-3 against the interpret-mode kernel (its gate).
+"""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import ragged_paged_attention as jrpa
+from ray_tpu_torch.ops import ragged_paged_attention as trpa
+
+torch.set_num_threads(1)
+
+
+def _ragged_case(rng, segs, page_size=4, kvh=2, group=2, d=8, pad=0):
+    """The JAX test's case builder: [(start, n_tokens)] per slot, each
+    slot's context scattered into a paged pool."""
+    b = len(segs)
+    h = kvh * group
+    max_ctx = max((s for s, _ in segs), default=0)
+    max_pages = max(-(-max(s + n for s, n in segs) // page_size), 1)
+    num_pages = b * max_pages + 1
+    k_pages = np.zeros((num_pages, page_size, kvh, d), np.float32)
+    v_pages = np.zeros((num_pages, page_size, kvh, d), np.float32)
+    tables = np.arange(b * max_pages, dtype=np.int32).reshape(b, max_pages)
+    dense_k = rng.normal(size=(b, max(max_ctx, 1), kvh, d)).astype(
+        np.float32)
+    dense_v = rng.normal(size=(b, max(max_ctx, 1), kvh, d)).astype(
+        np.float32)
+    for s in range(b):
+        for p in range(segs[s][0]):
+            page = tables[s, p // page_size]
+            k_pages[page, p % page_size] = dense_k[s, p]
+            v_pages[page, p % page_size] = dense_v[s, p]
+    t = sum(n for _, n in segs) + pad
+    slot_ids = np.zeros(t, np.int32)
+    positions = np.zeros(t, np.int32)
+    valid = np.zeros(t, bool)
+    cur = 0
+    for s, (start, n) in enumerate(segs):
+        slot_ids[cur:cur + n] = s
+        positions[cur:cur + n] = np.arange(start, start + n)
+        valid[cur:cur + n] = True
+        cur += n
+    q = rng.normal(size=(t, h, d)).astype(np.float32)
+    k_new = rng.normal(size=(t, kvh, d)).astype(np.float32)
+    v_new = rng.normal(size=(t, kvh, d)).astype(np.float32)
+    start = np.asarray([s for s, _ in segs], np.int32)
+    return dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables,
+                slot_ids=slot_ids, positions=positions, valid=valid,
+                start=start, k_new=k_new, v_new=v_new,
+                dense_k=dense_k, dense_v=dense_v)
+
+
+ARGS = ("q", "k_pages", "v_pages", "tables", "slot_ids", "positions",
+        "valid", "start", "k_new", "v_new")
+
+
+def _torch_args(c):
+    return [torch.from_numpy(np.array(c[n])) for n in ARGS]
+
+
+def _oracle(c):
+    return jrpa.ragged_attention_dense_oracle(
+        c["q"], c["dense_k"], c["dense_v"], c["k_new"], c["v_new"],
+        c["slot_ids"], c["positions"], c["valid"], c["start"])
+
+
+OP_CASES = [
+    ("pure_decode", [(5, 1), (11, 1), (3, 1)], 0),
+    ("pure_prefill", [(0, 6), (0, 3), (0, 9)], 0),
+    ("mixed", [(7, 1), (0, 5), (12, 1), (4, 6)], 0),
+    ("single_token_prompts", [(0, 1), (0, 1), (9, 1)], 0),
+    ("page_straddle", [(3, 6), (6, 5), (2, 1)], 0),
+    ("padding_rows", [(5, 1), (0, 4)], 7),
+]
+
+
+@pytest.mark.parametrize("name,segs,pad", OP_CASES)
+def test_dense_op_matches_jax_op_and_oracle(name, segs, pad):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    c = _ragged_case(rng, segs, pad=pad)
+    out = trpa.ragged_paged_prefill_decode_attention(
+        *_torch_args(c)).numpy()
+    ref_j = np.asarray(jrpa.ragged_paged_prefill_decode_attention(
+        *[jnp.asarray(c[n]) for n in ARGS]))
+    v = c["valid"]
+    np.testing.assert_allclose(out[v], _oracle(c)[v], rtol=2e-4, atol=2e-5)
+    # padding rows attend themselves on both sides: every row agrees
+    np.testing.assert_allclose(out, ref_j, rtol=2e-5, atol=2e-6)
+
+
+KERNEL_CASES = [
+    ("decode_only", [(5, 1), (11, 1), (3, 1), (8, 1)], 0, 2, 2),
+    ("mixed", [(7, 1), (0, 5), (12, 1), (4, 6)], 0, 2, 2),
+    ("gqa_group1", [(6, 2), (0, 3), (10, 1)], 0, 3, 1),
+    ("gqa_group4", [(6, 2), (0, 3), (10, 1)], 0, 2, 4),
+    ("partial_last_page", [(5, 3), (9, 1), (1, 2), (6, 1)], 0, 2, 2),
+    ("start_zero", [(0, 1), (0, 4), (0, 1)], 0, 2, 2),
+    ("padding_rows", [(5, 1), (0, 4)], 7, 2, 2),
+    ("all_padding", [(0, 0)], 6, 2, 2),
+]
+
+
+@pytest.mark.parametrize("name,segs,pad,kvh,group", KERNEL_CASES)
+def test_kernel_entry_matches_pallas_interpret_and_oracle(name, segs, pad,
+                                                          kvh, group):
+    """The kernel entry's contract on the CPU (plain version): valid rows
+    match the oracle and the interpret-mode Pallas kernel, invalid rows
+    are exact zeros on both."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    c = _ragged_case(rng, segs, pad=pad, kvh=kvh, group=group)
+    out = trpa.ragged_paged_attention(*_torch_args(c)).numpy()
+    ref_k = np.asarray(jrpa.ragged_paged_attention_pallas(
+        *[jnp.asarray(c[n]) for n in ARGS], q_block=4, pages_per_block=2,
+        interpret=True))
+    v = c["valid"]
+    np.testing.assert_allclose(out[v], _oracle(c)[v], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(out[v], ref_k[v], rtol=2e-3, atol=2e-3)
+    if (~v).any():
+        assert np.all(out[~v] == 0.0)
+        assert np.all(ref_k[~v] == 0.0)
+
+
+def test_kernel_entry_ctx_and_seg_bounds():
+    """ctx_pages and max_seg_len that cover the live data leave the
+    result unchanged (as for the Pallas kernel)."""
+    rng = np.random.default_rng(11)
+    c = _ragged_case(rng, [(6, 1), (0, 3), (5, 4)])
+    full = trpa.ragged_paged_attention(*_torch_args(c)).numpy()
+    bounded = trpa.ragged_paged_attention(
+        *_torch_args(c), ctx_pages=2, max_seg_len=4).numpy()
+    ref = np.asarray(jrpa.ragged_paged_attention_pallas(
+        *[jnp.asarray(c[n]) for n in ARGS], ctx_pages=2, max_seg_len=4,
+        interpret=True))
+    v = c["valid"]
+    np.testing.assert_allclose(full[v], bounded[v], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(bounded[v], ref[v], rtol=2e-3, atol=2e-3)
+
+
+def test_ctx_bucketing_matches_full_table():
+    rng = np.random.default_rng(0)
+    c = _ragged_case(rng, [(6, 1), (0, 3), (5, 4)])
+    full = trpa.ragged_paged_prefill_decode_attention(*_torch_args(c))
+    bucketed = trpa.ragged_paged_prefill_decode_attention(
+        *_torch_args(c), ctx_pages=2)
+    v = torch.from_numpy(c["valid"])
+    torch.testing.assert_close(full[v], bucketed[v], rtol=1e-6, atol=1e-7)
+
+
+def test_numpy_oracle_is_the_jax_oracle():
+    rng = np.random.default_rng(2)
+    c = _ragged_case(rng, [(7, 1), (0, 5), (4, 6)], pad=3)
+    args = (c["q"], c["dense_k"], c["dense_v"], c["k_new"], c["v_new"],
+            c["slot_ids"], c["positions"], c["valid"], c["start"])
+    np.testing.assert_array_equal(trpa.ragged_attention_dense_oracle(*args),
+                                  jrpa.ragged_attention_dense_oracle(*args))
+
+
+@pytest.mark.parametrize("name,segs,pad", OP_CASES)
+def test_ragged_plan_maps_segments(name, segs, pad):
+    """The CUDA kernel reads the flat batch through ragged_plan: q_len is
+    each slot's valid-token count, tok_idx[slot, i] the flat index of the
+    slot's token at offset i (position - start), -1 past the segment."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    c = _ragged_case(rng, segs, pad=pad)
+    # shuffle the flat order: the map must not rely on it
+    perm = rng.permutation(len(c["slot_ids"]))
+    sl, po, va = (c[n][perm] for n in ("slot_ids", "positions", "valid"))
+    max_seg = max(n for _, n in segs)
+    qlen, tok = trpa.ragged_plan(torch.from_numpy(sl), torch.from_numpy(po),
+                                 torch.from_numpy(va),
+                                 torch.from_numpy(c["start"]), max_seg)
+    assert qlen.dtype == torch.int32 and tok.dtype == torch.int32
+    assert tok.shape == (len(segs), max_seg)
+    assert qlen.tolist() == [n for _, n in segs]
+    for s, (start, n) in enumerate(segs):
+        for i in range(max_seg):
+            t = int(tok[s, i])
+            if i < n:
+                assert va[t] and sl[t] == s and po[t] == start + i
+            else:
+                assert t == -1
