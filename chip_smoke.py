@@ -4,18 +4,30 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name, and name + power limit from nvidia-smi;
-  2. build: compile the CUDA kernels from ray_tpu_torch/ops/csrc;
-  3. kernels vs plain: each kernel against its plain PyTorch version at
-     Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16),
+  2. build: compile the CUDA kernels from ray_tpu_torch/ops/csrc (one
+     nvcc per source, in parallel);
+  3. serving kernels vs plain: each against its plain PyTorch version
+     at Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16),
      with the kernel's, the plain version's and one PyTorch library
      call's times, and the least time the card could take;
-  4. engine: InferenceEngine on the `8b` preset at full width and depth
+  4. flash kernels vs plain: forward, dq and dk/dv against their plain
+     versions at 8b widths (B=4, S=2048, causal, bf16), at 1b widths
+     (D=64) and on a small non-causal Sq != Sk case; two launches must
+     give the same bits; times as in phase 3;
+  5. engine: InferenceEngine on the `8b` preset at full width and depth
      (random bf16 weights from a seeded generator), mixed prefill+decode
      ticks then pure decode, through add_request/step; both kernels'
      launch counters must move; the same requests on
      decode_impl="gather" must give the same greedy tokens (or differ
      only at a stated near-tie); the same holds for a small f32 engine;
-  5. summary: one {"kernels": [...]} line, the card line, then the
+  6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
+     (random f32 parameters from a seeded generator, bf16 compute,
+     remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
+     8 timed steps through init_state/step; losses finite and falling;
+     the three flash kernels' launch counters as remat implies; step
+     time, tokens/s, MFU, peak memory and a profiler breakdown; one
+     step on attention_impl="xla" from the same parameters must agree;
+  7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
 
 Imports neither jax nor ray_tpu. Exits non-zero before printing any
@@ -25,7 +37,9 @@ result when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,6 +60,16 @@ RAGGED_TOL = 3e-2     # as DECODE_TOL
 NEAR_TIE = 0.05       # logit gap under which a greedy flip between the
 #                       two engines counts as a near tie: bf16
 #                       activations summed in another order
+FLASH_REL = 1.6e-2    # flash kernels vs plain, bf16 outputs: two bf16
+#                       ulps of the element (each side rounds its float32
+#                       sum once) ...
+FLASH_ABS = 1e-3      # ... plus this share of the largest element (sums
+#                       that cancel to near zero)
+LSE_TOL = 1e-4        # float32 logsumexp, summed in another order
+TRAIN_LOSS_RTOL = 5e-3   # kernel step vs "xla" step, same parameters:
+TRAIN_GNORM_RTOL = 5e-2  # bf16 activations; the reference rounds its
+#                          probabilities to bf16 before the value product,
+#                          the kernels keep them in float32
 
 
 def log(*a):
@@ -271,6 +295,148 @@ def check_ragged(gen, dev):
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+# ------------------------------------------------------------ flash kernels
+
+def flash_case(gen, dev, b, sq, sk, h, kvh, d, dtype=torch.bfloat16):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d), \
+        rnd(b, sq, h, d)
+
+
+def flash_err(out, ref):
+    """max |out - ref| and whether every element is within FLASH_REL of
+    itself plus FLASH_ABS of the largest element."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    lim = FLASH_REL * r.abs() + FLASH_ABS * r.abs().max()
+    return diff.max().item(), bool((diff <= lim).all().item())
+
+
+def flash_work(b, sq, sk, h, kvh, d, causal, item):
+    """(pairs, bytes of each kernel) for the least-time bound: the
+    (row, col) pairs the mask leaves live, each input read once and
+    each output written once."""
+    if causal:
+        pairs = sum(min(r + 1, sk) for r in range(sq))
+    else:
+        pairs = sq * sk
+    pairs *= b * h
+    q_b = b * sq * h * d * item
+    kv_b = b * sk * kvh * d * item
+    row_b = b * h * sq * 4                       # lse or delta, float32
+    return pairs, dict(
+        flash_fwd=(q_b + 2 * kv_b) + (q_b + row_b),
+        flash_dq=(2 * q_b + 2 * kv_b + 2 * row_b) + q_b,
+        flash_dkv=(2 * q_b + 2 * kv_b + 2 * row_b) + 2 * kv_b)
+
+
+def check_flash_case(gen, dev, label, shape, causal, timed):
+    """Each flash kernel against its plain version on one case; two
+    launches must be bit-identical. With `timed`, also each kernel's,
+    its plain version's and SDPA's times and the least-time bound."""
+    from ray_tpu_torch.ops import attention as fa
+    import torch.nn.functional as F
+    b, sq, sk, h, kvh, d = shape
+    q, k, v, do = flash_case(gen, dev, *shape)
+    scale = d ** -0.5
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    delta = fa.flash_delta(out, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, scale)
+    again = (fa.flash_forward(q, k, v, causal, scale)
+             + (fa.flash_dq(q, k, v, do, lse, delta, causal, scale),)
+             + fa.flash_dkv(q, k, v, do, lse, delta, causal, scale))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in
+               zip((out, lse, dq, dk, dv), again))
+    ref, lse_ref = fa.flash_forward_plain(q, k, v, causal, scale)
+    # the backward's plain versions on the kernels' own residuals
+    dq_ref = fa.flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal,
+                                        scale)
+    errs = {}
+    for name, a, r in (("out", out, ref), ("dq", dq, dq_ref),
+                       ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        e, ok = flash_err(a, r)
+        errs[name] = e
+        if not ok:
+            raise AssertionError(f"flash {label}: {name} disagrees with "
+                                 f"its plain version (max abs err {e})")
+    lse_err = (lse - lse_ref).abs().max().item()
+    log(f"[flash {label}] B,Sq,Sk,H,KVH,D={shape} causal={causal}: max abs "
+        f"err out {errs['out']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
+        f"dv {errs['dv']:.3e} (rel {FLASH_REL} + {FLASH_ABS} of max); lse "
+        f"{lse_err:.2e} (tol {LSE_TOL}); repeat launches bit-identical: "
+        f"{same}")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash {label}: lse error {lse_err}")
+    if not same:
+        raise AssertionError(f"flash {label}: two launches differ")
+    del ref, dq_ref, dk_ref, dv_ref, again
+    res = dict(flash_fwd=dict(max_abs_err=max(errs["out"], lse_err)),
+               flash_dq=dict(max_abs_err=errs["dq"]),
+               flash_dkv=dict(max_abs_err=max(errs["dk"], errs["dv"])))
+    if not timed:
+        return res
+    ms = dict(
+        flash_fwd=time_ms(lambda: fa.flash_forward(q, k, v, causal, scale)),
+        flash_dq=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                             causal, scale)),
+        flash_dkv=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                               causal, scale)))
+    plain = dict(
+        flash_fwd=time_ms(lambda: fa.flash_forward_plain(q, k, v, causal,
+                                                         scale), iters=3),
+        flash_dq=time_ms(lambda: fa.flash_dq_plain(q, k, v, do, lse, delta,
+                                                   causal, scale), iters=3),
+        flash_dkv=time_ms(lambda: fa.flash_dkv_plain(
+            q, k, v, do, lse, delta, causal, scale), iters=3))
+    # library yardstick: SDPA forward, and its autograd backward, which
+    # gives dq, dk and dv in one call (so both backward rows carry it)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                        enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), dot, retain_graph=True))
+    library = dict(flash_fwd=lib_fwd, flash_dq=lib_bwd, flash_dkv=lib_bwd)
+    pairs, nbytes = flash_work(b, sq, sk, h, kvh, d, causal,
+                               q.element_size())
+    products = dict(flash_fwd=2, flash_dq=3, flash_dkv=4)
+    for name in res:
+        flops = 2 * d * pairs * products[name]
+        b_ms, b_by = bound(nbytes[name], flops, q.dtype)
+        res[name].update(ms=ms[name], plain_ms=plain[name],
+                         library_ms=library[name], bound_ms=b_ms,
+                         bound_by=b_by)
+        log(f"[flash {label}] {name}: kernel {ms[name]:.4f} ms, plain "
+            f"{plain[name]:.4f} ms, sdpa {library[name]:.4f} ms "
+            f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
+            f"), bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes[name] / 1e6:.1f} MB)")
+    return res
+
+
+def check_flash(gen, dev):
+    """The three flash kernels on the main path's shape (timed), at 1b
+    widths and on a small non-causal Sq != Sk case. Returns the main
+    case's numbers, max_abs_err the largest over the cases."""
+    main = check_flash_case(gen, dev, "8b", (4, 2048, 2048, 32, 8, 128),
+                            True, timed=True)
+    for label, shape, causal in (
+            ("1b", (4, 2048, 2048, 32, 8, 64), True),
+            ("small non-causal", (2, 384, 640, 8, 2, 128), False)):
+        other = check_flash_case(gen, dev, label, shape, causal, timed=False)
+        for name in main:
+            main[name]["max_abs_err"] = max(main[name]["max_abs_err"],
+                                            other[name]["max_abs_err"])
+    torch.cuda.empty_cache()
+    return main
+
+
 # ------------------------------------------------------------------ engine
 
 PROMPT_TEXTS = [
@@ -483,6 +649,203 @@ def run_profile(eng, prompts):
     return dict(mixed=mixed, decode=decode)
 
 
+# ------------------------------------------------------------------- train
+
+TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 8         # timed, after one warm-up step
+
+
+def _sync_metrics(m):
+    torch.cuda.synchronize()
+    return {k: v.item() for k, v in m.items()}
+
+
+def profile_step(bundle, state, tokens):
+    """torch.profiler over one train step: the kernels with the most
+    device time, and device busy time against wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = bundle.step(state, tokens)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    evs = [e for e in prof.key_averages() if dev_us(e) > 0
+           and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not evs:
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0
+               and not e.key.startswith(("aten::", "cuda"))]
+    busy = sum(dev_us(e) for e in evs) / 1e3
+    log(f"[profile train step] kernels busy {busy:.2f} ms on the device; "
+        f"wall under the profiler {wall:.2f} ms")
+    groups = {}
+    for e in evs:
+        key = e.key.lower()
+        g = ("flash kernels" if "flash_" in key else
+             "matmuls" if ("nvjet" in key or "gemm" in key
+                           or "cutlass" in key) else
+             "copies and casts" if "copy" in key else
+             "reductions" if "reduce" in key else
+             "elementwise" if "elementwise" in key else "other")
+        groups[g] = groups.get(g, 0.0) + dev_us(e) / 1e3
+    for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
+        log(f"[profile train step] {g:17s} {ms:9.3f} ms "
+            f"({100 * ms / busy:.1f}%)")
+    rows = []
+    for e in sorted(evs, key=dev_us, reverse=True)[:12]:
+        rows.append(dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
+                         calls=e.count))
+        log(f"[profile train step]   {dev_us(e) / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+    return state, m, dict(profiled_wall_ms=wall, device_ms=busy, top=rows,
+                          groups=groups)
+
+
+def time_head(cfg, lm_head, dev):
+    """The loss head on one chunk (B x loss_chunk tokens): the bf16-
+    operand, float32-output product the port uses, forward and forward +
+    backward, and the float32 product of upcast operands it avoids."""
+    from ray_tpu_torch.models.llama import _head_logits
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((TRAIN_BATCH, cfg.loss_chunk, cfg.hidden), device=dev,
+                    generator=gen).to(cfg.dtype)
+    w = lm_head.detach().to(cfg.dtype)
+    with torch.no_grad():
+        fwd = time_ms(lambda: _head_logits(cfg, x, w), iters=10)
+        upcast = time_ms(lambda: x.float() @ w.float(), iters=5)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    g = torch.randn((TRAIN_BATCH, cfg.loss_chunk, cfg.vocab_size),
+                    device=dev, generator=gen)
+
+    def fwd_bwd():
+        torch.autograd.grad(_head_logits(cfg, xg, wg), (xg, wg), g)
+    both = time_ms(fwd_bwd, iters=10)
+    flops = 2 * TRAIN_BATCH * cfg.loss_chunk * cfg.hidden * cfg.vocab_size
+    n = TRAIN_SEQ // cfg.loss_chunk
+    log(f"[train head] one {TRAIN_BATCH}x{cfg.loss_chunk}-token chunk "
+        f"({flops / 1e12:.2f} TFLOP a product): bf16 operands, float32 out "
+        f"(torch.mm out_dtype) forward {fwd:.3f} ms "
+        f"({flops / fwd / 1e9:.0f} TFLOP/s), forward+backward "
+        f"{both:.3f} ms; float32 product of upcast operands {upcast:.3f} "
+        f"ms; a step runs {n} chunks, each forward twice (chunk remat): "
+        f"~{n * (fwd + both):.1f} ms")
+    return dict(chunk_fwd_ms=fwd, chunk_fwd_bwd_ms=both,
+                upcast_fwd_ms=upcast, step_ms=n * (fwd + both))
+
+
+def run_train(dev):
+    """The main path of this slice: TrainStepBundle on the 8b preset."""
+    import numpy as np
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (TrainStepBundle,
+                                               default_optimizer)
+    from ray_tpu_torch.ops import _kernels
+    cfg = llama.config("8b", n_layers=TRAIN_LAYERS, max_seq=TRAIN_SEQ)
+    opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                            total_steps=100)
+    bundle = TrainStepBundle(cfg, optimizer=opt)
+    t0 = time.perf_counter()
+    state = bundle.init_state(0)
+    rng = np.random.default_rng(0)
+    tokens = bundle.shard_batch(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32))
+    torch.cuda.synchronize()
+    log(f"[train] 8b widths, {cfg.n_layers} layers, "
+        f"{cfg.num_params() / 1e9:.3f}B params (f32; bf16 compute; remat "
+        f"{cfg.remat}; loss chunk {cfg.loss_chunk}; attention "
+        f"{cfg.attention_impl!r}), batch {TRAIN_BATCH}x{TRAIN_SEQ}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps = []
+    for i in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = bundle.step(state, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = _sync_metrics(m)
+        steps.append(dict(ms=ms, **m))
+        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{m['loss']:.5f} grad_norm {m['grad_norm']:.5f} "
+            f"{ms:.1f} ms")
+    counts = _kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(steps)
+    # remat=True: each layer's checkpoint re-runs its forward (flash
+    # forward included) in the backward, so the forward kernel runs twice
+    # per layer per step and each backward kernel once; the loss-chunk
+    # checkpoints hold no attention
+    want = dict(flash_fwd=2 * cfg.n_layers * n, flash_dq=cfg.n_layers * n,
+                flash_dkv=cfg.n_layers * n)
+    log(f"[train] launches {counts} (expected {want})")
+    for name, w in want.items():
+        if counts[name] != w:
+            raise AssertionError(f"train: {name} launched {counts[name]} "
+                                 f"times, expected {w}")
+    if counts["paged_decode"] or counts["ragged_paged"]:
+        raise AssertionError("train: a serving kernel ran")
+    for st in steps:
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+            raise AssertionError(f"train: non-finite metrics {st}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"train: loss did not fall "
+                             f"({steps[0]['loss']} -> {steps[-1]['loss']})")
+    timed = [st["ms"] for st in steps[1:]]
+    step_ms = statistics.median(timed)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    fpt = llama.flops_per_token(cfg, TRAIN_SEQ)
+    mfu = fpt * tok_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"[train] step median {step_ms:.1f} ms (timed steps "
+        f"{[round(x, 1) for x in timed]}); {tok_s:.0f} tokens/s; "
+        f"{fpt * TRAIN_BATCH * TRAIN_SEQ / 1e12:.2f} TFLOP a step; MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    ev = _sync_metrics(bundle.eval_loss(state, tokens))
+    log(f"[train] eval_loss after the run: {ev['loss']:.5f}")
+    if not math.isfinite(ev["loss"]):
+        raise AssertionError("train: eval loss not finite")
+    head = time_head(cfg, state[0]["lm_head"], dev)
+    # the same parameters through the kernel step (profiled) and an
+    # attention_impl="xla" step: loss and grad norm must agree
+    snap = _clone_tree(state[0])
+    state, mk, prof = profile_step(bundle, state, tokens)
+    mk = _sync_metrics(mk)
+    del state
+    torch.cuda.empty_cache()
+    xb = TrainStepBundle(llama.config(cfg, attention_impl="xla"),
+                         optimizer=opt)
+    _, mx = xb.step((snap, opt.init(snap)), tokens)
+    mx = _sync_metrics(mx)
+    dl = abs(mk["loss"] - mx["loss"]) / abs(mx["loss"])
+    dg = abs(mk["grad_norm"] - mx["grad_norm"]) / abs(mx["grad_norm"])
+    log(f"[train] same parameters, kernel vs xla step: loss "
+        f"{mk['loss']:.6f} vs {mx['loss']:.6f} (rel {dl:.2e}, tol "
+        f"{TRAIN_LOSS_RTOL}); grad_norm {mk['grad_norm']:.6f} vs "
+        f"{mx['grad_norm']:.6f} (rel {dg:.2e}, tol {TRAIN_GNORM_RTOL})")
+    if not (dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL):
+        raise AssertionError("train: kernel and xla steps disagree")
+    return counts, dict(
+        layers=cfg.n_layers, params=cfg.num_params(), batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=steps, step_ms_median=step_ms,
+        tokens_per_s=tok_s, flops_per_step=fpt * TRAIN_BATCH * TRAIN_SEQ,
+        mfu=mfu, peak_memory_bytes=peak, eval_loss=ev["loss"], head=head,
+        kernel_vs_xla=dict(kernel=mk, xla=mx, loss_rel=dl, gnorm_rel=dg),
+        profile=dict(prof, step_wall_ms=step_ms,
+                     idle_share=max(0.0, 1 - prof["device_ms"] / step_ms)))
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -522,7 +885,11 @@ def main():
     narrow = check_decode(gen, dev, "8-page table",
                           [1, 3, 16, 17, 64, 100, 127, 128], 8)
     ragged = check_ragged(gen, dev)
+    flash = check_flash(gen, dev)
     counts, engine = run_engine(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts, train = run_train(dev)
     src = "ray_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="ragged_paged", route="cuda", source=src + "ragged_paged.cu",
@@ -536,11 +903,18 @@ def main():
              replaces="ray_tpu/ops/paged_attention.py:158",
              launches=counts["paged_decode"], **narrow),
     ]
+    for kname, line in (("flash_fwd", 81), ("flash_dq", 202),
+                        ("flash_dkv", 230)):
+        kernels.append(dict(name=kname, route="cuda",
+                            source=src + "flash_attention.cu",
+                            replaces=f"ray_tpu/ops/attention.py:{line}",
+                            launches=train_counts[kname], **flash[kname]))
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(summary, card=card, engine=engine), f, indent=1)
+            json.dump(dict(summary, card=card, engine=engine, train=train),
+                      f, indent=1)
     print(json.dumps(summary), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's LLM serving path.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's LLM serving and
+single-device training paths.
 
 Mirrors ``ray_tpu``'s layout (``models``, ``ops``, ``llm``). Device code
-is PyTorch; the Pallas kernels of the serving path are hand-written CUDA
-kernels for Hopper (``ops/csrc``). Imports torch and numpy, never jax and
-nothing of ``ray_tpu``.
+is PyTorch; the Pallas kernels of those paths are hand-written CUDA
+kernels for Hopper (``ops/csrc``). Training is
+``models.training.TrainStepBundle``. Imports torch and numpy, never jax
+and nothing of ``ray_tpu``.
 """
 
 from .llm import (ByteTokenizer, EngineConfig, InferenceEngine, Request,

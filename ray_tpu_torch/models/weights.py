@@ -13,6 +13,10 @@ so conversion is a walk over the tree. Two layout choices for serving:
 - Norm weights stay in their storage dtype (``rms_norm`` upcasts them
   to float32 itself); ``embed`` is cast to the compute dtype, as the
   JAX forward does before its row gather.
+
+Training (``train_params_from_numpy``) keeps every leaf in the storage
+dtype instead: the optimizer updates float32 parameters, and the
+training forward casts them at each use, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -62,6 +66,24 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
         "final_norm": _to(tree["final_norm"], cfg.param_dtype, device),
         "lm_head": _to(tree["lm_head"], torch.float32, device),
     }
+
+
+def train_params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
+                            device="cuda") -> Dict[str, Any]:
+    """The JAX package's parameter tree (numpy arrays, or tensors) -> the
+    same tree of fresh leaf tensors on `device`, every leaf in
+    ``cfg.param_dtype`` and requiring grad."""
+    device = torch.device(device)
+
+    def leaf(a):
+        t = _host(a).to(device=device, dtype=cfg.param_dtype, copy=True)
+        return t.contiguous().requires_grad_(True)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+    return walk(tree)
 
 
 def pools_from_numpy(k_pages, v_pages, dtype: Optional[torch.dtype] = None,

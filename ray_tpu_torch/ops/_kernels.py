@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes`` (no PyTorch headers
-in the build, so a build takes seconds). Builds happen at first use,
+in the build, so a build takes seconds). One source may hold several
+kernels, each with its own C entry point. Builds happen at first use,
 from the sources in this checkout only, into
 ``<checkout>/build/ray_tpu_torch/<hash>/``; the hash covers every
 source and the compiler flags, so an edited source rebuilds and an
@@ -34,10 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 class Kernel:
-    """One compiled source: its C entry point, argument types and
+    """One C entry point of a compiled source: its argument types and
     launch counter."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes):
@@ -60,10 +62,23 @@ PAGED_DECODE = Kernel(
 RAGGED_PAGED = Kernel(
     "ragged_paged", "ragged_paged.cu", "ragged_paged_launch",
     [_P] * 11 + [_I] * 11 + [_P])
-KERNELS: List[Kernel] = [PAGED_DECODE, RAGGED_PAGED]
+# (B, Sq, Sk, H, KVH, D, causal), scale, dtype, stream
+_FLASH_TAIL = [_I] * 7 + [_F, _I, _P]
+FLASH_FWD = Kernel("flash_fwd", "flash_attention.cu", "flash_fwd_launch",
+                   [_P] * 5 + _FLASH_TAIL)
+FLASH_DQ = Kernel("flash_dq", "flash_attention.cu", "flash_dq_launch",
+                  [_P] * 7 + _FLASH_TAIL)
+FLASH_DKV = Kernel("flash_dkv", "flash_attention.cu", "flash_dkv_launch",
+                   [_P] * 8 + _FLASH_TAIL)
+KERNELS: List[Kernel] = [PAGED_DECODE, RAGGED_PAGED, FLASH_FWD, FLASH_DQ,
+                         FLASH_DKV]
 
 _lock = threading.Lock()
 _build_info: Dict[str, object] = {}
+
+
+def _lib(source: str) -> str:
+    return f"lib{os.path.splitext(source)[0]}.so"
 
 
 def _nvcc() -> str:
@@ -89,7 +104,7 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> Dict[str, object]:
     """Compile (or reuse) and load every kernel library. Returns
-    {"dir", "seconds", "compiled": [names], "ptxas": {name: text}}."""
+    {"dir", "seconds", "compiled": [sources], "ptxas": {source: text}}."""
     with _lock:
         if all(k._fn is not None for k in KERNELS):
             return _build_info
@@ -98,14 +113,13 @@ def build(verbose: bool = False) -> Dict[str, object]:
         os.makedirs(out_dir, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
-        for k in KERNELS:
-            so = os.path.join(out_dir, f"lib{k.name}.so")
+        for source in sorted({k.source for k in KERNELS}):
+            so = os.path.join(out_dir, _lib(source))
             if os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, k.source)]
-            procs[k.name] = (subprocess.Popen(
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+            procs[source] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, so)
         ptxas = {}
@@ -119,9 +133,12 @@ def build(verbose: bool = False) -> Dict[str, object]:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        libs = {}
         for k in KERNELS:
-            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{k.name}.so"))
-            fn = getattr(lib, k.entry)
+            if k.source not in libs:
+                libs[k.source] = ctypes.CDLL(
+                    os.path.join(out_dir, _lib(k.source)))
+            fn = getattr(libs[k.source], k.entry)
             fn.argtypes = k.argtypes
             fn.restype = ctypes.c_int
             k._fn = fn

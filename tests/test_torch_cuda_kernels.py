@@ -7,13 +7,16 @@ jax, so it also runs where jax is absent:
 
 Tolerances: float32 1e-4/1e-5 (same products, another summation order);
 bfloat16 3e-2 absolute (both sides round one float32 result to bf16;
-one bf16 ulp at |x| < 4 is 1.6e-2).
+one bf16 ulp at |x| < 4 is 1.6e-2). Flash attention gradients in bf16:
+relative 1.6e-2 (two bf16 ulps of the element: each side rounds its
+float32 sum once) plus 1e-3 of the largest element (sums near zero).
 """
 
 import pytest
 import torch
 
 from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -197,5 +200,107 @@ def test_engine_kernel_impl_matches_gather_f32(dev):
         if eng is ek:
             assert counts["ragged_paged"] > 0 and counts["paged_decode"] > 0
         else:
-            assert counts == {"ragged_paged": 0, "paged_decode": 0}
+            assert not any(counts.values()), counts
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------ flash kernels
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal
+    (2, 256, 256, 8, 2, 64, True),
+    (2, 256, 256, 8, 2, 128, True),
+    (1, 192, 192, 4, 4, 128, False),
+    (1, 100, 300, 4, 1, 64, False),      # ragged tiles, Sq != Sk
+    (2, 136, 136, 8, 8, 128, True),      # ragged last tile
+    (1, 320, 128, 4, 2, 64, True),       # causal, Sq > Sk
+]
+
+
+def _flash_inputs(dev, dtype, b, sq, sk, h, kvh, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn(gen, (b, sq, h, d), dev, dtype),
+            _randn(gen, (b, sk, kvh, d), dev, dtype),
+            _randn(gen, (b, sk, kvh, d), dev, dtype),
+            _randn(gen, (b, sq, h, d), dev, dtype))
+
+
+def _flash_close(out, ref, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4, msg=what)
+    else:
+        torch.testing.assert_close(
+            out.float(), ref.float(), rtol=1.6e-2,
+            atol=1e-3 * ref.float().abs().max().item(), msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, b, sq, sk, h, kvh, d,
+                                   causal):
+    q, k, v, do = _flash_inputs(dev, dtype, b, sq, sk, h, kvh, d)
+    scale = d ** -0.5
+    before = [kk.launches for kk in (_kernels.FLASH_FWD, _kernels.FLASH_DQ,
+                                     _kernels.FLASH_DKV)]
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    grads = fa.flash_backward(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    after = [kk.launches for kk in (_kernels.FLASH_FWD, _kernels.FLASH_DQ,
+                                    _kernels.FLASH_DKV)]
+    assert after == [x + 1 for x in before]
+    ref, lse_ref = fa.flash_forward_plain(q, k, v, causal, scale)
+    _flash_close(out, ref, dtype, "out")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    # the backward on the same residuals as the kernels'
+    ref_g = fa.flash_backward_plain(q, k, v, out, lse, do, causal, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref_g):
+        assert a.dtype == dtype
+        _flash_close(a, r, dtype, name)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_are_deterministic(dev):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 256, 256, 8, 2, 128)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward(q, k, v, True, 128 ** -0.5)
+        runs.append((out, lse) + fa.flash_backward(q, k, v, out, lse, do,
+                                                   True, 128 ** -0.5))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_cuda(dev):
+    """flash_attention's autograd Function runs the kernels both ways and
+    agrees with the reference's gradients (float32)."""
+    q, k, v, do = _flash_inputs(dev, torch.float32, 1, 256, 256, 8, 2, 64)
+    qs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    rs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = _kernels.FLASH_DKV.launches
+    out = fa.attention(*qs, causal=True, impl="pallas")
+    (out * do).sum().backward()
+    ref = fa.attention(*rs, causal=True, impl="xla")
+    (ref * do).sum().backward()
+    assert _kernels.FLASH_DKV.launches == n0 + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(qs, rs):
+        torch.testing.assert_close(a.grad, b.grad, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 1, 64, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                         v[..., :32].contiguous(), True, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(1, 2), k, v, True, 0.125)
+    with pytest.raises(TypeError):
+        fa.flash_forward(q.float(), k, v, True, 0.125)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_forward(q, k.cpu(), v, True, 0.125)
