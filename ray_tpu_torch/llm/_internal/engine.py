@@ -11,6 +11,10 @@ PyTorch counterpart of the serving core of
   KVH, D]`` (last page = scratch) and sample with repetition penalty,
   temperature, top-k and top-p.
 - Prefix caching shares full prompt pages between requests.
+- ``kv_dtype`` "int8"/"fp8" stores the pool in one-byte values with
+  float32 scale pools ``[L, num_pages, page_size, KVH]`` beside it:
+  quantized at append, dequantized by the attention kernels as they read
+  pages (prefix caching shares quantized pages as they are).
 
 Readback is synchronous: each tick's tokens are folded into host state
 before the next tick (the JAX engine's ``async_readback=False``
@@ -18,8 +22,7 @@ behaviour, which it documents as token-exact with its pipelined path).
 
 Not here yet: telemetry, perf accounting, attribution, anomaly
 detection, black-box dumps, KV offload and preemption, LoRA,
-speculative and multi-step decode, pp/tp, quantized KV, the legacy
-two-dispatch step.
+speculative and multi-step decode, pp/tp, the legacy two-dispatch step.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ...models import llama
 from ...models.llama import LlamaConfig
 from ...models.llama_infer import decode_step, ragged_forward
 from ...models.weights import params_from_numpy
-from ...ops import _kernels
+from ...ops import _kernels, kv_quant
 from .kv_cache import PageAllocator
 
 
@@ -56,7 +59,8 @@ class EngineConfig:
     # token budget of one unified tick; 0 -> max_prefill_tokens +
     # max_batch_size (a full chunk always rides on the decode tokens)
     max_num_batched_tokens: int = 0
-    # KV page storage: only "f32" (pages in the model's compute dtype)
+    # KV page storage: "f32" (pages in the model's compute dtype) |
+    # "int8" | "fp8" (e4m3), with per-(token row, kv head) float32 scales
     kv_dtype: str = "f32"
     # torch device; None means "cuda" (the engine never falls back to
     # the CPU by itself — pass device="cpu" to run there)
@@ -192,10 +196,7 @@ class InferenceEngine:
         self.model_cfg = cfg = config.resolve_model()
         if cfg.n_experts:
             raise ValueError("MoE models are not served by this engine yet")
-        if ec.kv_dtype != "f32":
-            raise ValueError(
-                f"kv_dtype={ec.kv_dtype!r}: only 'f32' pages (the model's "
-                f"compute dtype) are supported")
+        self.kv_kind = kv_quant.validate_kind(ec.kv_dtype)
         impl = ec.decode_impl
         if impl == "auto":
             impl = "kernel" if self.device.type == "cuda" else "gather"
@@ -221,10 +222,28 @@ class InferenceEngine:
         self.max_pages_per_seq = self.allocator.pages_needed(self.max_seq)
         kv_shape = (cfg.n_layers, ec.num_pages, ec.page_size,
                     cfg.n_kv_heads, cfg.head_dim)
-        self.k_pages = torch.zeros(kv_shape, dtype=cfg.dtype,
+        pool_dt = kv_quant.storage_dtype(self.kv_kind, cfg.dtype)
+        self.k_pages = torch.zeros(kv_shape, dtype=pool_dt,
                                    device=self.device)
-        self.v_pages = torch.zeros(kv_shape, dtype=cfg.dtype,
+        self.v_pages = torch.zeros(kv_shape, dtype=pool_dt,
                                    device=self.device)
+        # per-(token row, kv head) float32 scale pools of quantized pools
+        self.k_scales = self.v_scales = None
+        if kv_quant.is_quantized(self.kv_kind):
+            sc_shape = kv_quant.scale_shape(kv_shape)
+            self.k_scales = torch.zeros(sc_shape, dtype=torch.float32,
+                                        device=self.device)
+            self.v_scales = torch.zeros(sc_shape, dtype=torch.float32,
+                                        device=self.device)
+        # device bytes of one page at the configured kind, all layers, k
+        # and v: values plus the scale pools' share
+        if self.kv_kind == "f32":
+            row_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                         * self.k_pages.element_size())
+        else:
+            row_bytes = 2 * cfg.n_layers * kv_quant.token_row_bytes(
+                self.kv_kind, cfg.n_kv_heads, cfg.head_dim)
+        self.kv_page_bytes = row_bytes * ec.page_size
         B = ec.max_batch_size
         self.slots = [_Slot(i) for i in range(B)]
         self.waiting: List[Request] = []
@@ -241,6 +260,12 @@ class InferenceEngine:
         self.dispatches = 0
         self.ragged_ticks = 0
         self.decode_ticks = 0
+
+    def _kv_args(self) -> Dict[str, Any]:
+        """The pools' kind and scale pools for the forwards (updated in
+        place by them)."""
+        return dict(kv_kind=self.kv_kind, k_scales=self.k_scales,
+                    v_scales=self.v_scales)
 
     # -- host <-> device state ---------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -463,6 +488,10 @@ class InferenceEngine:
             "active": self.num_active(),
             "waiting": len(self.waiting),
             "kv": self.allocator.stats(),
+            "kv_dtype": self.kv_kind,
+            "kv_page_bytes": self.kv_page_bytes,
+            "kv_device_bytes_used": (self.allocator.used_pages
+                                     * self.kv_page_bytes),
             "kernel_launches": _kernels.launch_counts(),
         }
 
@@ -550,11 +579,11 @@ class InferenceEngine:
         max_seg = min(T, max(self.config.max_prefill_tokens, 1))
         self.dispatches += 1
         self.ragged_ticks += 1
-        logits, _, _ = ragged_forward(
+        logits = ragged_forward(
             self.model_cfg, self.params, tokens, slot_ids, positions, valid,
             start, last_idx, self.k_pages, self.v_pages,
             self._device_tables(), ctx_pages=ctx, impl=self.impl,
-            max_seg_len=max_seg)
+            max_seg_len=max_seg, **self._kv_args())[0]
         (temps, top_ps, top_ks, rep_pens), all_greedy = \
             self._sampling_cache()
         if all_greedy:
@@ -598,9 +627,10 @@ class InferenceEngine:
         tokens, positions, active = m[0], m[1], m[2] != 0
         self.dispatches += 1
         self.decode_ticks += 1
-        logits, _, _ = decode_step(
+        logits = decode_step(
             self.model_cfg, self.params, tokens, positions, self.k_pages,
-            self.v_pages, self._device_tables(), active, impl=self.impl)
+            self.v_pages, self._device_tables(), active, impl=self.impl,
+            **self._kv_args())[0]
         (temps, top_ps, top_ks, rep_pens), all_greedy = \
             self._sampling_cache()
         if all_greedy:

@@ -7,18 +7,27 @@ the pure-decode step, over the shared paged pool
 attention: "gather" (dense, the plain version) or "kernel" (the CUDA
 kernels on a CUDA tensor; their plain versions on a CPU tensor).
 
-Not here yet: tensor parallelism, LoRA, quantized pools.
+``kv_kind`` "int8"/"fp8" serves from quantized pools with float32 scale
+pools ``[n_layers, num_pages, page_size, KVH]`` beside them: the gather
+impl dequantizes what it gathers, the kernel impl hands each layer's
+scale pools to the kernels (which fuse the dequant into their page
+loads), and the write side quantizes the tick's KV at append.
+
+Not here yet: tensor parallelism, LoRA.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.paged_attention import (gather_layer, paged_attention_on_gathered,
-                                   paged_decode_with_new_token, scatter_kv)
+from ..ops import kv_quant
+from ..ops.paged_attention import (gather_context,
+                                   paged_attention_on_gathered,
+                                   paged_decode_with_new_token, scatter_kv,
+                                   scatter_kv_quant)
 from ..ops.ragged_paged_attention import (ragged_paged_attention,
                                           ragged_plan,
                                           ragged_prefill_decode_attention)
@@ -73,14 +82,44 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
+def _check_kind(kv_kind: str, k_scales, v_scales) -> bool:
+    """Whether the pools are quantized; their scale pools come with them."""
+    quantized = kv_quant.is_quantized(kv_kind)
+    if quantized != (k_scales is not None) or \
+            (k_scales is None) != (v_scales is None):
+        raise ValueError(f"kv_kind {kv_kind!r} needs k_scales/v_scales "
+                         f"exactly when it is int8/fp8")
+    return quantized
+
+
+def _at(scales: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
+    """Layer i's scale pool (None for pools without scales)."""
+    return None if scales is None else scales[i]
+
+
+def _write_kv(k_pages, v_pages, k_scales, v_scales, k_rows, v_rows, tables,
+              positions, valid, kv_kind: str):
+    """The tick's KV into the pools, in place (quantized at append when
+    the pools are)."""
+    if k_scales is None:
+        scatter_kv(k_pages, v_pages, k_rows, v_rows, tables, positions,
+                   valid)
+    else:
+        scatter_kv_quant(k_pages, v_pages, k_scales, v_scales, k_rows,
+                         v_rows, tables, positions, valid, kv_kind)
+
+
 def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                    tokens: torch.Tensor, slot_ids: torch.Tensor,
                    positions: torch.Tensor, valid: torch.Tensor,
                    start: torch.Tensor, last_idx: torch.Tensor,
                    k_pages: torch.Tensor, v_pages: torch.Tensor,
                    page_tables: torch.Tensor, ctx_pages: int = -1,
-                   impl: str = "gather", max_seg_len: int = -1
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   impl: str = "gather", max_seg_len: int = -1,
+                   kv_kind: str = "f32",
+                   k_scales: Optional[torch.Tensor] = None,
+                   v_scales: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """Unified ragged prefill+decode forward over a flat token batch.
 
     tokens, slot_ids, positions: (T,) int32; valid: (T,) bool; start:
@@ -88,8 +127,10 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
     of each slot's last token (the logits source); page_tables:
     (B, max_pages) int32. Returns (logits (B, V) float32, k_pages,
     v_pages) with every valid token's KV written into the pools IN
-    PLACE at its position (invalid rows hit the scratch page)."""
+    PLACE at its position (invalid rows hit the scratch page); with
+    kv_kind int8/fp8, (logits, k_pages, v_pages, k_scales, v_scales)."""
     _check_impl(impl)
+    quantized = _check_kind(kv_kind, k_scales, v_scales)
     t = tokens.shape[0]
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()]             # (T, H)
@@ -104,8 +145,8 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
     ks, vs = [], []
     for i in range(cfg.n_layers):
         if impl == "gather":
-            k_ctx = gather_layer(k_pages[i], ctx_tables)
-            v_ctx = gather_layer(v_pages[i], ctx_tables)
+            k_ctx = gather_context(k_pages[i], _at(k_scales, i), ctx_tables)
+            v_ctx = gather_context(v_pages[i], _at(v_scales, i), ctx_tables)
 
             def attn_fn(q, k, v):
                 return ragged_prefill_decode_attention(
@@ -117,7 +158,8 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                     q, k_pages[i], v_pages[i], page_tables, slot_ids,
                     positions, valid, start, k.contiguous(),
                     v.contiguous(), ctx_pages=ctx_pages,
-                    max_seg_len=max_seg, plan=plan)
+                    max_seg_len=max_seg, plan=plan,
+                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i))
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), t,
                                 lambda a: _rope_single(a, cos, sin),
                                 attn_fn)
@@ -125,11 +167,13 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
         vs.append(v)
     k_rows = torch.stack(ks, dim=1)                      # (T, L, KVH, D)
     v_rows = torch.stack(vs, dim=1)
-    scatter_kv(k_pages, v_pages, k_rows, v_rows,
-               page_tables[slot_ids.long()], positions, valid)
+    _write_kv(k_pages, v_pages, k_scales, v_scales, k_rows, v_rows,
+              page_tables[slot_ids.long()], positions, valid, kv_kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[last_idx.long()]                            # (B, H)
     logits = last.float() @ params["lm_head"].float()
+    if quantized:
+        return logits, k_pages, v_pages, k_scales, v_scales
     return logits, k_pages, v_pages
 
 
@@ -137,16 +181,20 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
                 tokens: torch.Tensor, positions: torch.Tensor,
                 k_pages: torch.Tensor, v_pages: torch.Tensor,
                 page_tables: torch.Tensor, active: torch.Tensor,
-                impl: str = "gather"
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                impl: str = "gather", kv_kind: str = "f32",
+                k_scales: Optional[torch.Tensor] = None,
+                v_scales: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
     """One decode step for the whole running batch.
 
     tokens: (B,) last sampled token per slot; positions: (B,) int32 its
     absolute position (== cached tokens); active: (B,) bool. Returns
     (logits (B, V) float32, k_pages, v_pages) with the new token's KV
-    written IN PLACE. The kernel impl passes the full-width table; the
-    kernel stops at each sequence's own last page."""
+    written IN PLACE; with kv_kind int8/fp8, (logits, k_pages, v_pages,
+    k_scales, v_scales). The kernel impl passes the full-width table;
+    the kernel stops at each sequence's own last page."""
     _check_impl(impl)
+    quantized = _check_kind(kv_kind, k_scales, v_scales)
     b = tokens.shape[0]
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()]             # (B, H)
@@ -154,19 +202,21 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
     ks, vs = [], []
     for i in range(cfg.n_layers):
         if impl == "gather":
-            k_ctx = gather_layer(k_pages[i], page_tables)
-            v_ctx = gather_layer(v_pages[i], page_tables)
+            k_ctx = gather_context(k_pages[i], _at(k_scales, i), page_tables)
+            v_ctx = gather_context(v_pages[i], _at(v_scales, i), page_tables)
 
             def attn_fn(q, k, v):
-                k_full = torch.cat([k_ctx, k[:, None]], dim=1)
-                v_full = torch.cat([v_ctx, v[:, None]], dim=1)
+                # a dequantized context is float32; the new token joins it
+                k_full = torch.cat([k_ctx, k[:, None].to(k_ctx.dtype)], 1)
+                v_full = torch.cat([v_ctx, v[:, None].to(v_ctx.dtype)], 1)
                 return paged_attention_on_gathered(
                     q, k_full, v_full, positions, append_len=1)
         else:
             def attn_fn(q, k, v, i=i):
                 return paged_decode_with_new_token(
                     q, k_pages[i], v_pages[i], page_tables, positions,
-                    k.contiguous(), v.contiguous())
+                    k.contiguous(), v.contiguous(),
+                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i))
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), b,
                                 lambda a: _rope_single(a, cos, sin),
                                 attn_fn)
@@ -174,8 +224,10 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
         vs.append(v)
     k_rows = torch.stack(ks, dim=1)                      # (B, L, KVH, D)
     v_rows = torch.stack(vs, dim=1)
-    scatter_kv(k_pages, v_pages, k_rows, v_rows, page_tables, positions,
-               active)
+    _write_kv(k_pages, v_pages, k_scales, v_scales, k_rows, v_rows,
+              page_tables, positions, active, kv_kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x.float() @ params["lm_head"].float()
+    if quantized:
+        return logits, k_pages, v_pages, k_scales, v_scales
     return logits, k_pages, v_pages

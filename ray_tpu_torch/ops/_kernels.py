@@ -56,12 +56,27 @@ class Kernel:
         return self._fn
 
 
-PAGED_DECODE = Kernel(
-    "paged_decode", "paged_decode.cu", "paged_decode_launch",
-    [_P] * 13 + [_I] * 9 + [_P])
-RAGGED_PAGED = Kernel(
-    "ragged_paged", "ragged_paged.cu", "ragged_paged_launch",
-    [_P] * 11 + [_I] * 11 + [_P])
+_DECODE_ARGS = [_P] * 15 + [_I] * 10 + [_P]
+_RAGGED_ARGS = [_P] * 13 + [_I] * 12 + [_P]
+# The serving kernels take the page pools' kind as an argument (0: pools
+# in q's dtype; 1: int8 and 2: fp8 pools with float32 scale pools, the
+# dequant fused into the page loads). Each kind has its own Kernel and
+# launch counter over the one C entry point, so a run shows which
+# variant its main path took.
+PAGED_DECODE = Kernel("paged_decode", "paged_decode.cu",
+                      "paged_decode_launch", _DECODE_ARGS)
+PAGED_DECODE_INT8 = Kernel("paged_decode_int8", "paged_decode.cu",
+                           "paged_decode_launch", _DECODE_ARGS)
+PAGED_DECODE_FP8 = Kernel("paged_decode_fp8", "paged_decode.cu",
+                          "paged_decode_launch", _DECODE_ARGS)
+RAGGED_PAGED = Kernel("ragged_paged", "ragged_paged.cu",
+                      "ragged_paged_launch", _RAGGED_ARGS)
+RAGGED_PAGED_INT8 = Kernel("ragged_paged_int8", "ragged_paged.cu",
+                           "ragged_paged_launch", _RAGGED_ARGS)
+RAGGED_PAGED_FP8 = Kernel("ragged_paged_fp8", "ragged_paged.cu",
+                          "ragged_paged_launch", _RAGGED_ARGS)
+PAGED_DECODE_BY_KIND = (PAGED_DECODE, PAGED_DECODE_INT8, PAGED_DECODE_FP8)
+RAGGED_PAGED_BY_KIND = (RAGGED_PAGED, RAGGED_PAGED_INT8, RAGGED_PAGED_FP8)
 # (B, Sq, Sk, H, KVH, D, causal), scale, dtype, stream
 _FLASH_TAIL = [_I] * 7 + [_F, _I, _P]
 FLASH_FWD = Kernel("flash_fwd", "flash_attention.cu", "flash_fwd_launch",
@@ -70,8 +85,8 @@ FLASH_DQ = Kernel("flash_dq", "flash_attention.cu", "flash_dq_launch",
                   [_P] * 7 + _FLASH_TAIL)
 FLASH_DKV = Kernel("flash_dkv", "flash_attention.cu", "flash_dkv_launch",
                    [_P] * 8 + _FLASH_TAIL)
-KERNELS: List[Kernel] = [PAGED_DECODE, RAGGED_PAGED, FLASH_FWD, FLASH_DQ,
-                         FLASH_DKV]
+KERNELS: List[Kernel] = [*PAGED_DECODE_BY_KIND, *RAGGED_PAGED_BY_KIND,
+                         FLASH_FWD, FLASH_DQ, FLASH_DKV]
 
 _lock = threading.Lock()
 _build_info: Dict[str, object] = {}

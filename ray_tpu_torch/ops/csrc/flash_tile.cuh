@@ -15,13 +15,22 @@
 // contribute exactly zero probability, so a row that never sees a live
 // key ends with l == 0 and acc == 0, and the 1e-30 floor on the
 // denominator turns it into exact zeros.
+//
+// Quantized pools (int8 or fp8 e4m3 values, one float32 scale per
+// (key row, kv head)) go through load_kv_quant instead of load_kv: the
+// same 16-byte loads, now 16 values each, converted to float and
+// multiplied by the row's scale, exactly `float(q) * s` as the plain
+// version dequantizes. The tile in shared memory is float32 either way,
+// so everything after the load is shared.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace rtt {
 
@@ -33,6 +42,13 @@ constexpr int kMaxD = 256;       // head dims the kernels take: D % 8 == 0
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+// Page-pool element types that carry a scale pool beside them.
+template <typename TP> struct IsQuant : std::false_type {};
+template <> struct IsQuant<int8_t> : std::true_type {};
+template <> struct IsQuant<__nv_fp8_e4m3> : std::true_type {};
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -65,12 +81,15 @@ struct TileSmem {
   float* m;      // [R]
   float* l;      // [R]
   float* corr;   // [R]
+  float* ks;     // [TK] dequant scale of each key row (quantized pools)
+  float* vs;     // [TK]
   long long* base;  // [TK] element offset of each key row (-1: dead)
 };
 
 __host__ __device__ inline size_t tile_smem_bytes(int R, int D) {
   return sizeof(float) * ((size_t)R * D + (size_t)kTK * (D + 4) +
-                          (size_t)kTK * D + (size_t)R * kTK + 3 * (size_t)R) +
+                          (size_t)kTK * D + (size_t)R * kTK + 3 * (size_t)R +
+                          2 * (size_t)kTK) +
          sizeof(long long) * kTK;
 }
 
@@ -87,7 +106,9 @@ __device__ inline TileSmem carve(char* raw, int R, int D) {
   s.S = f; f += (size_t)R * kTK;
   s.m = f; f += R;
   s.l = f; f += R;
-  s.corr = f;
+  s.corr = f; f += R;
+  s.ks = f; f += kTK;
+  s.vs = f;
   return s;
 }
 
@@ -131,6 +152,73 @@ __device__ __forceinline__ void load_kv(const TileSmem& s,
       *reinterpret_cast<float4*>(vd + i) =
           make_float4(vx[i], vx[i + 1], vx[i + 2], vx[i + 3]);
     }
+  }
+}
+
+// Fill K/V rows of the tile from quantized pools: one-byte values
+// [rows, KVH, D] (16 per 16-byte load) and float32 scales [rows, KVH].
+// The key row at element offset b has its scale at b / D: one 4-byte
+// load per key row, staged in s.ks/s.vs before the value loads. Dead
+// keys load as 0. Contains a __syncthreads(): call it from uniform
+// control flow.
+template <typename TP>
+__device__ __forceinline__ void load_kv_quant(const TileSmem& s,
+                                              const TP* __restrict__ k,
+                                              const TP* __restrict__ v,
+                                              const float* __restrict__ ksc,
+                                              const float* __restrict__ vsc,
+                                              int D) {
+  static_assert(sizeof(TP) == 1, "quantized pools hold one-byte values");
+  for (int t = threadIdx.x; t < kTK; t += blockDim.x) {
+    const long long b = s.base[t];
+    s.ks[t] = b >= 0 ? ksc[b / D] : 0.f;
+    s.vs[t] = b >= 0 ? vsc[b / D] : 0.f;
+  }
+  __syncthreads();
+  constexpr int N = 16;
+  const int per_row = D / N;
+  for (int idx = threadIdx.x; idx < kTK * per_row; idx += blockDim.x) {
+    const int t = idx / per_row, c = (idx - t * per_row) * N;
+    const long long b = s.base[t];
+    float kx[N], vx[N];
+    if (b >= 0) {
+      load16(k + b + c, kx);
+      load16(v + b + c, vx);
+      const float sk = s.ks[t], sv = s.vs[t];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        kx[i] = __fmul_rn(kx[i], sk);   // no contraction into a later FMA
+        vx[i] = __fmul_rn(vx[i], sv);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) kx[i] = vx[i] = 0.f;
+    }
+    float* kd = s.K + (size_t)t * (D + 4) + c;
+    float* vd = s.V + (size_t)t * D + c;
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      *reinterpret_cast<float4*>(kd + i) =
+          make_float4(kx[i], kx[i + 1], kx[i + 2], kx[i + 3]);
+      *reinterpret_cast<float4*>(vd + i) =
+          make_float4(vx[i], vx[i + 1], vx[i + 2], vx[i + 3]);
+    }
+  }
+}
+
+// Page-pool loads: load_kv for pools in the query's type, load_kv_quant
+// for int8/fp8 pools with their scale pools (null otherwise).
+template <typename TP>
+__device__ __forceinline__ void load_pages(const TileSmem& s,
+                                           const TP* __restrict__ k,
+                                           const TP* __restrict__ v,
+                                           const float* __restrict__ ksc,
+                                           const float* __restrict__ vsc,
+                                           int D) {
+  if constexpr (IsQuant<TP>::value) {
+    load_kv_quant(s, k, v, ksc, vsc, D);
+  } else {
+    load_kv(s, k, v, D);
   }
 }
 

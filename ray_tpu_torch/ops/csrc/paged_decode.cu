@@ -30,12 +30,23 @@
 // With k_new/v_new given, the current token's KV (not yet in the pages)
 // is merged as one more always-live key by chunk 0:
 // `paged_decode_with_new_token` in one call.
+//
+// Quantized pools (the `quantized=True` branch of both TPU kernels:
+// int8 or fp8 e4m3 pages with per-(row, kv head) float32 scale pools):
+// the kernel is templated on the pool type TP apart from the query type
+// T, and the page loads dequantize as they fill the tile
+// (`load_kv_quant`: 16 one-byte values a load, times the row's scale,
+// one extra 4-byte load per key row). The bytes that bound the kernel
+// fall from 2 * D * itemsize to 2 * (D + 4) per (key, kv head): 132
+// against 256 bytes at D = 128 in bf16. The new token's KV stays in T.
 
 #include "flash_tile.cuh"
 
 using namespace rtt;
 
 struct DecodeArgs {
+  const float* k_scales;  // [P, page, KVH] for quantized pools, else null
+  const float* v_scales;
   const int* tables;
   const int* seq_lens;
   float* m_out;        // [B, H] or null
@@ -54,10 +65,10 @@ __device__ __forceinline__ int seq_length(const DecodeArgs& a, int b) {
   return length < cap ? length : cap;
 }
 
-template <typename T>
+template <typename T, typename TP>
 __global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ k_pages,
-                                    const T* __restrict__ v_pages,
+                                    const TP* __restrict__ k_pages,
+                                    const TP* __restrict__ v_pages,
                                     const T* __restrict__ k_new,
                                     const T* __restrict__ v_new,
                                     T* __restrict__ out, DecodeArgs a) {
@@ -105,7 +116,7 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
     if (new_tile) {
       load_kv(s, k_new, v_new, D);
     } else {
-      load_kv(s, k_pages, v_pages, D);
+      load_pages(s, k_pages, v_pages, a.k_scales, a.v_scales, D);
     }
     __syncthreads();
     const int n_live = new_tile ? 1 : min(kTK, k1 - t0);
@@ -174,19 +185,19 @@ __global__ void paged_decode_combine(T* __restrict__ out, DecodeArgs a,
 
 static constexpr int kThreads = 128;
 
-template <typename T>
+template <typename T, typename TP>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const void* k_new, const void* v_new, void* out,
                   DecodeArgs a, int B, int S, cudaStream_t stream) {
   const int R = a.H / a.KVH;
   const size_t smem = tile_smem_bytes(R, a.D);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_decode_kernel<T, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, a.KVH, S);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_pages, (const T*)v_pages, (const T*)k_new,
+  paged_decode_kernel<T, TP><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const TP*)k_pages, (const TP*)v_pages, (const T*)k_new,
       (const T*)v_new, (T*)out, a);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
@@ -194,25 +205,53 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. k_new/v_new and m/l may be
-// null. With n_splits > 1 the context is cut into chunks of
-// split_tokens keys (n_splits * split_tokens must cover
+// The pool types for one query type T: kv_kind 0 pools in T, 1 int8,
+// 2 fp8 e4m3 (with scale pools).
+template <typename T>
+static int launch_kind(int kv_kind, const void* q, const void* k_pages,
+                       const void* v_pages, const void* k_new,
+                       const void* v_new, void* out, DecodeArgs a, int B,
+                       int S, cudaStream_t stream) {
+  switch (kv_kind) {
+    case 0:
+      return launch<T, T>(q, k_pages, v_pages, k_new, v_new, out, a, B, S,
+                          stream);
+    case 1:
+      return launch<T, int8_t>(q, k_pages, v_pages, k_new, v_new, out, a, B,
+                               S, stream);
+    case 2:
+      return launch<T, __nv_fp8_e4m3>(q, k_pages, v_pages, k_new, v_new, out,
+                                      a, B, S, stream);
+  }
+  return -1;
+}
+
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, out, k_new, v_new).
+// kv_kind: 0 pools in q's dtype (scales null), 1 int8 and 2 fp8 e4m3
+// pools with float32 k_scales/v_scales [P, page, KVH] (D % 16 == 0).
+// k_new/v_new and m/l may be null. With n_splits > 1 the context is cut
+// into chunks of split_tokens keys (n_splits * split_tokens must cover
 // max_pages * page_size) and part_m/part_l [B, H, n_splits] and
 // part_acc [B, H, n_splits, D] float32 scratch must be given. Returns
 // cudaGetLastError() after the launches (0 = launched); -1 for
 // arguments the kernel does not take.
 extern "C" int paged_decode_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* tables, const void* seq_lens, const void* k_new,
-    const void* v_new, void* out, void* m, void* l, void* part_m,
-    void* part_l, void* part_acc, int B, int H, int KVH, int D,
-    int page_size, int max_pages, int split_tokens, int n_splits, int dtype,
-    void* stream) {
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* seq_lens, const void* k_new, const void* v_new, void* out,
+    void* m, void* l, void* part_m, void* part_l, void* part_acc, int B,
+    int H, int KVH, int D, int page_size, int max_pages, int split_tokens,
+    int n_splits, int dtype, int kv_kind, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || D % 8 != 0 || D > kMaxD ||
       (H / KVH) * D > kThreads * kMaxAcc)
     return -1;
   if ((m == nullptr) != (l == nullptr)) return -1;
   if ((k_new == nullptr) != (v_new == nullptr)) return -1;
+  if (kv_kind < 0 || kv_kind > 2) return -1;
+  if ((kv_kind != 0) != (k_scales != nullptr) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
+    return -1;
+  if (kv_kind != 0 && D % 16 != 0) return -1;
   if (n_splits < 1 || split_tokens < 1 ||
       (long long)n_splits * split_tokens < (long long)max_pages * page_size)
     return -1;
@@ -221,6 +260,8 @@ extern "C" int paged_decode_launch(
     return -1;
   if (B == 0) return 0;
   DecodeArgs a;
+  a.k_scales = (const float*)k_scales;
+  a.v_scales = (const float*)v_scales;
   a.tables = (const int*)tables;
   a.seq_lens = (const int*)seq_lens;
   a.m_out = (float*)m;
@@ -235,14 +276,14 @@ extern "C" int paged_decode_launch(
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch<float>(q, k_pages, v_pages, k_new, v_new, out, a, B,
-                           n_splits, st);
+      return launch_kind<float>(kv_kind, q, k_pages, v_pages, k_new, v_new,
+                                out, a, B, n_splits, st);
     case 1:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, k_new, v_new, out, a,
-                                   B, n_splits, st);
+      return launch_kind<__nv_bfloat16>(kv_kind, q, k_pages, v_pages, k_new,
+                                        v_new, out, a, B, n_splits, st);
     case 2:
-      return launch<__half>(q, k_pages, v_pages, k_new, v_new, out, a, B,
-                            n_splits, st);
+      return launch_kind<__half>(kv_kind, q, k_pages, v_pages, k_new, v_new,
+                                 out, a, B, n_splits, st);
   }
   return -1;
 }

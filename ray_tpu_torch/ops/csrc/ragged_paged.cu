@@ -28,15 +28,24 @@
 // memory, the accumulator in registers). No state crosses blocks. An
 // extra column of blocks (blockIdx.x == B) writes exact zeros into the
 // rows of invalid (padding) tokens, so the output needs no memset.
+//
+// Quantized pools (the `quantized=True` branch of the TPU kernel: int8
+// or fp8 e4m3 pages with per-(row, kv head) float32 scale pools): the
+// kernel is templated on the pool type TP apart from the query type T;
+// the context sweep's page loads dequantize as they fill the tile
+// (`load_kv_quant`, one extra 4-byte scale load per key row), so the
+// context bytes fall to (D + 4) per (key, kv head). The in-batch keys
+// (k_new/v_new) stay in T and are never quantized.
 
 #include "flash_tile.cuh"
 
 using namespace rtt;
 
-template <typename T>
+template <typename T, typename TP>
 __global__ void ragged_paged_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const T* __restrict__ q, const TP* __restrict__ k_pages,
+    const TP* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ tables,
     const int* __restrict__ start, const int* __restrict__ qlens,
     const int* __restrict__ tok_idx, const unsigned char* __restrict__ valid,
     const T* __restrict__ k_new, const T* __restrict__ v_new,
@@ -102,7 +111,7 @@ __global__ void ragged_paged_kernel(
       s.base[t] = off;
     }
     __syncthreads();
-    load_kv(s, k_pages, v_pages, D);
+    load_pages(s, k_pages, v_pages, k_scales, v_scales, D);
     __syncthreads();
     const int n_live = ctx - t0 < kTK ? ctx - t0 : kTK;
     attend_tile(s, R_live, D, scale, [&](int, int t) { return t < n_live; },
@@ -146,8 +155,9 @@ __global__ void ragged_paged_kernel(
 
 static constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, typename TP>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
+                  const void* k_scales, const void* v_scales,
                   const void* tables, const void* start, const void* qlens,
                   const void* tok_idx, const void* valid, const void* k_new,
                   const void* v_new, void* out, int T_tokens, int B, int H,
@@ -157,13 +167,14 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   const int R = q_blk * (H / KVH);
   const size_t smem = tile_smem_bytes(R, D);
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_paged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ragged_paged_kernel<T, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (max_seg + q_blk - 1) / q_blk;
   dim3 grid(B + 1, nq, KVH);
-  ragged_paged_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int*)tables,
+  ragged_paged_kernel<T, TP><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const TP*)k_pages, (const TP*)v_pages,
+      (const float*)k_scales, (const float*)v_scales, (const int*)tables,
       (const int*)start, (const int*)qlens, (const int*)tok_idx,
       (const unsigned char*)valid, (const T*)k_new, (const T*)v_new, (T*)out,
       T_tokens, B, H, KVH, D, page_size, table_stride, n_ctx_pages, max_seg,
@@ -171,38 +182,65 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. valid is one byte per token
-// (torch.bool). Returns cudaGetLastError() after the launch (0 =
-// launched); -1 for arguments the kernel does not take.
+// The pool types for one query type T: kv_kind 0 pools in T, 1 int8,
+// 2 fp8 e4m3 (with scale pools).
+template <typename T>
+static int launch_kind(int kv_kind, const void* q, const void* k_pages,
+                       const void* v_pages, const void* k_scales,
+                       const void* v_scales, const void* tables,
+                       const void* start, const void* qlens,
+                       const void* tok_idx, const void* valid,
+                       const void* k_new, const void* v_new, void* out,
+                       int T_tokens, int B, int H, int KVH, int D,
+                       int page_size, int table_stride, int n_ctx_pages,
+                       int max_seg, int q_blk, cudaStream_t stream) {
+#define RTT_RAGGED_ARGS                                                     \
+  q, k_pages, v_pages, k_scales, v_scales, tables, start, qlens, tok_idx,   \
+      valid, k_new, v_new, out, T_tokens, B, H, KVH, D, page_size,          \
+      table_stride, n_ctx_pages, max_seg, q_blk, stream
+  switch (kv_kind) {
+    case 0: return launch<T, T>(RTT_RAGGED_ARGS);
+    case 1: return launch<T, int8_t>(RTT_RAGGED_ARGS);
+    case 2: return launch<T, __nv_fp8_e4m3>(RTT_RAGGED_ARGS);
+  }
+#undef RTT_RAGGED_ARGS
+  return -1;
+}
+
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, out, k_new, v_new).
+// kv_kind: 0 pools in q's dtype (scales null), 1 int8 and 2 fp8 e4m3
+// pools with float32 k_scales/v_scales [P, page, KVH] (D % 16 == 0).
+// valid is one byte per token (torch.bool). Returns cudaGetLastError()
+// after the launch (0 = launched); -1 for arguments the kernel does not
+// take.
 extern "C" int ragged_paged_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* tables, const void* start, const void* qlens,
-    const void* tok_idx, const void* valid, const void* k_new,
-    const void* v_new, void* out, int T_tokens, int B, int H, int KVH, int D,
-    int page_size, int table_stride, int n_ctx_pages, int max_seg, int q_blk,
-    int dtype, void* stream) {
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* start, const void* qlens, const void* tok_idx,
+    const void* valid, const void* k_new, const void* v_new, void* out,
+    int T_tokens, int B, int H, int KVH, int D, int page_size,
+    int table_stride, int n_ctx_pages, int max_seg, int q_blk, int dtype,
+    int kv_kind, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || q_blk < 1 || max_seg < 1 || D % 8 != 0 ||
       D > kMaxD)
     return -1;
   if (q_blk * (H / KVH) * D > kThreads * kMaxAcc) return -1;
+  if (kv_kind < 0 || kv_kind > 2) return -1;
+  if ((kv_kind != 0) != (k_scales != nullptr) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
+    return -1;
+  if (kv_kind != 0 && D % 16 != 0) return -1;
   if (T_tokens == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+#define RTT_RAGGED_ARGS                                                     \
+  kv_kind, q, k_pages, v_pages, k_scales, v_scales, tables, start, qlens,   \
+      tok_idx, valid, k_new, v_new, out, T_tokens, B, H, KVH, D, page_size, \
+      table_stride, n_ctx_pages, max_seg, q_blk, st
   switch (dtype) {
-    case 0:
-      return launch<float>(q, k_pages, v_pages, tables, start, qlens, tok_idx,
-                           valid, k_new, v_new, out, T_tokens, B, H, KVH, D,
-                           page_size, table_stride, n_ctx_pages, max_seg,
-                           q_blk, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, tables, start, qlens,
-                                   tok_idx, valid, k_new, v_new, out, T_tokens,
-                                   B, H, KVH, D, page_size, table_stride,
-                                   n_ctx_pages, max_seg, q_blk, st);
-    case 2:
-      return launch<__half>(q, k_pages, v_pages, tables, start, qlens, tok_idx,
-                            valid, k_new, v_new, out, T_tokens, B, H, KVH, D,
-                            page_size, table_stride, n_ctx_pages, max_seg,
-                            q_blk, st);
+    case 0: return launch_kind<float>(RTT_RAGGED_ARGS);
+    case 1: return launch_kind<__nv_bfloat16>(RTT_RAGGED_ARGS);
+    case 2: return launch_kind<__half>(RTT_RAGGED_ARGS);
   }
+#undef RTT_RAGGED_ARGS
   return -1;
 }

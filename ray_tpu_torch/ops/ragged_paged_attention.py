@@ -18,6 +18,10 @@ Two implementations:
   ignored on input and exact zeros on output. On a CPU tensor it runs
   ``ragged_paged_attention_plain``; on a CUDA tensor it launches the
   kernel or raises.
+
+Both take quantized pools (int8/fp8 values with float32 scale pools,
+``kv_quant``): the dense op over the dequantized gathered context, the
+kernel with the dequant fused into its page loads.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .paged_attention import check_pool_kind, gather_context
 
 
 def ragged_prefill_decode_attention(
@@ -86,16 +91,16 @@ def ragged_paged_prefill_decode_attention(
         page_tables: torch.Tensor, slot_ids: torch.Tensor,
         positions: torch.Tensor, valid: torch.Tensor, start: torch.Tensor,
         k_new: torch.Tensor, v_new: torch.Tensor,
-        ctx_pages: int = -1) -> torch.Tensor:
+        ctx_pages: int = -1, k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single layer: gather each slot's pages (the first ctx_pages table
-    entries, -1 = all) then run the ragged attention."""
+    entries, -1 = all; dequantized to float32 when k_scales/v_scales
+    are given) then run the ragged attention."""
     tables = page_tables if ctx_pages < 0 else page_tables[:, :ctx_pages]
-    g_k = k_pages[tables.long()]                # [B, P, page, KVH, D]
-    g_v = v_pages[tables.long()]
-    b, p, s, kvh, d = g_k.shape
     return ragged_prefill_decode_attention(
-        q, g_k.reshape(b, p * s, kvh, d), g_v.reshape(b, p * s, kvh, d),
-        k_new, v_new, slot_ids, positions, valid, start)
+        q, gather_context(k_pages, k_scales, tables),
+        gather_context(v_pages, v_scales, tables), k_new, v_new, slot_ids,
+        positions, valid, start)
 
 
 def ragged_attention_dense_oracle(
@@ -175,14 +180,16 @@ def _q_block(group: int, max_seg: int) -> int:
 def ragged_paged_attention_plain(
         q, k_pages, v_pages, page_tables, slot_ids, positions, valid,
         start, k_new, v_new, *, ctx_pages: int = -1, max_seg_len: int = -1,
-        plan=None) -> torch.Tensor:
-    """Plain version of the kernel: the dense op, with invalid rows
-    zeroed as the kernel's contract says. `plan` is accepted and
-    ignored, so both versions take the same arguments."""
+        plan=None, k_scales=None, v_scales=None) -> torch.Tensor:
+    """Plain version of the kernel: the dense op (over the dequantized
+    context when scales are given), with invalid rows zeroed as the
+    kernel's contract says. `plan` is accepted and ignored, so both
+    versions take the same arguments."""
     del max_seg_len, plan
     out = ragged_paged_prefill_decode_attention(
         q, k_pages, v_pages, page_tables, slot_ids, positions, valid,
-        start, k_new, v_new, ctx_pages=ctx_pages)
+        start, k_new, v_new, ctx_pages=ctx_pages, k_scales=k_scales,
+        v_scales=v_scales)
     return torch.where(valid.bool()[:, None, None], out,
                        torch.zeros_like(out))
 
@@ -193,7 +200,9 @@ def ragged_paged_attention(
         positions: torch.Tensor, valid: torch.Tensor, start: torch.Tensor,
         k_new: torch.Tensor, v_new: torch.Tensor, *, ctx_pages: int = -1,
         max_seg_len: int = -1,
-        plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Ragged paged attention for one layer, the kernel entry.
 
@@ -203,15 +212,18 @@ def ragged_paged_attention(
     v_new: [T, KVH, D]. ctx_pages bounds the context sweep (-1 = the
     whole table); max_seg_len bounds any one slot's token count this
     call (-1 = T); plan is ``ragged_plan``'s result for these
-    arguments (built here when None). Returns [T, H, D] with invalid
-    rows exact zeros.
+    arguments (built here when None). With k_scales/v_scales
+    ([num_pages, page_size, KVH] float32) the pools hold int8 or fp8
+    values, dequantized as they are read; k_new/v_new stay in q's
+    dtype. Returns [T, H, D] with invalid rows exact zeros.
 
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/ragged_paged.cu`` (or raise)."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pages, v_pages, page_tables, slot_ids, positions, valid,
-            start, k_new, v_new, ctx_pages=ctx_pages)
+            start, k_new, v_new, ctx_pages=ctx_pages, k_scales=k_scales,
+            v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for device "
                          f"{q.device}")
@@ -231,11 +243,9 @@ def ragged_paged_attention(
     if slot_ids.shape != (t,) or positions.shape != (t,) \
             or valid.shape != (t,) or start.shape != (b,):
         raise ValueError("slot_ids/positions/valid [T], start [B] expected")
-    code = _kernels.dtype_code(q.dtype)
-    if code is None or any(x.dtype != q.dtype for x in
-                           (k_pages, v_pages, k_new, v_new)):
-        raise TypeError("q, pools and new KV must share one of float32/"
-                        "bfloat16/float16")
+    kind = check_pool_kind(q, k_pages, v_pages, k_scales, v_scales)
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise TypeError("k_new/v_new must be in q's dtype")
     if page_tables.dtype != torch.int32 or start.dtype != torch.int32:
         raise TypeError("page_tables and start must be int32")
     if valid.dtype != torch.bool:
@@ -247,8 +257,9 @@ def ragged_paged_attention(
     if tok_idx.shape != (b, max_seg) or qlen.shape != (b,) \
             or tok_idx.dtype != torch.int32 or qlen.dtype != torch.int32:
         raise ValueError("plan does not match max_seg_len / the tables")
+    scales = (k_scales, v_scales) if kind else ()
     for x in (q, k_pages, v_pages, page_tables, start, valid, k_new, v_new,
-              qlen, tok_idx):
+              qlen, tok_idx) + scales:
         if x.device != q.device:
             raise ValueError("all inputs must be on one device")
         if not x.is_contiguous():
@@ -260,15 +271,18 @@ def ragged_paged_attention(
         min(ctx_pages, page_tables.shape[1])
     q_blk = _q_block(h // kvh, max_seg)
     out = torch.empty_like(q)
-    fn = _kernels.RAGGED_PAGED.fn()
+    ptr = lambda x: x.data_ptr() if x is not None else None
+    kernel = _kernels.RAGGED_PAGED_BY_KIND[kind]
+    fn = kernel.fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_tables.data_ptr(), start.data_ptr(), qlen.data_ptr(),
-                tok_idx.data_ptr(), valid.data_ptr(), k_new.data_ptr(),
-                v_new.data_ptr(), out.data_ptr(), t, b, h, kvh, d,
-                page_size, page_tables.shape[1], n_ctx, max_seg, q_blk,
-                code, stream)
-    _kernels.check(rc, "ragged_paged")
-    _kernels.RAGGED_PAGED.launches += 1
+                ptr(k_scales), ptr(v_scales), page_tables.data_ptr(),
+                start.data_ptr(), qlen.data_ptr(), tok_idx.data_ptr(),
+                valid.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                out.data_ptr(), t, b, h, kvh, d, page_size,
+                page_tables.shape[1], n_ctx, max_seg, q_blk,
+                _kernels.dtype_code(q.dtype), kind, stream)
+    _kernels.check(rc, kernel.name)
+    kernel.launches += 1
     return out

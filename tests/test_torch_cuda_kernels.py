@@ -15,7 +15,7 @@ float32 sum once) plus 1e-3 of the largest element (sums near zero).
 import pytest
 import torch
 
-from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops import _kernels, kv_quant
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import ragged_paged_attention as rpa
@@ -199,6 +199,159 @@ def test_engine_kernel_impl_matches_gather_f32(dev):
         counts = _kernels.launch_counts()
         if eng is ek:
             assert counts["ragged_paged"] > 0 and counts["paged_decode"] > 0
+        else:
+            assert not any(counts.values()), counts
+    assert outs[0] == outs[1]
+
+
+# ------------------------------------------------- quantized serving kernels
+
+KIND_CODE = {"int8": 1, "fp8": 2}
+
+
+def _quantize_pools(k, v, kind, ramp=True):
+    """int8/fp8 pools and their scale pools from float pools; with ramp,
+    each page's magnitude is 10**-5 .. 10**1 (six orders across pages),
+    so a kernel that read another row's scale would be far off."""
+    if ramp:
+        mags = 10.0 ** torch.linspace(-5, 1, k.shape[0], device=k.device)
+        k = k.float() * mags[:, None, None, None]
+        v = v.float() * mags[:, None, None, None]
+    kq, ks = kv_quant.quantize_rows(k, kind)
+    vq, vs = kv_quant.quantize_rows(v, kind)
+    return kq, vq, dict(k_scales=ks, v_scales=vs)
+
+
+def _quant_tol(dtype):
+    # bf16 outputs reach |x| ~ 10 here: two bf16 ulps there, 3e-2 below
+    return (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+            else dict(atol=3e-2, rtol=1.6e-2))
+
+
+QUANT_DECODE_CASES = [
+    # dtype, lens (partial last pages, seq_len 0), max_pages, H, KVH, D
+    (torch.bfloat16, [0, 31, 300, 640, 4096], 512, 32, 8, 128),
+    (torch.bfloat16, [1, 16, 17, 128], 8, 32, 8, 128),
+    (torch.float32, [0, 5, 77, 256], 32, 8, 2, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype,lens,max_pages,H,KVH,D", QUANT_DECODE_CASES)
+def test_quant_decode_kernel_matches_plain(dev, dtype, lens, max_pages, H,
+                                           KVH, D, kind):
+    c = _decode_case(dev, dtype, lens, max_pages, H, KVH, D, seed=2)
+    kq, vq, sc = _quantize_pools(c["k"], c["v"], kind)
+    args = (c["q"], kq, vq, c["tables"], c["lens"])
+    kern = _kernels.PAGED_DECODE_BY_KIND[KIND_CODE[kind]]
+    before = (kern.launches, _kernels.PAGED_DECODE.launches)
+    out, m, l = pa.paged_decode_attention(*args, return_stats=True, **sc)
+    again = pa.paged_decode_attention(*args, return_stats=True, **sc)
+    ref, m_r, l_r = pa.paged_decode_attention_plain(*args, return_stats=True,
+                                                    **sc)
+    torch.cuda.synchronize()
+    assert (kern.launches, _kernels.PAGED_DECODE.launches) == \
+        (before[0] + 2, before[1])
+    assert all(torch.equal(x, y) for x, y in zip((out, m, l), again))
+    torch.testing.assert_close(out.float(), ref.float(), **_quant_tol(dtype))
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, l_r, atol=1e-3, rtol=1e-4)
+    new = (c["k_new"], c["v_new"])
+    out = pa.paged_decode_with_new_token(*args, *new, **sc)
+    ref = pa.paged_decode_with_new_token_plain(*args, *new, **sc)
+    torch.testing.assert_close(out.float(), ref.float(), **_quant_tol(dtype))
+
+
+QUANT_RAGGED_CASES = [
+    # name, dtype, segs, pad, H, KVH, D
+    ("decode_only", torch.float32, [(5, 1), (11, 1), (3, 1), (80, 1)], 0,
+     4, 2, 64),
+    ("mixed", torch.float32, [(7, 1), (0, 5), (12, 1), (40, 70)], 0,
+     4, 2, 64),
+    ("gqa_group4", torch.float32, [(6, 2), (0, 3), (100, 1)], 0, 8, 2, 32),
+    ("padding_rows", torch.float32, [(5, 1), (0, 4)], 7, 4, 2, 64),
+    ("all_padding", torch.bfloat16, [(0, 0)], 6, 4, 2, 64),
+    ("8b_mixed_bf16", torch.bfloat16,
+     [(33, 1), (1023, 1), (3999, 1), (0, 200), (700, 300)], 3, 32, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("name,dtype,segs,pad,H,KVH,D", QUANT_RAGGED_CASES)
+def test_quant_ragged_kernel_matches_plain(dev, name, dtype, segs, pad, H,
+                                           KVH, D, kind):
+    args = list(_ragged_case(dev, dtype, segs, pad, H, KVH, D, seed=3))
+    args[1], args[2], sc = _quantize_pools(args[1], args[2], kind)
+    kern = _kernels.RAGGED_PAGED_BY_KIND[KIND_CODE[kind]]
+    before = (kern.launches, _kernels.RAGGED_PAGED.launches)
+    out = rpa.ragged_paged_attention(*args, **sc)
+    again = rpa.ragged_paged_attention(*args, **sc)
+    ref = rpa.ragged_paged_attention_plain(*args, **sc)
+    torch.cuda.synchronize()
+    assert (kern.launches, _kernels.RAGGED_PAGED.launches) == \
+        (before[0] + 2, before[1])
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), **_quant_tol(dtype))
+    assert torch.all(out[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    c = _decode_case(dev, torch.bfloat16, [3, 9], 4, 8, 2, 64)
+    kq, vq, sc = _quantize_pools(c["k"], c["v"], "int8", ramp=False)
+    args = [c["q"], kq, vq, c["tables"], c["lens"]]
+    with pytest.raises(ValueError):                  # one scale pool alone
+        pa.paged_decode_attention(*args, k_scales=sc["k_scales"])
+    with pytest.raises(TypeError):                   # int8 pools, no scales
+        pa.paged_decode_attention(*args)
+    with pytest.raises(ValueError):                  # scales on the CPU
+        pa.paged_decode_attention(*args, k_scales=sc["k_scales"].cpu(),
+                                  v_scales=sc["v_scales"].cpu())
+    kq8, vq8, sc8 = _quantize_pools(c["k"][..., :8].contiguous(),
+                                    c["v"][..., :8].contiguous(), "fp8",
+                                    ramp=False)
+    with pytest.raises(ValueError):                  # head_dim % 16
+        pa.paged_decode_attention(c["q"][..., :8].contiguous(), kq8, vq8,
+                                  *args[3:], **sc8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_engine_quant_kernel_impl_matches_gather_f32(dev, kind):
+    """Small float32 engine on int8/fp8 pages: the kernel impl's greedy
+    tokens equal the gather impl's; only this kind's counters move."""
+    from ray_tpu_torch import (EngineConfig, InferenceEngine, Request,
+                               SamplingParams)
+    from ray_tpu_torch.models import llama
+    kw = dict(model=llama.config("debug", dtype=torch.float32),
+              max_batch_size=3, page_size=8, num_pages=64,
+              max_prefill_tokens=16, seed=9, kv_dtype=kind)
+    ek = InferenceEngine(EngineConfig(decode_impl="kernel", **kw))
+    eg = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
+                         params=ek.params)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (40, 23, 1, 33, 7, 19)]
+    outs = []
+    for eng in (ek, eg):
+        reqs = [Request(f"r{i}", p, SamplingParams(max_tokens=10))
+                for i, p in enumerate(prompts)]
+        _kernels.reset_launch_counts()
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        outs.append([r.output_tokens for r in reqs])
+        counts = _kernels.launch_counts()
+        if eng is ek:
+            st = eng.stats()
+            L = eng.model_cfg.n_layers
+            assert counts[f"ragged_paged_{kind}"] == L * st["ragged_ticks"]
+            assert counts[f"paged_decode_{kind}"] == L * st["decode_ticks"]
+            assert st["decode_ticks"] > 0
+            assert sum(counts.values()) == L * st["ticks"]
         else:
             assert not any(counts.values()), counts
     assert outs[0] == outs[1]

@@ -224,7 +224,7 @@ def test_engine_stop_abort_and_limits():
 
 
 @pytest.mark.parametrize("over,exc", [
-    (dict(kv_dtype="int8"), ValueError),
+    (dict(kv_dtype="int4"), ValueError),
     (dict(decode_impl="pallas"), ValueError),
     (dict(device="meta"), ValueError),
 ])
@@ -240,3 +240,85 @@ def test_engine_config_unknown_fields_raise():
         with pytest.raises(TypeError):
             te.EngineConfig(**{field: None})
     assert te.InferenceEngine(te.EngineConfig(device="cpu")).impl == "gather"
+
+
+# ------------------------------------------------------ quantized KV pages
+
+@pytest.fixture(scope="module")
+def jax_quant_runs():
+    """The JAX gather engine's outputs with int8/fp8 pages, per workload,
+    computed once."""
+    out = {}
+    for kind in ("int8", "fp8"):
+        out[kind, "greedy"] = _drive(_jax_engine(kv_dtype=kind), je,
+                                     _prompts(), max_tokens=12)
+        out[kind, "penalty"] = _drive(_jax_engine(kv_dtype=kind), je,
+                                      _prompts(), max_tokens=10,
+                                      repetition_penalty=1.3)
+    return out
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("workload,sp", [
+    ("greedy", dict(max_tokens=12)),
+    ("penalty", dict(max_tokens=10, repetition_penalty=1.3)),
+])
+def test_engine_quant_token_exact_vs_jax_gather(jax_quant_runs, workload, sp,
+                                                kind, impl):
+    """int8/fp8 pages: quantization changes tokens against f32 pages, so
+    the oracle is the JAX gather engine of the same kind."""
+    eng = _port_engine(_jax_engine(), impl, kv_dtype=kind)
+    assert eng.k_pages.dtype == {"int8": torch.int8,
+                                 "fp8": torch.float8_e4m3fn}[kind]
+    assert eng.k_scales.shape == eng.k_pages.shape[:-1]
+    out = _drive(eng, te, _prompts(), **sp)
+    assert out == jax_quant_runs[kind, workload]
+    st = eng.stats()
+    assert st["ragged_ticks"] > 0 and st["decode_ticks"] > 0
+    assert st["kv"]["used_pages"] == 0
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_engine_quant_prefix_cache_token_exact_vs_jax(kind, impl):
+    """Prefix caching shares quantized pages as they are."""
+    rng = np.random.default_rng(5)
+    shared = rng.integers(2, 250, 24).tolist()
+    prompts = [shared + [5], shared + [9, 11]]
+    jeng = _jax_engine(enable_prefix_caching=True, kv_dtype=kind)
+    ref = [jeng.generate([list(p)], je.SamplingParams(max_tokens=8)
+                         )[0].output_tokens for p in prompts]
+    eng = _port_engine(jeng, impl, enable_prefix_caching=True,
+                       kv_dtype=kind)
+    outs = [eng.generate([list(p)], te.SamplingParams(max_tokens=8)
+                         )[0].output_tokens for p in prompts]
+    assert eng.allocator.cache_hit_tokens >= 16
+    assert outs == ref
+
+
+def test_engine_quant_stats_report_configured_dtype_bytes():
+    """stats() byte gauges at the configured page kind, with the JAX
+    engine's arithmetic (tests/test_kv_quant.py): f32 pages at the
+    model's itemsize, quantized pages at one byte a value plus a float32
+    scale per (row, kv head)."""
+    from ray_tpu.ops import kv_quant as jkq
+    mc = tl.config("debug", dtype=torch.float32)
+    rows = {"f32": 2 * mc.n_layers * mc.n_kv_heads * mc.head_dim * 4}
+    for kind in ("int8", "fp8"):
+        rows[kind] = 2 * mc.n_layers * jkq.token_row_bytes(
+            kind, mc.n_kv_heads, mc.head_dim)
+    for kind, row in rows.items():
+        eng = te.InferenceEngine(te.EngineConfig(
+            model=mc, device="cpu", kv_dtype=kind, **ENGINE_KW))
+        for i, p in enumerate(_prompts()[:3]):
+            eng.add_request(te.Request(f"s{i}", p,
+                                       te.SamplingParams(max_tokens=4)))
+        for _ in range(3):
+            eng.step()
+        st = eng.stats()
+        assert st["kv_dtype"] == kind
+        assert st["kv_page_bytes"] == row * ENGINE_KW["page_size"]
+        assert st["kv"]["used_pages"] > 0
+        assert st["kv_device_bytes_used"] == (
+            eng.allocator.used_pages * st["kv_page_bytes"])

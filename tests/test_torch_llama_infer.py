@@ -138,3 +138,122 @@ def test_impl_is_checked():
     with pytest.raises(ValueError):
         tli.decode_step(tcfg, tp, z, z, kt, vt, torch.from_numpy(tables),
                         z.bool(), impl="pallas")
+
+
+# ------------------------------------------------------- quantized pools
+
+def _quant_pools(k, v, kind):
+    """The JAX quantizer's (k, v, k_scales, v_scales), as numpy; fp8 pools
+    as ml_dtypes arrays."""
+    from ray_tpu.ops import kv_quant as jkq
+    out = []
+    for x in (k, v):
+        q, s = jkq.quantize_rows(jnp.asarray(x), kind)
+        out.append((np.asarray(q), np.asarray(s)))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def _torch_pool(a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a).view(np.uint8))
+    return t.view(torch.int8) if a.dtype == np.int8 else \
+        t.view(torch.float8_e4m3fn)
+
+
+def _compare_quant(kind, lt, pools_t, lj, pools_j):
+    """float32 logits at the file's tolerance; dequantized pools within one
+    quantization step of JAX's (int8: the row's scale; fp8: e4m3's
+    spacing at the value, times the scale), scales at 1e-5 relative. The
+    scratch page (last) takes padding rows in any order: skipped."""
+    a, r = TOLS["float32"]["logits"]
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=a, rtol=r)
+    kt, vt, kst, vst = pools_t
+    kj, vj, ksj, vsj = (np.asarray(x) for x in pools_j)
+    for st, sj in ((kst, ksj), (vst, vsj)):
+        np.testing.assert_allclose(st.numpy()[:, :-1], sj[:, :-1],
+                                   rtol=1e-5, atol=0)
+    for pt, st, pj, sj in ((kt, kst, kj, ksj), (vt, vst, vj, vsj)):
+        dt = (pt.float() * st[..., None]).numpy()[:, :-1]
+        qj = pj.astype(np.float32)[:, :-1]
+        dj = qj * sj[:, :-1, ..., None]
+        if kind == "int8":
+            step = np.ones_like(qj)
+        else:
+            mag = np.maximum(np.abs(qj), 2.0 ** -6)
+            step = 2.0 ** (np.floor(np.log2(mag)) - 3)
+        tol = step * sj[:, :-1, ..., None] * (1 + 1e-5)
+        assert np.all(np.abs(dt - dj) <= tol)
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_ragged_forward_quant_matches_jax(kind, impl):
+    jcfg, tcfg, params, k, v, tables, rng = _setup("float32")
+    kq, vq, ks, vs = _quant_pools(k, v, kind)
+    segs = [(9, 1), (0, 6), (13, 5), (2, 1)]
+    t = sum(n for _, n in segs) + 3
+    tokens = np.zeros(t, np.int32)
+    slot_ids = np.zeros(t, np.int32)
+    positions = np.zeros(t, np.int32)
+    valid = np.zeros(t, bool)
+    last_idx = np.zeros(len(segs), np.int32)
+    cur = 0
+    for s, (st, n) in enumerate(segs):
+        tokens[cur:cur + n] = rng.integers(0, jcfg.vocab_size, n)
+        slot_ids[cur:cur + n] = s
+        positions[cur:cur + n] = np.arange(st, st + n)
+        valid[cur:cur + n] = True
+        last_idx[s] = cur + n - 1
+        cur += n
+    start = np.asarray([s for s, _ in segs], np.int32)
+    meta = (tokens, slot_ids, positions, valid, start, last_idx)
+    lj, *pools_j = jli.ragged_forward(
+        jcfg, params, *map(jnp.asarray, meta), jnp.asarray(kq),
+        jnp.asarray(vq), jnp.asarray(tables), ctx_pages=4, impl="gather",
+        kv_kind=kind, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    tp = params_from_numpy(params, tcfg, "cpu")
+    pools_t = (_torch_pool(kq), _torch_pool(vq), torch.from_numpy(ks.copy()),
+               torch.from_numpy(vs.copy()))
+    out = tli.ragged_forward(
+        tcfg, tp, *map(torch.from_numpy, meta), pools_t[0], pools_t[1],
+        torch.from_numpy(tables), ctx_pages=4, impl=impl, max_seg_len=8,
+        kv_kind=kind, k_scales=pools_t[2], v_scales=pools_t[3])
+    assert len(out) == 5 and all(a is b for a, b in zip(out[1:], pools_t))
+    _compare_quant(kind, out[0], pools_t, lj, pools_j)
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_decode_step_quant_matches_jax(kind, impl):
+    jcfg, tcfg, params, k, v, tables, rng = _setup("float32")
+    kq, vq, ks, vs = _quant_pools(k, v, kind)
+    tokens = rng.integers(0, jcfg.vocab_size, 4).astype(np.int32)
+    positions = np.asarray([7, 0, 19, 31], np.int32)
+    active = np.asarray([True, False, True, True])
+    lj, *pools_j = jli.decode_step(
+        jcfg, params, *map(jnp.asarray, (tokens, positions, kq, vq, tables,
+                                         active)), impl="gather",
+        kv_kind=kind, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    tp = params_from_numpy(params, tcfg, "cpu")
+    pools_t = (_torch_pool(kq), _torch_pool(vq), torch.from_numpy(ks.copy()),
+               torch.from_numpy(vs.copy()))
+    lt, *_ = tli.decode_step(
+        tcfg, tp, torch.from_numpy(tokens), torch.from_numpy(positions),
+        pools_t[0], pools_t[1], torch.from_numpy(tables),
+        torch.from_numpy(active), impl=impl, kv_kind=kind,
+        k_scales=pools_t[2], v_scales=pools_t[3])
+    # the inactive row's logits are discarded (see test_decode_step)
+    _compare_quant(kind, lt[torch.from_numpy(active)], pools_t,
+                   np.asarray(lj)[active], pools_j)
+
+
+def test_kv_kind_needs_its_scales():
+    _, tcfg, params, k, v, tables, _ = _setup("float32")
+    tp = params_from_numpy(params, tcfg, "cpu")
+    kt, vt = pools_from_numpy(k, v, device="cpu")
+    z = torch.zeros(4, dtype=torch.int32)
+    for kind, scales in (("int8", {}), ("f32", dict(k_scales=kt[..., 0],
+                                                    v_scales=vt[..., 0])),
+                         ("int4", {})):
+        with pytest.raises(ValueError):
+            tli.decode_step(tcfg, tp, z, z, kt, vt, torch.from_numpy(tables),
+                            z.bool(), kv_kind=kind, **scales)

@@ -197,3 +197,131 @@ def test_decode_args_are_checked():
         tpa._check_decode_args(q, k, v, tb, ln, k_new=q, v_new=q)
     with pytest.raises(ValueError):
         tpa.paged_decode_attention(q.to("meta"), k, v, tb, ln)
+
+
+# ------------------------------------------------------- quantized pools
+
+def _quant_case(seed, kind, B, H, KVH, D, num_pages, page_size, max_pages,
+                lens):
+    """_case with int8/fp8 pools and their scale pools, quantized by the
+    JAX quantizer; the torch side gets the same bytes."""
+    from ray_tpu.ops import kv_quant as jkq
+    c = _case(seed, B, H, KVH, D, num_pages, page_size, max_pages, lens)
+    # magnitudes ramping over 3.5 orders across pages (a mixed-up scale
+    # row would be off by orders of magnitude), at most ~3: the scores
+    # stay in the range where 2e-5 bounds a float32 reordering
+    mags = 10.0 ** np.linspace(-3, 0.5, num_pages, dtype=np.float32)
+    for n in ("k", "v"):
+        q, s = jkq.quantize_rows(jnp.asarray(c[n] * mags[:, None, None,
+                                                          None]), kind)
+        c[n] = np.asarray(q)
+        c[n + "s"] = np.asarray(s)
+    return c
+
+
+def _tq(c, *names):
+    """torch tensors of the case's arrays; fp8 pools by their bytes."""
+    out = []
+    for n in names:
+        a = np.array(c[n])
+        if a.dtype == jnp.float8_e4m3fn:
+            out.append(torch.from_numpy(a.view(np.uint8)).view(
+                torch.float8_e4m3fn))
+        else:
+            out.append(torch.from_numpy(a))
+    return out
+
+
+QUANT_CASES = [
+    # name, B, H, KVH, D, num_pages, page_size, max_pages, lens
+    ("narrow", 3, 8, 4, 64, 32, 16, 8, [5, 37, 128]),
+    ("gqa4", 4, 8, 2, 32, 40, 8, 8, [1, 9, 64, 33]),
+]
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("name,B,H,KVH,D,P,page,maxp,lens", QUANT_CASES)
+def test_quant_decode_plain_matches_pallas_interpret(name, B, H, KVH, D, P,
+                                                     page, maxp, lens, kind):
+    """Plain decode over int8/fp8 pools vs the quantized branch of the
+    one-page Pallas kernel (`_paged_decode_kernel`) in interpret mode."""
+    c = _quant_case(len(name), kind, B, H, KVH, D, P, page, maxp, lens)
+    out_j, m_j, l_j = jpa.paged_decode_attention(
+        *_j(c, "q", "k", "v", "tables", "lens"), return_stats=True,
+        k_scales=jnp.asarray(c["ks"]), v_scales=jnp.asarray(c["vs"]),
+        interpret=True)
+    ks, vs = _tq(c, "ks", "vs")
+    out_t, m_t, l_t = tpa.paged_decode_attention(
+        *_tq(c, "q", "k", "v", "tables", "lens"), return_stats=True,
+        k_scales=ks, v_scales=vs)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), **TOL)
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quant_decode_plain_matches_multipage_interpret(kind):
+    """Plain decode over quantized pools vs the quantized branch of the
+    multi-page Pallas kernel (`_paged_decode_kernel_mp`), seq_len 0 row
+    included (it attends one key on both)."""
+    c = _quant_case(3, kind, 3, 8, 4, 64, 100, 8, 32, [0, 77, 256])
+    out_j, m_j, l_j = jpa._paged_decode_multipage(
+        *_j(c, "q", "k", "v", "tables", "lens"), ppb=4, interpret=True,
+        k_scales=jnp.asarray(c["ks"]), v_scales=jnp.asarray(c["vs"]))
+    ks, vs = _tq(c, "ks", "vs")
+    out_t, m_t, l_t = tpa.paged_decode_attention(
+        *_tq(c, "q", "k", "v", "tables", "lens"), return_stats=True,
+        k_scales=ks, v_scales=vs)
+    np.testing.assert_allclose(out_t.numpy(),
+                               np.asarray(out_j).reshape(3, 8, 64), **TOL)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j).reshape(3, 8),
+                               **TOL)
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j).reshape(3, 8),
+                               **TOL)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("name,B,H,KVH,D,P,page,maxp,lens", QUANT_CASES)
+def test_quant_decode_with_new_token_matches_jax(name, B, H, KVH, D, P, page,
+                                                 maxp, lens, kind):
+    c = _quant_case(7 + len(name), kind, B, H, KVH, D, P, page, maxp, lens)
+    ref = jpa.paged_decode_with_new_token(
+        *_j(c, "q", "k", "v", "tables", "lens", "k_new", "v_new"),
+        k_scales=jnp.asarray(c["ks"]), v_scales=jnp.asarray(c["vs"]),
+        interpret=True)
+    ks, vs = _tq(c, "ks", "vs")
+    args = _tq(c, "q", "k", "v", "tables", "lens", "k_new", "v_new")
+    out = tpa.paged_decode_with_new_token(*args, k_scales=ks, v_scales=vs)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the kernel path's plain version and the dense reference over the
+    # dequantized, gathered context with the new token appended agree
+    plain = tpa.paged_decode_with_new_token_plain(*args, k_scales=ks,
+                                                  v_scales=vs)
+    assert torch.equal(out, plain)
+    q, kp, vp, tb, ln, kn, vn = args
+    k_full = torch.cat([tpa.gather_layer_quant(kp, ks, tb), kn[:, None]], 1)
+    v_full = torch.cat([tpa.gather_layer_quant(vp, vs, tb), vn[:, None]], 1)
+    dense = tpa.paged_attention_on_gathered(q, k_full, v_full, ln,
+                                            append_len=1)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), **TOL)
+
+
+def test_quant_decode_args_are_checked():
+    c = _quant_case(9, "int8", 2, 8, 4, 32, 10, 4, 3, [3, 5])
+    q, k, v, tb, ln, ks, vs = _tq(c, "q", "k", "v", "tables", "lens", "ks",
+                                  "vs")
+    assert tpa._check_decode_args(q, k, v, tb, ln, k_scales=ks,
+                                  v_scales=vs) == 1
+    assert tpa._check_decode_args(
+        q, k.view(torch.float8_e4m3fn), v.view(torch.float8_e4m3fn), tb, ln,
+        k_scales=ks, v_scales=vs) == 2
+    with pytest.raises(ValueError):                 # one scale pool alone
+        tpa._check_decode_args(q, k, v, tb, ln, k_scales=ks)
+    with pytest.raises(TypeError):                  # int8 pools, no scales
+        tpa._check_decode_args(q, k, v, tb, ln)
+    with pytest.raises(ValueError):                 # scales of another shape
+        tpa._check_decode_args(q, k, v, tb, ln, k_scales=ks[..., :1],
+                               v_scales=vs[..., :1])
+    with pytest.raises(TypeError):                  # bf16 pools with scales
+        tpa._check_decode_args(q, k.float(), v.float(), tb, ln, k_scales=ks,
+                               v_scales=vs)

@@ -197,3 +197,62 @@ def test_ragged_plan_maps_segments(name, segs, pad):
                 assert va[t] and sl[t] == s and po[t] == start + i
             else:
                 assert t == -1
+
+
+# ------------------------------------------------------- quantized pools
+
+QUANT_CASES = [
+    # tests/test_kv_quant.py's segment layouts: name, segs, pad, kvh, group
+    ("decode_only", [(5, 1), (11, 1), (3, 1), (8, 1)], 0, 2, 2),
+    ("mixed", [(7, 1), (0, 5), (12, 1), (4, 6)], 0, 2, 2),
+    ("gqa_group1", [(6, 2), (0, 3), (10, 1)], 0, 3, 1),
+    ("gqa_group4", [(6, 2), (0, 3), (10, 1)], 0, 2, 4),
+    ("partial_last_page", [(5, 3), (9, 1), (1, 2), (6, 1)], 0, 2, 2),
+    ("padding_rows", [(5, 1), (0, 4)], 7, 2, 2),
+]
+
+
+def _quantize_pools(c, kind):
+    """Quantize the case's pools with the JAX quantizer: returns the JAX
+    (pools, scales) and the torch tensors of the same bytes."""
+    from ray_tpu.ops import kv_quant as jkq
+    jx, tx = {}, {}
+    for n in ("k_pages", "v_pages"):
+        q, s = jkq.quantize_rows(jnp.asarray(c[n]), kind)
+        jx[n], jx[n + "_s"] = q, s
+        raw = np.array(q).view(np.uint8)
+        t = torch.from_numpy(raw)
+        tx[n] = t.view(torch.int8) if kind == "int8" else \
+            t.view(torch.float8_e4m3fn)
+        tx[n + "_s"] = torch.from_numpy(np.array(s))
+    return jx, tx
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("name,segs,pad,kvh,group", QUANT_CASES)
+def test_quant_kernel_entry_matches_pallas_interpret(name, segs, pad, kvh,
+                                                     group, kind):
+    """The kernel entry over int8/fp8 pools (the plain version on the
+    CPU) vs the quantized branch of the Pallas ragged kernel in interpret
+    mode; padding rows are exact zeros on both."""
+    rng = np.random.default_rng(zlib.crc32(f"{name}/{kind}".encode()))
+    c = _ragged_case(rng, segs, pad=pad, kvh=kvh, group=group, d=16)
+    jx, tx = _quantize_pools(c, kind)
+    jargs = [jx[n] if n in jx else jnp.asarray(c[n]) for n in ARGS]
+    ref = np.asarray(jrpa.ragged_paged_attention_pallas(
+        *jargs, q_block=4, pages_per_block=2, k_scales=jx["k_pages_s"],
+        v_scales=jx["v_pages_s"], interpret=True))
+    targs = [tx[n] if n in tx else torch.from_numpy(np.array(c[n]))
+             for n in ARGS]
+    out = trpa.ragged_paged_attention(
+        *targs, k_scales=tx["k_pages_s"], v_scales=tx["v_pages_s"]).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+    v = c["valid"]
+    if (~v).any():
+        assert np.all(out[~v] == 0.0) and np.all(ref[~v] == 0.0)
+    # the plain version is the dense op over the dequantized context
+    kd = tx["k_pages"].float() * tx["k_pages_s"][..., None]
+    vd = tx["v_pages"].float() * tx["v_pages_s"][..., None]
+    dense = trpa.ragged_paged_prefill_decode_attention(
+        *targs[:1], kd, vd, *targs[3:]).numpy()
+    np.testing.assert_array_equal(out[v], dense[v])
