@@ -5,7 +5,9 @@
 Phases (any failure raises and exits non-zero):
   1. card: name, and name + power limit from nvidia-smi;
   2. build: compile the CUDA kernels from ray_tpu_torch/ops/csrc (one
-     nvcc per source, in parallel);
+     nvcc per source, in parallel); the bf16 flash forward and dk/dv
+     instances must hold HGMMA (tensor-core) instructions in their SASS,
+     and their ptxas register and spill lines are printed;
   3. serving kernels vs plain: each against its plain PyTorch version
      at Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16
      q), on bf16 pages and then on int8 and fp8 pages with their scale
@@ -14,8 +16,10 @@ Phases (any failure raises and exits non-zero):
      the card could take;
   4. flash kernels vs plain: forward, dq and dk/dv against their plain
      versions at 8b widths (B=4, S=2048, causal, bf16), at 1b widths
-     (D=64) and on a small non-causal Sq != Sk case; two launches must
-     give the same bits; times as in phase 3;
+     (D=64), at S=1000 (every tile cut unevenly) and on a small
+     non-causal Sq != Sk case; two launches must give the same bits;
+     times as in phase 3 at 8b and 1b widths, with the achieved TFLOP/s
+     of the function's work and the share of the bound;
   5. engine: InferenceEngine on the `8b` preset at full width and depth
      (random bf16 weights from a seeded generator), mixed prefill+decode
      ticks then pure decode, through add_request/step; both kernels'
@@ -466,20 +470,66 @@ def check_flash_case(gen, dev, label, shape, causal, timed):
             f"{plain[name]:.4f} ms, sdpa {library[name]:.4f} ms "
             f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
             f"), bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
-            f"{nbytes[name] / 1e6:.1f} MB)")
+            f"{nbytes[name] / 1e6:.1f} MB); {flops / ms[name] / 1e9:.1f} "
+            f"TFLOP/s of the function's work, {100 * b_ms / ms[name]:.1f}% "
+            f"of the bound")
     return res
+
+
+def check_tensor_cores(info):
+    """The bf16 instances of the flash forward and dk/dv must run their
+    products on the tensor cores: each must hold HGMMA instructions in the
+    SASS of the built library (cuobjdump -sass). Prints each instance's
+    HGMMA count and its ptxas register and spill lines."""
+    from ray_tpu_torch.ops import _kernels
+    so = os.path.join(info["dir"], "libflash_attention.so")
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hgmma = {}
+    for chunk in sass.split("Function : ")[1:]:
+        hgmma[chunk.split("\n", 1)[0].strip()] = chunk.count("HGMMA")
+    ptxas = info["ptxas"].get("flash_attention.cu", "")
+    found = {}
+    for kern in ("flash_fwd_tc_kernel", "flash_dkv_tc_kernel"):
+        inst = {n: c for n, c in hgmma.items() if kern in n}
+        found[kern] = inst
+        for n, c in inst.items():
+            lines = ptxas_lines(ptxas, n)
+            log(f"[tensor cores] {kern} instance {n[:72]}: {c} HGMMA; "
+                f"ptxas: {' | '.join(lines) or 'not rebuilt in this run'}")
+        if len(inst) != 2 or not all(inst.values()):
+            raise AssertionError(f"{kern}: the bf16 instances (D 64 and 128) "
+                                 f"must hold HGMMA instructions: {inst}")
+    others = sum(c for n, c in hgmma.items() if "_tc_kernel" not in n)
+    log(f"[tensor cores] HGMMA outside the bf16 forward and dk/dv: {others}")
+    return found
+
+
+def ptxas_lines(text, entry):
+    """ptxas -v's register and spill lines for one entry function."""
+    out, on = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            on = f"'{entry}'" in line
+        elif on and ("spill" in line or "Used" in line):
+            out.append(line.strip())
+    return out
 
 
 def check_flash(gen, dev):
     """The three flash kernels on the main path's shape (timed), at 1b
-    widths and on a small non-causal Sq != Sk case. Returns the main
-    case's numbers, max_abs_err the largest over the cases."""
+    widths (timed too: half the head dim, the same number of scores),
+    on a shape that cuts every tile unevenly and on a small non-causal
+    Sq != Sk case. Returns the main case's numbers, max_abs_err the
+    largest over the cases."""
     main = check_flash_case(gen, dev, "8b", (4, 2048, 2048, 32, 8, 128),
                             True, timed=True)
-    for label, shape, causal in (
-            ("1b", (4, 2048, 2048, 32, 8, 64), True),
-            ("small non-causal", (2, 384, 640, 8, 2, 128), False)):
-        other = check_flash_case(gen, dev, label, shape, causal, timed=False)
+    for label, shape, causal, timed in (
+            ("1b", (4, 2048, 2048, 32, 8, 64), True, True),
+            ("uneven tiles", (2, 1000, 1000, 32, 8, 128), True, False),
+            ("small non-causal", (2, 384, 640, 8, 2, 128), False, False)):
+        other = check_flash_case(gen, dev, label, shape, causal, timed)
         for name in main:
             main[name]["max_abs_err"] = max(main[name]["max_abs_err"],
                                             other[name]["max_abs_err"])
@@ -1033,6 +1083,7 @@ def main():
     info = _kernels.build(verbose=True)
     log(f"[build] {info['compiled']} in {time.perf_counter() - t0:.1f} s "
         f"into {info['dir']}")
+    tensor_cores = check_tensor_cores(info)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     wide = check_decode(gen, dev, "512-page table",
@@ -1104,8 +1155,8 @@ def main():
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(summary, card=card, engine=engine,
-                           quant_engine=quant_engine, train=train),
-                      f, indent=1)
+                           quant_engine=quant_engine, train=train,
+                           tensor_cores=tensor_cores), f, indent=1)
     print(json.dumps(summary), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

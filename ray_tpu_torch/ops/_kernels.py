@@ -166,10 +166,12 @@ def build(verbose: bool = False) -> Dict[str, object]:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise on a launch the C side refused (-1) or CUDA reported."""
+    """Raise on a launch the C side refused (-1: arguments; -2: a TMA
+    tensor map it could not encode) or CUDA reported."""
     if rc != 0:
-        what = ("arguments the kernel does not take" if rc == -1
-                else f"cudaError {rc}")
+        what = {-1: "arguments the kernel does not take",
+                -2: "TMA tensor map could not be encoded"}.get(
+                    rc, f"cudaError {rc}")
         raise RuntimeError(f"{name} kernel launch failed: {what}")
 
 

@@ -16,13 +16,63 @@
 //     dv = P^T dO;
 //   - GQA: query head h reads kv head h / (H / KVH).
 //
-// What bounds it on an H100: operations. At Llama widths (D = 128,
-// S = 2048) every tile pair does 2 * 64 * 64 * D flops per product on
-// 2 * 64 * D loaded values, far above the ~295 flop/byte ridge. This
-// first version runs its products on the CUDA cores in float32 (the
-// TPU kernels' f32 dots; no tensor cores yet, a later version's work),
-// so its ceiling is the card's 67 TFLOP/s float32 rate, not 989 bf16.
-// The design keeps those cores fed:
+// What bounds them on an H100: operations. At Llama widths (D = 128,
+// S = 2048) every tile pair does 2 * rows * keys * D flops per product
+// on (rows + keys) * D loaded values, far above the ~295 flop/byte
+// ridge; the bound is the tensor cores' 989 TFLOP/s (bf16), or the
+// CUDA cores' 67 TFLOP/s for products that stay there.
+//
+// Two designs, chosen by the inputs' dtype (a rule by type, not a
+// fallback: a bf16 launch that cannot build its TMA maps or launch
+// returns non-zero and the wrapper raises):
+//
+// bf16 forward and dk/dv (flash_fwd_tc_kernel, flash_dkv_tc_kernel; the
+// training path's dtype): products on the tensor cores with wgmma,
+// tiles brought in by TMA, a producer warp and two consumer warpgroups
+// (hopper_mma.cuh holds the building blocks).
+//   - The float32 contract holds. Q K^T, and K Q^T and V dO^T, take
+//     bf16 operands, whose products are exact in float32, into float32
+//     accumulators. P V, P^T dO and dS^T Q have a float32 operand: it is
+//     split into bf16 hi = bf16(x) and lo = bf16(x - hi), and two RS
+//     wgmmas (hi, then lo) add into one accumulator, so the operand
+//     keeps 16 significant bits (~2^-17 relative) and each partial
+//     product is exact. That costs 1.5x the tensor-core work of a plain
+//     bf16 flash kernel (3 products for 2 in the forward, 6 for 4 in
+//     dk/dv). P and dS are never rounded to one bf16.
+//   - Forward: a block owns (b*h, 128 q rows), longest first; consumer
+//     warpgroup c owns rows 64 c .. 64 c + 63. The producer loads the Q
+//     tile once and streams (K, V) tiles of 128 keys through a 2-stage
+//     ring (one "full" and one "empty" mbarrier a stage). S = Q K^T is
+//     an SS wgmma (both operands K-major); the online softmax runs on
+//     the accumulator fragment, where a row lives on the 4 lanes of a
+//     quad (2 shuffles for its max and sum); P's fragment, packed as
+//     bf16x2 hi/lo, is already the A operand of O += P V, which reads V
+//     ([key][D]) MN-major through the transpose flag.
+//   - dk/dv: a block owns (b*kvh, 128 keys), first keys first; consumer
+//     c owns keys 64 c .. 64 c + 63 as the wgmma M dimension, K and V
+//     stay in shared memory, and dK, dV (64 x D float32 each) stay in
+//     registers over the whole loop. The producer streams (Q, dO) tiles
+//     of 64 q rows, with their 64 lse and delta values, through a
+//     2-stage ring, over every (GQA head, live q tile) pair in a fixed
+//     order. S^T = K Q^T and dP^T = V dO^T are SS wgmmas; P^T and dS^T
+//     are formed on the fragments; dV += P^T dO and dK += dS^T Q are RS
+//     wgmmas (hi, lo) with dO and Q read MN-major.
+//   - What bounds them in practice: not the tensor cores but the
+//     per-score work on the CUDA cores (exp, mask, the hi/lo split).
+//     Phase timers (clock64, in a scratch build) put most of a forward
+//     tile there with the accurate expf; the tensor-core kernels
+//     therefore take exp as ex2.approx.ftz (`exp_ftz`): a multiply and
+//     one MUFU instruction in place of expf's longer sequence.
+//   - TMA maps are 4-D over the public layouts, read in place: (D,
+//     heads, S, B), boxes 64 values (128 bytes) wide with the 128-byte
+//     swizzle, so D = 128 takes two boxes a tile. Rows past Sq or Sk
+//     arrive as zeros; the column and causal masks still apply.
+//
+// float32 and float16 (and every dq; a later PR's redesign): the first
+// version, products on the CUDA cores in float32 (the TPU kernels' f32
+// dots), ceiling 67 TFLOP/s. f16 would need f16 P fragments, whose
+// range and subnormals are a separate question, and only the tests and
+// the tiny float32 configs use these types.
 //   - 64 x 64 tiles, 256 threads; each thread owns a 4 x 4 block of
 //     the score tile (rows tr + 16 i, columns tc + 16 j) and a 4-row x
 //     D/16-column block of the output tile, so every value it reads
@@ -34,16 +84,19 @@
 //   - tiles past the causal diagonal are skipped, and blocks with the
 //     most live tiles are scheduled first (the longest query tiles for
 //     forward and dq, the first key tiles for dk/dv).
-// Ownership follows the Pallas kernels and needs no atomics: a forward
-// or dq block owns (b*h, q tile) and loops over kv tiles; a dk/dv block
-// owns (b*kvh, kv tile) and loops over every (GQA head, live q tile)
-// pair, holding both accumulators in registers. Each block sums in a
-// fixed order, so two launches on the same inputs give the same bits.
+// Ownership follows the Pallas kernels and needs no atomics in either
+// design: a forward or dq block owns (b*h, q tile) and loops over kv
+// tiles; a dk/dv block owns (b*kvh, kv tile) and loops over every (GQA
+// head, live q tile) pair, holding both accumulators in registers. Each
+// block sums in a fixed order, so two launches on the same inputs give
+// the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -439,6 +492,457 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + koff, ks, krows, tr, tc, dv_acc, one, 1.f);
 }
 
+// ============================================== bf16: the tensor-core path
+//
+// Block = 3 warpgroups: warpgroup 0 is the producer (one thread issues
+// the TMA loads; for dk/dv its first warp also stages lse and delta),
+// warpgroups 1 and 2 are consumers that run wgmma on what has arrived.
+
+namespace tc {
+
+using hmma::desc_k_major;
+using hmma::desc_mn_major;
+using hmma::fence_regs;
+using hmma::smem_u32;
+
+constexpr int kWG = 128;                   // threads of a warpgroup
+constexpr int kThreadsTC = 3 * kWG;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;         // 128 x 40 + 256 x 232 <= 64 K
+constexpr int kStages = 2;                 // ring depth of the streamed tiles
+constexpr int kFwdM = 128;                 // forward: q rows a block (64 a consumer)
+constexpr int kFwdN = 128;                 // forward: keys a kv tile
+constexpr int kDkvN = 128;                 // dk/dv: keys a block (64 a consumer)
+constexpr int kDkvM = 64;                  // dk/dv: q rows a streamed tile
+constexpr int kTmaError = -2;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+// exp(x) as ex2.approx.ftz(x log2 e): a multiply and one MUFU
+// instruction in place of expf's longer sequence, and the forward spends
+// most of a tile on its exps. CUDA documents the error as 2 + |1.16 x|
+// ulp (about 1e-6 relative at the |x| < 20 that carry weight); results
+// under 2^-126 flush to 0, as on a TPU.
+__device__ __forceinline__ float exp_ftz(float x) { return __expf(x); }
+
+// shared memory of the forward: Q [kFwdM][D], then kStages x (K, V)
+// [kFwdN][D], each D / 64 swizzled regions; then the barriers
+template <int D> struct FwdSmem {
+  static constexpr uint32_t kQRegion = kFwdM * 128, kKVRegion = kFwdN * 128;
+  static constexpr uint32_t kQ = kFwdM * D * 2, kKV = kFwdN * D * 2;
+  static constexpr uint32_t kBars = kQ + kStages * 2 * kKV;
+  static constexpr size_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// One block owns (b*h, 128 q rows) and loops over the live kv tiles;
+// consumer c owns q rows 64 c .. 64 c + 63 of the block.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    Args a) {
+  using L = FwdSmem<D>;
+  constexpr int BN = kFwdN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int kvh = h / (a.H / a.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;   // longest tiles first
+  const int rows = min(kFwdM, a.Sq - q0);
+  int n_kt = (a.Sk + BN - 1) / BN;
+  if (a.causal) n_kt = min(n_kt, (q0 + rows - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+    hmma::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hmma::mbar_init(&full[s], 1);
+      hmma::mbar_init(&empty[s], 2 * kWG);
+    }
+    hmma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ------------------------------------------------------ producer
+    hmma::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hmma::tma_prefetch_map(&tk);
+      hmma::tma_prefetch_map(&tv);
+      hmma::mbar_arrive_expect_tx(q_full, L::kQ);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        hmma::tma_load_4d(smem + c * L::kQRegion, &tq, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages, n = kt / kStages;
+        hmma::mbar_wait(&empty[s], (n & 1) ^ 1);
+        uint8_t* ks = smem + L::kQ + s * 2 * L::kKV;
+        hmma::mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hmma::tma_load_4d(ks + c * L::kKVRegion, &tk, &full[s], 64 * c, kvh,
+                            kt * BN, b);
+          hmma::tma_load_4d(ks + L::kKV + c * L::kKVRegion, &tv, &full[s],
+                            64 * c, kvh, kt * BN, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    hmma::reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int t = threadIdx.x % kWG, lane = t % 32;
+    const int row_lo = q0 + cw * 64;                   // this consumer's first row
+    const int r0 = row_lo + (t / 32) * 16 + lane / 4;  // rows r0, r0 + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t q_tile = smem_u32(smem) + cw * 64 * 128;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+    hmma::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages, n = kt / kStages;
+      const int k0 = kt * BN;
+      hmma::mbar_wait(&full[s], n & 1);
+      const uint32_t k_tile = smem_u32(smem) + L::kQ + s * 2 * L::kKV;
+      const uint32_t v_tile = k_tile + L::kKV;
+
+      // S = Q K^T: bf16 operands, exact products, float32 sums
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      hmma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hmma::wgmma_ss<BN, 0>(sc, desc_k_major(q_tile, L::kQRegion, kk),
+                              desc_k_major(k_tile, L::kKVRegion, kk), 1);
+      hmma::wgmma_commit();
+      hmma::wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale, mask, online softmax; a row lives on the 4 lanes of a quad
+      const bool edge = k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > row_lo);
+      float mt[2] = {kMask, kMask};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * a.scale;
+          if (edge) {
+            const int col = k0 + 8 * j + cq + (e & 1);
+            const int row = r0 + 8 * (e >> 1);
+            x = (col < a.Sk && (!a.causal || row >= col)) ? x : kMask;
+          }
+          sc[4 * j + e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mt[r]));
+        corr[r] = exp_ftz(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = sc[i] > 0.5f * kMask ? exp_ftz(sc[i] - m[r]) : 0.f;
+        sc[i] = p;
+        sum[r] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V with P as bf16 hi + lo, V read MN-major ([key][D])
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hmma::split_bf16x2(sc[8 * kb + 2 * e], sc[8 * kb + 2 * e + 1],
+                             ph[kb][e], pl[kb][e]);
+      fence_regs(o);
+      hmma::wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) {
+        const uint64_t dv = desc_mn_major(v_tile, L::kKVRegion, kb);
+        hmma::wgmma_rs<D, 1>(o, ph[kb], dv, 1);
+        hmma::wgmma_rs<D, 1>(o, pl[kb], dv, 1);
+      }
+      hmma::wgmma_commit();
+      hmma::wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) {
+        fence_regs(ph[kb]);
+        fence_regs(pl[kb]);
+      }
+      hmma::mbar_arrive(&empty[s]);
+    }
+
+    // out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
+    const long long qs = (long long)a.H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= a.Sq) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* dst = out + ((long long)b * a.Sq + row) * qs + (long long)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + cq) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
+                                  o[4 * j + 2 * r + 1] / den);
+      if ((lane & 3) == 0) lse[(long long)bh * a.Sq + row] = m[r] + logf(den);
+    }
+  }
+}
+
+// shared memory of dk/dv: K, V [kDkvN][D] resident; kStages x (Q, dO)
+// [kDkvM][D] streamed; kStages x (lse, delta) [kDkvM]; the barriers
+template <int D> struct DkvSmem {
+  static constexpr uint32_t kKVRegion = kDkvN * 128, kQRegion = kDkvM * 128;
+  static constexpr uint32_t kKV = kDkvN * D * 2, kQ = kDkvM * D * 2;
+  static constexpr uint32_t kStage0 = 2 * kKV;              // Q, then dO
+  static constexpr uint32_t kRowsOff = kStage0 + kStages * 2 * kQ;
+  static constexpr uint32_t kBars = kRowsOff + kStages * 2 * kDkvM * 4;
+  static constexpr size_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// One block owns (b*kvh, 128 keys); consumer c owns keys 64 c .. 64 c +
+// 63 (the wgmma M dimension) and both their accumulators, and loops
+// over every (GQA head, live 64-row q tile) pair in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, Args a) {
+  using L = DkvSmem<D>;
+  constexpr int BM = kDkvM;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* rows_s = reinterpret_cast<float*>(smem + L::kRowsOff);  // [stage][lse | delta][BM]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bk = blockIdx.x, b = bk / a.KVH, kvh = bk - b * a.KVH;
+  const int group = a.H / a.KVH;
+  const int k0 = blockIdx.y * kDkvN;         // first key tiles see the most q tiles
+  const int n_qt = (a.Sq + BM - 1) / BM;
+  const int qt0 = a.causal ? k0 / BM : 0;    // q tiles whose last row >= k0
+
+  if (threadIdx.x == 0) {
+    hmma::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hmma::mbar_init(&full[s], 32);
+      hmma::mbar_init(&empty[s], 2 * kWG);
+    }
+    hmma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ------------------------------------------------------ producer
+    hmma::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hmma::tma_prefetch_map(&tq);
+        hmma::tma_prefetch_map(&tdo);
+        hmma::mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hmma::tma_load_4d(smem + c * L::kKVRegion, &tk, kv_full, 64 * c, kvh,
+                            k0, b);
+          hmma::tma_load_4d(smem + L::kKV + c * L::kKVRegion, &tv, kv_full,
+                            64 * c, kvh, k0, b);
+        }
+      }
+      int i = 0;
+      for (int g = 0; g < group; ++g) {
+        const int h = kvh * group + g;
+        const long long row_base = ((long long)b * a.H + h) * a.Sq;
+        for (int qt = qt0; qt < n_qt; ++qt, ++i) {
+          const int s = i % kStages, n = i / kStages;
+          const int q0 = qt * BM;
+          hmma::mbar_wait(&empty[s], (n & 1) ^ 1);
+          float* rs = rows_s + s * 2 * BM;
+          for (int r = lane; r < BM; r += 32) {
+            const bool in = q0 + r < a.Sq;
+            rs[r] = in ? lse[row_base + q0 + r] : 0.f;
+            rs[BM + r] = in ? delta[row_base + q0 + r] : 0.f;
+          }
+          if (lane == 0) {
+            uint8_t* qs = smem + L::kStage0 + s * 2 * L::kQ;
+            hmma::mbar_arrive_expect_tx(&full[s], 2 * L::kQ);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c) {
+              hmma::tma_load_4d(qs + c * L::kQRegion, &tq, &full[s], 64 * c, h,
+                                q0, b);
+              hmma::tma_load_4d(qs + L::kQ + c * L::kQRegion, &tdo, &full[s],
+                                64 * c, h, q0, b);
+            }
+          } else {
+            hmma::mbar_arrive(&full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    hmma::reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int t = threadIdx.x % kWG, lane = t % 32;
+    const int key_lo = k0 + cw * 64;                      // this consumer's first key
+    const int key0 = key_lo + (t / 32) * 16 + lane / 4;   // keys key0, key0 + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t k_tile = smem_u32(smem) + cw * 64 * 128;
+    const uint32_t v_tile = k_tile + L::kKV;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hmma::mbar_wait(kv_full, 0);
+    int i = 0;
+    for (int g = 0; g < group; ++g) {
+      for (int qt = qt0; qt < n_qt; ++qt, ++i) {
+        const int s = i % kStages, n = i / kStages;
+        const int q0 = qt * BM;
+        const int rows = min(BM, a.Sq - q0);
+        hmma::mbar_wait(&full[s], n & 1);
+        // a causal pair whose q rows all precede this consumer's keys
+        // adds nothing
+        if (!(a.causal && q0 + rows - 1 < key_lo)) {
+          const uint32_t q_tile = smem_u32(smem) + L::kStage0 + s * 2 * L::kQ;
+          const uint32_t do_tile = q_tile + L::kQ;
+          // S^T = K Q^T and dP^T = V dO^T: [key][q row], exact products
+          float st[BM / 2], dpt[BM / 2];
+#pragma unroll
+          for (int j = 0; j < BM / 2; ++j) st[j] = dpt[j] = 0.f;
+          fence_regs(st);
+          fence_regs(dpt);
+          hmma::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hmma::wgmma_ss<BM, 0>(st, desc_k_major(k_tile, L::kKVRegion, kk),
+                                  desc_k_major(q_tile, L::kQRegion, kk), 1);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hmma::wgmma_ss<BM, 0>(dpt, desc_k_major(v_tile, L::kKVRegion, kk),
+                                  desc_k_major(do_tile, L::kQRegion, kk), 1);
+          hmma::wgmma_commit();
+          hmma::wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          // P^T = exp(S^T scale - lse[q]) (masked to 0), dS^T = P^T (dP^T - delta[q])
+          const float* ls = rows_s + s * 2 * BM;
+          const float* dl = ls + BM;
+          const bool edge = rows < BM || key_lo + 64 > a.Sk ||
+                            (a.causal && q0 < key_lo + 63);
+#pragma unroll
+          for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + cq + (e & 1);
+              bool live = true;
+              if (edge) {
+                const int key = key0 + 8 * (e >> 1);
+                live = c < rows && key < a.Sk && (!a.causal || q0 + c >= key);
+              }
+              const float p =
+                  live ? exp_ftz(st[4 * j + e] * a.scale - ls[c]) : 0.f;
+              st[4 * j + e] = p;
+              dpt[4 * j + e] = p * (dpt[4 * j + e] - dl[c]);
+            }
+
+          // dV += P^T dO and dK += dS^T Q, each float32 operand as bf16
+          // hi + lo; dO and Q read MN-major ([q row][D])
+          uint32_t ph[BM / 16][4], pl[BM / 16][4], sh[BM / 16][4], sl[BM / 16][4];
+#pragma unroll
+          for (int kb = 0; kb < BM / 16; ++kb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              hmma::split_bf16x2(st[8 * kb + 2 * e], st[8 * kb + 2 * e + 1],
+                                 ph[kb][e], pl[kb][e]);
+              hmma::split_bf16x2(dpt[8 * kb + 2 * e], dpt[8 * kb + 2 * e + 1],
+                                 sh[kb][e], sl[kb][e]);
+            }
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          hmma::wgmma_fence();
+#pragma unroll
+          for (int kb = 0; kb < BM / 16; ++kb) {
+            const uint64_t dd = desc_mn_major(do_tile, L::kQRegion, kb);
+            hmma::wgmma_rs<D, 1>(dv_acc, ph[kb], dd, 1);
+            hmma::wgmma_rs<D, 1>(dv_acc, pl[kb], dd, 1);
+          }
+#pragma unroll
+          for (int kb = 0; kb < BM / 16; ++kb) {
+            const uint64_t dq = desc_mn_major(q_tile, L::kQRegion, kb);
+            hmma::wgmma_rs<D, 1>(dk_acc, sh[kb], dq, 1);
+            hmma::wgmma_rs<D, 1>(dk_acc, sl[kb], dq, 1);
+          }
+          hmma::wgmma_commit();
+          hmma::wgmma_wait<0>();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+#pragma unroll
+          for (int kb = 0; kb < BM / 16; ++kb) {
+            fence_regs(ph[kb]);
+            fence_regs(pl[kb]);
+            fence_regs(sh[kb]);
+            fence_regs(sl[kb]);
+          }
+        }
+        hmma::mbar_arrive(&empty[s]);
+      }
+    }
+
+    // dk = scale * sum dS^T Q, dv = sum P^T dO, rows below Sk
+    const long long ks = (long long)a.KVH * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= a.Sk) continue;
+      const long long off = ((long long)b * a.Sk + key) * ks + (long long)kvh * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + cq) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r] * a.scale,
+                                  dk_acc[4 * j + 2 * r + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + cq) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 // -------------------------------------------------------------- launch
 
 template <int D> constexpr size_t fwd_smem() {
@@ -502,6 +1006,55 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// bf16: TMA maps over the public layouts, read in place. With no keys
+// (Sk == 0) no kv tile is loaded, so the kv maps are built over q.
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
+           const Args& a, cudaStream_t st) {
+  using L = tc::FwdSmem<D>;
+  CUtensorMap tq, tk, tv;
+  const bool kv = a.Sk > 0;
+  if (hmma::make_map_bf16_4d(&tq, q, D, a.H, a.Sq, a.B, tc::kFwdM) ||
+      hmma::make_map_bf16_4d(&tk, kv ? k : q, D, kv ? a.KVH : a.H,
+                             kv ? a.Sk : a.Sq, a.B, tc::kFwdN) ||
+      hmma::make_map_bf16_4d(&tv, kv ? v : q, D, kv ? a.KVH : a.H,
+                             kv ? a.Sk : a.Sq, a.B, tc::kFwdN))
+    return tc::kTmaError;
+  auto kern = tc::flash_fwd_tc_kernel<D>;
+  int rc = prepare(kern, L::kBytes);
+  if (rc) return rc;
+  dim3 grid(a.B * a.H, (a.Sq + tc::kFwdM - 1) / tc::kFwdM);
+  kern<<<grid, tc::kThreadsTC, L::kBytes, st>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, a);
+  return (int)cudaGetLastError();
+}
+
+// bf16 dk/dv. With no queries (Sq == 0) no q tile is loaded, so the q
+// and dO maps are built over k.
+template <int D>
+int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv,
+           const Args& a, cudaStream_t st) {
+  using L = tc::DkvSmem<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  const bool qs = a.Sq > 0;
+  if (hmma::make_map_bf16_4d(&tq, qs ? q : k, D, qs ? a.H : a.KVH,
+                             qs ? a.Sq : a.Sk, a.B, tc::kDkvM) ||
+      hmma::make_map_bf16_4d(&tdo, qs ? dout : k, D, qs ? a.H : a.KVH,
+                             qs ? a.Sq : a.Sk, a.B, tc::kDkvM) ||
+      hmma::make_map_bf16_4d(&tk, k, D, a.KVH, a.Sk, a.B, tc::kDkvN) ||
+      hmma::make_map_bf16_4d(&tv, v, D, a.KVH, a.Sk, a.B, tc::kDkvN))
+    return tc::kTmaError;
+  auto kern = tc::flash_dkv_tc_kernel<D>;
+  int rc = prepare(kern, L::kBytes);
+  if (rc) return rc;
+  dim3 grid(a.B * a.KVH, (a.Sk + tc::kDkvN - 1) / tc::kDkvN);
+  kern<<<grid, tc::kThreadsTC, L::kBytes, st>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  return (int)cudaGetLastError();
+}
+
 Args make_args(int B, int Sq, int Sk, int H, int KVH, int causal, float scale) {
   Args a;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.KVH = KVH;
@@ -509,13 +1062,12 @@ Args make_args(int B, int Sq, int Sk, int H, int KVH, int causal, float scale) {
   return a;
 }
 
-// dispatch on (dtype, D): dtype 0 float32, 1 bfloat16, 2 float16
+// dispatch the CUDA-core instances on (dtype, D): dtype 0 float32,
+// 2 float16 (each entry point routes bf16, dtype 1, itself)
 #define FLASH_DISPATCH(FN, ...)                                            \
   switch (dtype * 1000 + D) {                                              \
     case 64: return FN<float, 64>(__VA_ARGS__);                            \
     case 128: return FN<float, 128>(__VA_ARGS__);                          \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                  \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                 \
     case 2064: return FN<__half, 64>(__VA_ARGS__);                         \
     case 2128: return FN<__half, 128>(__VA_ARGS__);                        \
   }                                                                        \
@@ -526,7 +1078,8 @@ Args make_args(int B, int Sq, int Sk, int H, int KVH, int causal, float scale) {
 // All tensors contiguous: q/out/dout/dq [B, Sq, H, D], k/v/dk/dv
 // [B, Sk, KVH, D] in one dtype, lse/delta [B, H, Sq] float32, 16-byte
 // aligned. Each returns cudaGetLastError() after its launch (0 =
-// launched), or -1 for arguments the kernels do not take.
+// launched), -1 for arguments the kernels do not take, or -2 when a
+// bf16 launch's TMA tensor map cannot be encoded.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int B, int Sq, int Sk,
                                 int H, int KVH, int D, int causal, float scale,
@@ -535,6 +1088,9 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Args a = make_args(B, Sq, Sk, H, KVH, causal, scale);
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)   // bf16: the tensor-core kernel (D is 64 or 128)
+    return D == 64 ? fwd_tc<64>(q, k, v, out, lse, a, st)
+                   : fwd_tc<128>(q, k, v, out, lse, a, st);
   FLASH_DISPATCH(fwd, q, k, v, out, lse, a, st)
 }
 
@@ -547,6 +1103,10 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Args a = make_args(B, Sq, Sk, H, KVH, causal, scale);
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)   // bf16: still the CUDA-core kernel
+    return D == 64
+        ? dq_<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, a, st)
+        : dq_<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, a, st);
   FLASH_DISPATCH(dq_, q, k, v, dout, lse, delta, dq, a, st)
 }
 
@@ -560,5 +1120,8 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
   if (B == 0 || KVH == 0 || Sk == 0) return 0;
   const Args a = make_args(B, Sq, Sk, H, KVH, causal, scale);
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)   // bf16: the tensor-core kernel (D is 64 or 128)
+    return D == 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, a, st)
+                   : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, a, st);
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dk, dv, a, st)
 }

@@ -3,7 +3,8 @@
 The same numpy inputs go through the JAX functions (CPU; the flash
 kernels in Pallas interpret mode) and the port (CPU: the plain versions
 of the CUDA kernels, which the wrappers run for CPU tensors). Float32
-throughout, as the point is the algorithm. Tolerances are those of the
+throughout, as the point is the algorithm, apart from one bf16 test at
+the dtype the tensor-core kernels take. Tolerances are those of the
 JAX package's own flash tests (tests/test_ops_attention.py): 2e-5 on the
 forward (float32 softmax, summed in another order: blockwise online in
 Pallas, dense here) and 1e-4 on the gradients (three chained float32
@@ -106,6 +107,48 @@ def test_flash_attention_grad_matches_jax_grad(b, sq, sk, h, kvh, d, causal,
     for name, a, r in zip(("dq", "dk", "dv"), t, g_j):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(r),
                                    atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+BF16_ULP = 2.0 ** -7   # one bf16 ulp, relative: 8 significant bits
+BF16_CASES = [(1, 128, 128, 4, 2, 64, True, 64),
+              (1, 64, 192, 4, 1, 128, False, 32)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,blk", BF16_CASES,
+                         ids=["causal_d64", "full_sq64_sk192_d128"])
+def test_flash_plain_matches_pallas_interpret_bf16(b, sq, sk, h, kvh, d,
+                                                   causal, blk):
+    """bf16 inputs, the dtype the tensor-core kernels take: the plain
+    versions against the Pallas forward and backward in interpret mode.
+    Both upcast to float32, compute in float32 and round each output to
+    bf16 once, so the outputs agree to one bf16 ulp of the output
+    (relative 2^-7) plus the float32 atol (FWD_ATOL, GRAD_ATOL: sums in
+    another order). The backward runs on the Pallas forward's residuals
+    (its bf16 out and float32 lse), so each side differs only in its
+    own kernel."""
+    q, k, v, do = (x.astype(jnp.bfloat16) for x in _qkv(b, sq, sk, h, kvh,
+                                                        d, seed=7))
+    out_j, res = ja._flash_fwd_rule(q, k, v, causal, None, blk, blk, True)
+    g_j = ja._flash_bwd_rule(causal, None, blk, blk, True, res, do)
+
+    def tt(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    t = [tt(x) for x in (q, k, v)]
+    out_t, lse_t = ta.flash_forward_plain(*t, causal, d ** -0.5)
+    assert out_t.dtype == torch.bfloat16 and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j.astype(jnp.float32)),
+                               rtol=BF16_ULP, atol=FWD_ATOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(res[4]),
+                               atol=FWD_ATOL, rtol=0)
+    g_t = ta.flash_backward_plain(*t, tt(out_j), torch.from_numpy(
+        np.array(res[4])), tt(do), causal, d ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r.astype(jnp.float32)),
+                                   rtol=BF16_ULP, atol=GRAD_ATOL,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("causal,offsets", [(True, (0, 0)), (False, (0, 0)),

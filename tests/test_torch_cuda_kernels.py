@@ -367,6 +367,11 @@ FLASH_CASES = [
     (1, 100, 300, 4, 1, 64, False),      # ragged tiles, Sq != Sk
     (2, 136, 136, 8, 8, 128, True),      # ragged last tile
     (1, 320, 128, 4, 2, 64, True),       # causal, Sq > Sk
+    # shapes that cut the bf16 kernels' 128-row q tiles, 128-key tiles and
+    # 64-row dk/dv q tiles unevenly
+    (1, 1000, 1000, 8, 2, 128, True),
+    (1, 130, 260, 4, 2, 64, False),
+    (2, 512, 512, 16, 2, 128, True),
 ]
 
 
@@ -388,11 +393,13 @@ def _flash_close(out, ref, dtype, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", FLASH_CASES)
 def test_flash_kernels_match_plain(dev, dtype, b, sq, sk, h, kvh, d,
                                    causal):
+    """bf16 runs the tensor-core forward and dk/dv, f32 and f16 the
+    CUDA-core instances; every dtype against the same plain versions."""
     q, k, v, do = _flash_inputs(dev, dtype, b, sq, sk, h, kvh, d)
     scale = d ** -0.5
     before = [kk.launches for kk in (_kernels.FLASH_FWD, _kernels.FLASH_DQ,
@@ -415,8 +422,11 @@ def test_flash_kernels_match_plain(dev, dtype, b, sq, sk, h, kvh, d,
 
 @pytest.mark.cuda
 def test_flash_kernels_are_deterministic(dev):
-    """No atomics: two launches on the same inputs give the same bits."""
-    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 256, 256, 8, 2, 128)
+    """No atomics: two launches on the same inputs give the same bits, at
+    a shape with several tiles in each dimension of every kernel (6 q
+    tiles of 128 rows, 6 kv tiles of 128 keys, 12 dk/dv q tiles of 64
+    rows, a GQA group of 4)."""
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 768, 768, 8, 2, 128)
     runs = []
     for _ in range(2):
         out, lse = fa.flash_forward(q, k, v, True, 128 ** -0.5)
