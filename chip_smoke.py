@@ -5,15 +5,18 @@
 Phases (any failure raises and exits non-zero):
   1. card: name, and name + power limit from nvidia-smi;
   2. build: compile the CUDA kernels from ray_tpu_torch/ops/csrc (one
-     nvcc per source, in parallel); the bf16 flash forward and dk/dv
-     instances must hold HGMMA (tensor-core) instructions in their SASS,
-     and their ptxas register and spill lines are printed;
+     nvcc per source, in parallel); the tensor-core instances (bf16
+     flash forward, dq and dk/dv; the ragged kernel for bf16 queries on
+     bf16, int8 and fp8 pages) must hold HGMMA instructions in their
+     SASS, and their ptxas register and spill lines are printed;
   3. serving kernels vs plain: each against its plain PyTorch version
      at Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16
      q), on bf16 pages and then on int8 and fp8 pages with their scale
-     pools (the fused-dequant variants), with the kernel's, the plain
+     pools, with the kernel's time (CUDA events around the wrapper
+     call, and the kernels' device time from the profiler), the plain
      version's and one PyTorch library call's times, and the least time
-     the card could take;
+     the card could take; the ragged kernel on each tick of
+     RAGGED_TICKS, two launches bit-identical;
   4. flash kernels vs plain: forward, dq and dk/dv against their plain
      versions at 8b widths (B=4, S=2048, causal, bf16), at 1b widths
      (D=64), at S=1000 (every tile cut unevenly) and on a small
@@ -23,9 +26,13 @@ Phases (any failure raises and exits non-zero):
   5. engine: InferenceEngine on the `8b` preset at full width and depth
      (random bf16 weights from a seeded generator), mixed prefill+decode
      ticks then pure decode, through add_request/step; both kernels'
-     launch counters must move; the same requests on
+     launch counters must move (profiles give each serving kernel's
+     device time a launch); the same requests on
      decode_impl="gather" must give the same greedy tokens (or differ
      only at a stated near-tie); the same holds for a small f32 engine;
+     a 5200-token prompt beside a decoding request drives ticks at the
+     full table width (512 context pages, 1024 tokens): their peak
+     device memory and the ragged kernel's largest key-chunk scratch;
   5b. quantized engine: the same on int8 and then fp8 KV pages (same
      weights, full depth): the kind's launch counters equal layers x
      ticks and every other counter stays 0; kernel vs gather as in 5
@@ -42,8 +49,8 @@ Phases (any failure raises and exits non-zero):
   7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
 
-Imports neither jax nor ray_tpu. Exits non-zero before printing any
-result when CUDA is unavailable.
+Imports neither jax nor ray_tpu.
+Exits non-zero before printing any result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -114,6 +121,41 @@ def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dev_us(e):
+    """Device microseconds of a profiler row (its own kernels only)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof):
+    """The profiler's device kernel rows (an aten op's row repeats its
+    kernels' time, so only the kernels themselves)."""
+    evs = [e for e in prof.key_averages() if dev_us(e) > 0
+           and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not evs:
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0
+               and not e.key.startswith(("aten::", "cuda"))]
+    return evs
+
+
+def device_ms(fn, keys, calls=10):
+    """Device milliseconds a call of fn() spends in the kernels whose
+    name holds one of `keys` (torch.profiler over `calls` calls after a
+    warm-up): the kernels' own time, without the wrapper's host work
+    that the CUDA-event time of a single call also holds when the
+    device waits on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in device_events(prof)
+               if any(k in e.key for k in keys)) / 1e3 / calls
 
 
 # ------------------------------------------------------------ decode kernel
@@ -189,7 +231,9 @@ def check_decode(gen, dev, label, lens, max_pages, kind=None):
         if not (e <= tol):
             raise AssertionError(f"decode {label}: {name} error {e} > {tol}")
     new_args = args + (c["k_new"], c["v_new"])
-    ms = time_ms(lambda: pa.paged_decode_with_new_token(*new_args, **sc))
+    call = lambda: pa.paged_decode_with_new_token(*new_args, **sc)
+    ms = time_ms(call)
+    dev_ms = device_ms(call, ("paged_decode",))
     plain_ms = time_ms(lambda: pa.paged_decode_with_new_token_plain(
         *new_args, **sc), iters=5)
     # library yardstick: SDPA over the pre-gathered dense KV + new token
@@ -224,10 +268,12 @@ def check_decode(gen, dev, label, lens, max_pages, kind=None):
               + B * 4 + keys // 16 * 4)
     flops = 4 * H * D * (keys + B)
     b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
-    log(f"[decode {label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    log(f"[decode {label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=max(err, err_n), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                device_ms=dev_ms)
 
 
 # ------------------------------------------------------------ ragged kernel
@@ -262,22 +308,36 @@ def ragged_case(gen, dev, segs, pad, max_pages, H=32, KVH=8, D=128,
                 v_new=v_new)
 
 
-def check_ragged(gen, dev, kind=None):
+# Mixed ticks at the engine's budget (512-token chunk cap + 8 slots):
+# (label, [(start, n)] per slot, padding rows, ctx_pages).
+RAGGED_TICKS = [
+    # decode rows over contexts ending mid-page, a fresh single-token
+    # slot (start=0), a fresh 200-token chunk, a 300-token chunk over a
+    # 700-token context, and padding rows up to the 512 bucket; 256
+    # pages is the pow2 bucket covering start 3999
+    ("kernel phase tick", [(33, 1), (130, 1), (1023, 1), (2047, 1),
+                           (3999, 1), (0, 1), (0, 200), (700, 300)],
+     6, 256),
+    # the engine's heaviest mixed tick: a 512-token chunk at start 1024
+    # beside 7 decode rows, in the 1024-token bucket, over the 128-page
+    # bucket covering start 1535
+    ("512-chunk tick", [(1024, 512), (14, 1), (61, 1), (117, 1),
+                        (311, 1), (673, 1), (1000, 1), (1535, 1)],
+     505, 128),
+]
+
+
+def ragged_tick(gen, dev, kind, label, segs, pad, ctx_pages):
+    """The ragged kernel on one mixed tick against its plain version
+    (padding rows must be exact zeros); its time, the plain version's,
+    SDPA's and the least-time bound."""
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops import ragged_paged_attention as rpa
     import torch.nn.functional as F
-    # a mixed tick at the engine's budget (512-token chunk cap + 8 slots):
-    # decode rows over contexts ending mid-page, a fresh single-token
-    # slot (start=0), a fresh 200-token chunk, a 300-token chunk over a
-    # 700-token context, and padding rows up to the 512 bucket
-    segs = [(33, 1), (130, 1), (1023, 1), (2047, 1), (3999, 1), (0, 1),
-            (0, 200), (700, 300)]
-    pad = 6
     max_pages = 512                      # the engine's full table width
-    ctx_pages = 256                      # pow2 bucket covering start 3999
     c = ragged_case(gen, dev, segs, pad, max_pages)
     sc = quantize_pools(c, kind)
-    label = f"ragged{' ' + kind if kind else ''}"
+    label = f"ragged{' ' + kind if kind else ''}, {label}"
     t = c["q"].shape[0]
     max_seg = min(t, 512)
     args = (c["q"], c["k_pages"], c["v_pages"], c["tables"], c["slot_ids"],
@@ -286,16 +346,22 @@ def check_ragged(gen, dev, kind=None):
                            c["start"], max_seg)
     kw = dict(ctx_pages=ctx_pages, max_seg_len=max_seg, **sc)
     out = rpa.ragged_paged_attention(*args, plan=plan, **kw)
+    again = rpa.ragged_paged_attention(*args, plan=plan, **kw)
     ref = rpa.ragged_paged_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     pad_zero = bool((out[~c["valid"]] == 0).all().item())
-    log(f"[{label}] segs={segs} pad={pad} max_abs_err={err:.3e} "
-        f"(tol {RAGGED_TOL}); padding rows exact zero: {pad_zero}")
-    if not (err <= RAGGED_TOL) or not pad_zero:
+    same = torch.equal(out, again)
+    log(f"[{label}] segs={segs} pad={pad} ctx_pages={ctx_pages} "
+        f"max_abs_err={err:.3e} (tol {RAGGED_TOL}); padding rows exact "
+        f"zero: {pad_zero}; repeat launches bit-identical: {same}")
+    if not (err <= RAGGED_TOL) or not pad_zero or not same:
         raise AssertionError(f"{label} kernel disagrees: err {err}, "
-                             f"padding zero {pad_zero}")
-    ms = time_ms(lambda: rpa.ragged_paged_attention(*args, plan=plan, **kw))
+                             f"padding zero {pad_zero}, repeat {same}")
+    del ref, again
+    call = lambda: rpa.ragged_paged_attention(*args, plan=plan, **kw)
+    ms = time_ms(call)
+    dev_ms = device_ms(call, ("ragged",))
     plain_ms = time_ms(lambda: rpa.ragged_paged_attention_plain(*args, **kw),
                        iters=5)
     # library yardstick: SDPA per slot over pre-gathered context + the
@@ -332,6 +398,7 @@ def check_ragged(gen, dev, kind=None):
     qd = qp.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask[:, None]))
+    del kd, vd, qd, kg, vg, mask
     item = c["q"].element_size()
     ctx_keys = sum(st for st, _ in segs)
     live = sum(n for _, n in segs)
@@ -342,11 +409,26 @@ def check_ragged(gen, dev, kind=None):
     flops = sum(4 * H * D * (st + i + 1) for st, n in segs
                 for i in range(n))
     b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
-    log(f"[{label}] T={t} live={live} kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by})")
+    log(f"[{label}] T={t} live={live} kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                device_ms=dev_ms)
+
+
+def check_ragged(gen, dev, kind=None):
+    """The ragged kernel on each tick of RAGGED_TICKS. Returns the kernel
+    phase tick's numbers (the kernels line's row), max_abs_err the
+    largest over the ticks, and every tick's numbers under "ticks"."""
+    ticks = {}
+    for label, segs, pad, ctx_pages in RAGGED_TICKS:
+        ticks[label] = ragged_tick(gen, dev, kind, label, segs, pad,
+                                   ctx_pages)
+        torch.cuda.empty_cache()
+    main = dict(ticks[RAGGED_TICKS[0][0]])
+    main["max_abs_err"] = max(x["max_abs_err"] for x in ticks.values())
+    return main, ticks
 
 
 # ------------------------------------------------------------ flash kernels
@@ -433,12 +515,14 @@ def check_flash_case(gen, dev, label, shape, causal, timed):
                flash_dkv=dict(max_abs_err=max(errs["dk"], errs["dv"])))
     if not timed:
         return res
-    ms = dict(
-        flash_fwd=time_ms(lambda: fa.flash_forward(q, k, v, causal, scale)),
-        flash_dq=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta,
-                                             causal, scale)),
-        flash_dkv=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
-                                               causal, scale)))
+    calls = dict(
+        flash_fwd=lambda: fa.flash_forward(q, k, v, causal, scale),
+        flash_dq=lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
+        flash_dkv=lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
+                                       scale))
+    ms = {name: time_ms(fn) for name, fn in calls.items()}
+    dev = {name: device_ms(fn, (name,), calls=5)
+           for name, fn in calls.items()}
     plain = dict(
         flash_fwd=time_ms(lambda: fa.flash_forward_plain(q, k, v, causal,
                                                          scale), iters=3),
@@ -465,8 +549,9 @@ def check_flash_case(gen, dev, label, shape, causal, timed):
         b_ms, b_by = bound(nbytes[name], flops, q.dtype)
         res[name].update(ms=ms[name], plain_ms=plain[name],
                          library_ms=library[name], bound_ms=b_ms,
-                         bound_by=b_by)
-        log(f"[flash {label}] {name}: kernel {ms[name]:.4f} ms, plain "
+                         bound_by=b_by, device_ms=dev[name])
+        log(f"[flash {label}] {name}: kernel {ms[name]:.4f} ms (device "
+            f"{dev[name]:.4f} ms), plain "
             f"{plain[name]:.4f} ms, sdpa {library[name]:.4f} ms "
             f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
             f"), bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
@@ -476,33 +561,49 @@ def check_flash_case(gen, dev, label, shape, causal, timed):
     return res
 
 
+# Tensor-core kernels that must hold HGMMA in their SASS: (library, entry
+# name, instances). Flash: bf16 at D 64 and 128; ragged: bf16, int8 and
+# fp8 pages at D 64 and 128.
+TC_KERNELS = [
+    ("libflash_attention.so", "flash_fwd_tc_kernel", 2),
+    ("libflash_attention.so", "flash_dq_tc_kernel", 2),
+    ("libflash_attention.so", "flash_dkv_tc_kernel", 2),
+    ("libragged_paged.so", "ragged_tc_kernel", 6),
+]
+
+
 def check_tensor_cores(info):
-    """The bf16 instances of the flash forward and dk/dv must run their
-    products on the tensor cores: each must hold HGMMA instructions in the
-    SASS of the built library (cuobjdump -sass). Prints each instance's
-    HGMMA count and its ptxas register and spill lines."""
+    """The tensor-core kernels (bf16 flash forward, dq and dk/dv; the
+    ragged kernel for bf16 queries on bf16, int8 and fp8 pages) must run
+    their products on the tensor cores: each instance must hold HGMMA
+    instructions in the SASS of the built library (cuobjdump -sass).
+    Prints each instance's HGMMA count and its ptxas register and spill
+    lines."""
     from ray_tpu_torch.ops import _kernels
-    so = os.path.join(info["dir"], "libflash_attention.so")
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     hgmma = {}
-    for chunk in sass.split("Function : ")[1:]:
-        hgmma[chunk.split("\n", 1)[0].strip()] = chunk.count("HGMMA")
-    ptxas = info["ptxas"].get("flash_attention.cu", "")
+    for lib in sorted({lib for lib, _, _ in TC_KERNELS}):
+        sass = subprocess.run([tool, "-sass", os.path.join(info["dir"], lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        hgmma[lib] = {}
+        for chunk in sass.split("Function : ")[1:]:
+            hgmma[lib][chunk.split("\n", 1)[0].strip()] = chunk.count("HGMMA")
     found = {}
-    for kern in ("flash_fwd_tc_kernel", "flash_dkv_tc_kernel"):
-        inst = {n: c for n, c in hgmma.items() if kern in n}
+    for lib, kern, n_inst in TC_KERNELS:
+        ptxas = info["ptxas"].get(lib[3:-3] + ".cu", "")
+        inst = {n: c for n, c in hgmma[lib].items() if kern in n}
         found[kern] = inst
         for n, c in inst.items():
             lines = ptxas_lines(ptxas, n)
             log(f"[tensor cores] {kern} instance {n[:72]}: {c} HGMMA; "
                 f"ptxas: {' | '.join(lines) or 'not rebuilt in this run'}")
-        if len(inst) != 2 or not all(inst.values()):
-            raise AssertionError(f"{kern}: the bf16 instances (D 64 and 128) "
-                                 f"must hold HGMMA instructions: {inst}")
-    others = sum(c for n, c in hgmma.items() if "_tc_kernel" not in n)
-    log(f"[tensor cores] HGMMA outside the bf16 forward and dk/dv: {others}")
+        if len(inst) != n_inst or not all(inst.values()):
+            raise AssertionError(f"{kern}: all {n_inst} instances must hold "
+                                 f"HGMMA instructions: {inst}")
+    others = sum(c for lib in hgmma for n, c in hgmma[lib].items()
+                 if not any(k in n for _, k, _ in TC_KERNELS))
+    log(f"[tensor cores] HGMMA outside the tensor-core kernels: {others}")
     return found
 
 
@@ -636,6 +737,7 @@ def run_engine(dev):
         if len(o) != 16 or not all(0 <= t < 128256 for t in o):
             raise AssertionError(f"bad output stream {o}")
     prof = run_profile(eng, prompts)
+    memory = full_table_memory(eng)
     geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
                            params=eng.params)
     out_g, ticks_g = drive(geng, prompts, 16, "g")
@@ -658,8 +760,67 @@ def run_engine(dev):
     return counts, dict(tick_ms_kernel=statistics.median(ticks_k),
                         tick_ms_gather=statistics.median(ticks_g),
                         ticks_ms_kernel=ticks_k, ticks_ms_gather=ticks_g,
-                        exact=exact, profile=prof,
+                        exact=exact, profile=prof, memory=memory,
                         pool_bytes=pool_bytes(eng)), eng.params, out_k
+
+
+def full_table_memory(eng):
+    """Serving at the full table width: a 5200-token prompt (seeded
+    random tokens) whose 512-token chunks pass start 4096, so their ticks
+    sweep the 512-page context bucket, beside a request that decodes the
+    whole time, so those ticks hold 513 tokens (the 1024-token bucket).
+    That is the ragged kernel's key-chunk scratch at its largest for
+    this engine, which must be what the run's ticks allocated. Returns
+    the device memory held before the drive, its peak during it, and the
+    largest scratch a tick allocated (bytes)."""
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.models import llama_infer
+    from ray_tpu_torch.ops import ragged_paged_attention as rpa
+    cfg, ec = eng.model_cfg, eng.config
+    gen = torch.Generator().manual_seed(5200)
+    long_p = torch.randint(1000, 100000, (5200,), generator=gen).tolist()
+    short_p = torch.randint(1000, 100000, (24,), generator=gen).tolist()
+    reqs = [Request("mem-short", short_p, SamplingParams(max_tokens=24)),
+            Request("mem-long", long_p, SamplingParams(max_tokens=2))]
+    sizes = []
+    own = llama_infer.ragged_scratch
+
+    def recording(*a, **k):
+        buf = own(*a, **k)
+        sizes.append(0 if buf is None else buf.numel() * 4)
+        return buf
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    llama_infer.ragged_scratch = recording
+    try:
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+    finally:
+        llama_infer.ragged_scratch = own
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for r, n in zip(reqs, (24, 2)):
+        if len(r.output_tokens) != n:
+            raise AssertionError(f"{r.request_id}: {r.output_tokens}")
+    n_chunks = rpa.tc_geometry(1024, ec.max_batch_size,
+                               cfg.n_heads // cfg.n_kv_heads,
+                               ec.max_prefill_tokens, eng.max_pages_per_seq,
+                               ec.page_size)[2]
+    want = rpa.scratch_numel(1024, cfg.n_heads, cfg.head_dim, n_chunks) * 4
+    if max(sizes) != want:
+        raise AssertionError(f"largest scratch {max(sizes)} B, the "
+                             f"full-table bucket's is {want} B")
+    log(f"[engine memory] full-table ticks ({len(sizes)} ragged): held "
+        f"before {base / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB "
+        f"(+{(peak - base) / 2**20:.1f} MiB); largest key-chunk scratch "
+        f"{max(sizes) / 2**20:.1f} MiB ({n_chunks} chunks, T=1024)")
+    return dict(base_bytes=base, peak_bytes=peak, scratch_bytes=max(sizes),
+                n_chunks=n_chunks)
 
 
 def pool_bytes(eng):
@@ -800,16 +961,7 @@ def profile_ticks(eng, prompts, n_ticks, label):
             eng.step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # device kernels only: an aten op's row repeats its kernels' time
-    evs = [e for e in prof.key_averages() if dev_us(e) > 0
-           and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not evs:
-        evs = [e for e in prof.key_averages() if dev_us(e) > 0
-               and not e.key.startswith(("aten::", "cuda"))]
+    evs = device_events(prof)
     total = sum(dev_us(e) for e in evs) / 1e3
     top = sorted(evs, key=dev_us, reverse=True)[:10]
     log(f"[profile {label}] {n_ticks} ticks: kernels busy {total:.2f} ms "
@@ -821,8 +973,17 @@ def profile_ticks(eng, prompts, n_ticks, label):
                          calls=e.count))
         log(f"[profile {label}]   {dev_us(e) / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+    # the serving attention kernels, whether or not they made the top 10
+    serving = []
+    for e in sorted(evs, key=lambda e: e.key):
+        if "ragged" in e.key or "paged_decode" in e.key:
+            serving.append(dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
+                                calls=e.count))
+            log(f"[profile {label}] serving kernel {e.key[:60]}: "
+                f"{dev_us(e) / 1e3:.3f} ms over {e.count} launches, "
+                f"{dev_us(e) / 1e3 / e.count:.4f} ms a launch")
     return dict(ticks=n_ticks, profiled_wall_ms=wall, device_ms=total,
-                top=rows)
+                top=rows, serving=serving)
 
 
 def run_profile(eng, prompts):
@@ -877,15 +1038,7 @@ def profile_step(bundle, state, tokens):
         state, m = bundle.step(state, tokens)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    evs = [e for e in prof.key_averages() if dev_us(e) > 0
-           and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not evs:
-        evs = [e for e in prof.key_averages() if dev_us(e) > 0
-               and not e.key.startswith(("aten::", "cuda"))]
+    evs = device_events(prof)
     busy = sum(dev_us(e) for e in evs) / 1e3
     log(f"[profile train step] kernels busy {busy:.2f} ms on the device; "
         f"wall under the profiler {wall:.2f} ms")
@@ -1090,17 +1243,19 @@ def main():
                         [0, 17, 256, 1000, 2049, 3000, 4095, 4096], 512)
     narrow = check_decode(gen, dev, "8-page table",
                           [1, 3, 16, 17, 64, 100, 127, 128], 8)
-    ragged = check_ragged(gen, dev)
-    quant = {}
+    ragged, ragged_ticks = check_ragged(gen, dev)
+    quant, quant_ticks = {}, {}
     for kind in ("int8", "fp8"):
         quant[kind] = dict(
             wide=check_decode(gen, dev, "512-page table",
                               [0, 17, 256, 1000, 2049, 3000, 4095, 4096],
                               512, kind),
             narrow=check_decode(gen, dev, "8-page table",
-                                [1, 3, 16, 17, 64, 100, 127, 128], 8, kind),
-            ragged=check_ragged(gen, dev, kind))
+                                [1, 3, 16, 17, 64, 100, 127, 128], 8, kind))
+        quant[kind]["ragged"], quant_ticks[kind] = check_ragged(gen, dev,
+                                                                kind)
     flash = check_flash(gen, dev)
+    ticks = dict(bf16=ragged_ticks, **quant_ticks)
     counts, engine, params, out_bf16 = run_engine(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1154,7 +1309,8 @@ def main():
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(summary, card=card, engine=engine,
+            json.dump(dict(summary, card=card, ragged_ticks=ticks,
+                           engine=engine,
                            quant_engine=quant_engine, train=train,
                            tensor_cores=tensor_cores), f, indent=1)
     print(json.dumps(summary), flush=True)

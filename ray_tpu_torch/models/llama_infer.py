@@ -30,7 +30,8 @@ from ..ops.paged_attention import (gather_context,
                                    scatter_kv_quant)
 from ..ops.ragged_paged_attention import (ragged_paged_attention,
                                           ragged_plan,
-                                          ragged_prefill_decode_attention)
+                                          ragged_prefill_decode_attention,
+                                          ragged_scratch)
 from .llama import LlamaConfig, rms_norm, rope_frequencies
 
 IMPLS = ("gather", "kernel")
@@ -140,8 +141,12 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                       else page_tables[:, :ctx_pages])
     else:
         max_seg = t if max_seg_len < 0 else max(min(max_seg_len, t), 1)
-        # the segment map is the same for every layer: build it once
+        # the segment map and the key chunks' scratch are the same for
+        # every layer: build them once
         plan = ragged_plan(slot_ids, positions, valid, start, max_seg)
+        scratch = ragged_scratch(t, cfg.n_heads, cfg.head_dim, dt,
+                                 k_pages[0], page_tables,
+                                 ctx_pages=ctx_pages, max_seg_len=max_seg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         if impl == "gather":
@@ -159,7 +164,8 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                     positions, valid, start, k.contiguous(),
                     v.contiguous(), ctx_pages=ctx_pages,
                     max_seg_len=max_seg, plan=plan,
-                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i))
+                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i),
+                    scratch=scratch)
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), t,
                                 lambda a: _rope_single(a, cos, sin),
                                 attn_fn)

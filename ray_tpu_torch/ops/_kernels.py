@@ -57,7 +57,7 @@ class Kernel:
 
 
 _DECODE_ARGS = [_P] * 15 + [_I] * 10 + [_P]
-_RAGGED_ARGS = [_P] * 13 + [_I] * 12 + [_P]
+_RAGGED_ARGS = [_P] * 18 + [_I] * 15 + [_P]
 # The serving kernels take the page pools' kind as an argument (0: pools
 # in q's dtype; 1: int8 and 2: fp8 pools with float32 scale pools, the
 # dequant fused into the page loads). Each kind has its own Kernel and

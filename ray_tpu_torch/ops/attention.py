@@ -244,7 +244,8 @@ def _check_bwd(q, k, v, do, lse, delta):
 def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float
              ) -> torch.Tensor:
     """dq. CPU tensors run ``flash_dq_plain``; CUDA tensors launch
-    ``flash_dq_kernel`` (or raise)."""
+    ``flash_dq_tc_kernel`` (bf16) or ``flash_dq_kernel`` (float32,
+    float16), or raise."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
     if q.device.type != "cuda":

@@ -26,19 +26,20 @@
 // fallback: a bf16 launch that cannot build its TMA maps or launch
 // returns non-zero and the wrapper raises):
 //
-// bf16 forward and dk/dv (flash_fwd_tc_kernel, flash_dkv_tc_kernel; the
-// training path's dtype): products on the tensor cores with wgmma,
+// bf16 forward, dq and dk/dv (flash_fwd_tc_kernel, flash_dq_tc_kernel,
+// flash_dkv_tc_kernel; the training path's dtype): products on the
+// tensor cores with wgmma,
 // tiles brought in by TMA, a producer warp and two consumer warpgroups
 // (hopper_mma.cuh holds the building blocks).
-//   - The float32 contract holds. Q K^T, and K Q^T and V dO^T, take
+//   - The float32 contract holds. Q K^T, dO V^T, K Q^T and V dO^T take
 //     bf16 operands, whose products are exact in float32, into float32
-//     accumulators. P V, P^T dO and dS^T Q have a float32 operand: it is
-//     split into bf16 hi = bf16(x) and lo = bf16(x - hi), and two RS
-//     wgmmas (hi, then lo) add into one accumulator, so the operand
+//     accumulators. P V, dS K, P^T dO and dS^T Q have a float32 operand:
+//     it is split into bf16 hi = bf16(x) and lo = bf16(x - hi), and two
+//     RS wgmmas (hi, then lo) add into one accumulator, so the operand
 //     keeps 16 significant bits (~2^-17 relative) and each partial
 //     product is exact. That costs 1.5x the tensor-core work of a plain
-//     bf16 flash kernel (3 products for 2 in the forward, 6 for 4 in
-//     dk/dv). P and dS are never rounded to one bf16.
+//     bf16 flash kernel (3 products for 2 in the forward, 4 for 3 in
+//     dq, 6 for 4 in dk/dv). P and dS are never rounded to one bf16.
 //   - Forward: a block owns (b*h, 128 q rows), longest first; consumer
 //     warpgroup c owns rows 64 c .. 64 c + 63. The producer loads the Q
 //     tile once and streams (K, V) tiles of 128 keys through a 2-stage
@@ -48,6 +49,18 @@
 //     quad (2 shuffles for its max and sum); P's fragment, packed as
 //     bf16x2 hi/lo, is already the A operand of O += P V, which reads V
 //     ([key][D]) MN-major through the transpose flag.
+//   - dq: the forward's structure with the backward's arithmetic. A
+//     block owns (b*h, 128 q rows), longest first; consumer c owns rows
+//     64 c .. 64 c + 63 and its dq (64 x D float32) in registers for the
+//     whole loop. The producer loads the Q and dO tiles once and streams
+//     (K, V) tiles of 64 keys through the 2-stage ring up to the causal
+//     diagonal; each consumer reads its rows' lse and delta once. S =
+//     Q K^T and dP = dO V^T are SS wgmmas (K-major), P = exp(s scale -
+//     lse) and dS = P (dP - delta) are formed on the fragments, and dq
+//     += dS K is an RS wgmma pair (hi, lo) with K read MN-major; dq is
+//     scaled once, in the epilogue. 64-key tiles keep S, dP (32 each),
+//     dq (64 at D = 128) and dS hi/lo (32) within a consumer's 232
+//     registers; 128-key tiles would spill.
 //   - dk/dv: a block owns (b*kvh, 128 keys), first keys first; consumer
 //     c owns keys 64 c .. 64 c + 63 as the wgmma M dimension, K and V
 //     stay in shared memory, and dK, dV (64 x D float32 each) stay in
@@ -68,9 +81,9 @@
 //     swizzle, so D = 128 takes two boxes a tile. Rows past Sq or Sk
 //     arrive as zeros; the column and causal masks still apply.
 //
-// float32 and float16 (and every dq; a later PR's redesign): the first
-// version, products on the CUDA cores in float32 (the TPU kernels' f32
-// dots), ceiling 67 TFLOP/s. f16 would need f16 P fragments, whose
+// float32 and float16: the first version, products on the CUDA cores
+// in float32 (the TPU kernels' f32 dots), ceiling 67 TFLOP/s. f16
+// would need f16 P fragments, whose
 // range and subnormals are a separate question, and only the tests and
 // the tiny float32 configs use these types.
 //   - 64 x 64 tiles, 256 threads; each thread owns a 4 x 4 block of
@@ -500,9 +513,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace tc {
 
+using hmma::align1024;
 using hmma::desc_k_major;
 using hmma::desc_mn_major;
+using hmma::exp_ftz;
 using hmma::fence_regs;
+using hmma::quad_max;
+using hmma::quad_sum;
 using hmma::smem_u32;
 
 constexpr int kWG = 128;                   // threads of a warpgroup
@@ -514,25 +531,10 @@ constexpr int kFwdM = 128;                 // forward: q rows a block (64 a cons
 constexpr int kFwdN = 128;                 // forward: keys a kv tile
 constexpr int kDkvN = 128;                 // dk/dv: keys a block (64 a consumer)
 constexpr int kDkvM = 64;                  // dk/dv: q rows a streamed tile
+constexpr int kDqM = 128;                  // dq: q rows a block (64 a consumer)
+constexpr int kDqN = 64;                   // dq: keys a streamed kv tile
 constexpr int kTmaError = -2;
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-// exp(x) as ex2.approx.ftz(x log2 e): a multiply and one MUFU
-// instruction in place of expf's longer sequence, and the forward spends
-// most of a tile on its exps. CUDA documents the error as 2 + |1.16 x|
-// ulp (about 1e-6 relative at the |x| < 20 that carry weight); results
-// under 2^-126 flush to 0, as on a TPU.
-__device__ __forceinline__ float exp_ftz(float x) { return __expf(x); }
 
 // shared memory of the forward: Q [kFwdM][D], then kStages x (K, V)
 // [kFwdN][D], each D / 64 swizzled regions; then the barriers
@@ -712,6 +714,192 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
                                   o[4 * j + 2 * r + 1] / den);
       if ((lane & 3) == 0) lse[(long long)bh * a.Sq + row] = m[r] + logf(den);
+    }
+  }
+}
+
+// shared memory of dq: Q, dO [kDqM][D] resident; kStages x (K, V)
+// [kDqN][D] streamed; the barriers
+template <int D> struct DqSmem {
+  static constexpr uint32_t kQRegion = kDqM * 128, kKVRegion = kDqN * 128;
+  static constexpr uint32_t kQ = kDqM * D * 2, kKV = kDqN * D * 2;
+  static constexpr uint32_t kStage0 = 2 * kQ;               // Q, then dO
+  static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKV;
+  static constexpr size_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// One block owns (b*h, 128 q rows), longest first, and loops over the
+// live 64-key tiles; consumer c owns q rows 64 c .. 64 c + 63 and their
+// dq accumulator (64 x D float32, in registers for the whole loop).
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, Args a) {
+  using L = DqSmem<D>;
+  constexpr int BN = kDqN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int kvh = h / (a.H / a.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqM;   // longest tiles first
+  const int rows = min(kDqM, a.Sq - q0);
+  int n_kt = (a.Sk + BN - 1) / BN;
+  if (a.causal) n_kt = min(n_kt, (q0 + rows - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+    hmma::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hmma::mbar_init(&full[s], 1);
+      hmma::mbar_init(&empty[s], 2 * kWG);
+    }
+    hmma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ------------------------------------------------------ producer
+    hmma::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hmma::tma_prefetch_map(&tk);
+      hmma::tma_prefetch_map(&tv);
+      hmma::mbar_arrive_expect_tx(q_full, 2 * L::kQ);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hmma::tma_load_4d(smem + c * L::kQRegion, &tq, q_full, 64 * c, h, q0, b);
+        hmma::tma_load_4d(smem + L::kQ + c * L::kQRegion, &tdo, q_full, 64 * c,
+                          h, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages, n = kt / kStages;
+        hmma::mbar_wait(&empty[s], (n & 1) ^ 1);
+        uint8_t* ks = smem + L::kStage0 + s * 2 * L::kKV;
+        hmma::mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hmma::tma_load_4d(ks + c * L::kKVRegion, &tk, &full[s], 64 * c, kvh,
+                            kt * BN, b);
+          hmma::tma_load_4d(ks + L::kKV + c * L::kKVRegion, &tv, &full[s],
+                            64 * c, kvh, kt * BN, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    hmma::reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int t = threadIdx.x % kWG, lane = t % 32;
+    const int row_lo = q0 + cw * 64;                   // this consumer's first row
+    const int r0 = row_lo + (t / 32) * 16 + lane / 4;  // rows r0, r0 + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t q_tile = smem_u32(smem) + cw * 64 * 128;
+    const uint32_t do_tile = q_tile + L::kQ;
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      lse_r[r] = row < a.Sq ? lse[(long long)bh * a.Sq + row] : 0.f;
+      dl_r[r] = row < a.Sq ? delta[(long long)bh * a.Sq + row] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    hmma::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages, n = kt / kStages;
+      const int k0 = kt * BN;
+      hmma::mbar_wait(&full[s], n & 1);
+      // a causal tile whose keys all follow this consumer's rows adds
+      // nothing
+      if (!(a.causal && k0 > row_lo + 63)) {
+        const uint32_t k_tile = smem_u32(smem) + L::kStage0 + s * 2 * L::kKV;
+        const uint32_t v_tile = k_tile + L::kKV;
+        // S = Q K^T and dP = dO V^T: bf16 operands, exact products
+        float sc[BN / 2], dp[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+        fence_regs(sc);
+        fence_regs(dp);
+        hmma::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hmma::wgmma_ss<BN, 0>(sc, desc_k_major(q_tile, L::kQRegion, kk),
+                                desc_k_major(k_tile, L::kKVRegion, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hmma::wgmma_ss<BN, 0>(dp, desc_k_major(do_tile, L::kQRegion, kk),
+                                desc_k_major(v_tile, L::kKVRegion, kk), 1);
+        hmma::wgmma_commit();
+        hmma::wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P = exp(S scale - lse) (masked to 0), dS = P (dP - delta); the
+        // mask only on tiles that cross Sk or this consumer's diagonal
+        const bool edge = k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > row_lo);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool live = true;
+            if (edge) {
+              const int col = k0 + 8 * j + cq + (e & 1);
+              const int row = r0 + 8 * (e >> 1);
+              live = col < a.Sk && (!a.causal || row >= col);
+            }
+            const float p =
+                live ? exp_ftz(sc[4 * j + e] * a.scale - lse_r[e >> 1]) : 0.f;
+            dp[4 * j + e] = p * (dp[4 * j + e] - dl_r[e >> 1]);
+          }
+
+        // dq += dS K with dS as bf16 hi + lo, K read MN-major ([key][D])
+        uint32_t sh[BN / 16][4], sl[BN / 16][4];
+#pragma unroll
+        for (int kb = 0; kb < BN / 16; ++kb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hmma::split_bf16x2(dp[8 * kb + 2 * e], dp[8 * kb + 2 * e + 1],
+                               sh[kb][e], sl[kb][e]);
+        fence_regs(acc);
+        hmma::wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < BN / 16; ++kb) {
+          const uint64_t dk = desc_mn_major(k_tile, L::kKVRegion, kb);
+          hmma::wgmma_rs<D, 1>(acc, sh[kb], dk, 1);
+          hmma::wgmma_rs<D, 1>(acc, sl[kb], dk, 1);
+        }
+        hmma::wgmma_commit();
+        hmma::wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int kb = 0; kb < BN / 16; ++kb) {
+          fence_regs(sh[kb]);
+          fence_regs(sl[kb]);
+        }
+      }
+      hmma::mbar_arrive(&empty[s]);
+    }
+
+    // dq = scale * sum dS K, rows below Sq
+    const long long qs = (long long)a.H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= a.Sq) continue;
+      __nv_bfloat16* dst = dq + ((long long)b * a.Sq + row) * qs + (long long)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + cq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * a.scale,
+                                  acc[4 * j + 2 * r + 1] * a.scale);
     }
   }
 }
@@ -1029,6 +1217,32 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// bf16 dq. With no keys (Sk == 0) no kv tile is loaded, so the kv maps
+// are built over q.
+template <int D>
+int dq_tc(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dq, const Args& a,
+          cudaStream_t st) {
+  using L = tc::DqSmem<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  const bool kv = a.Sk > 0;
+  if (hmma::make_map_bf16_4d(&tq, q, D, a.H, a.Sq, a.B, tc::kDqM) ||
+      hmma::make_map_bf16_4d(&tdo, dout, D, a.H, a.Sq, a.B, tc::kDqM) ||
+      hmma::make_map_bf16_4d(&tk, kv ? k : q, D, kv ? a.KVH : a.H,
+                             kv ? a.Sk : a.Sq, a.B, tc::kDqN) ||
+      hmma::make_map_bf16_4d(&tv, kv ? v : q, D, kv ? a.KVH : a.H,
+                             kv ? a.Sk : a.Sq, a.B, tc::kDqN))
+    return tc::kTmaError;
+  auto kern = tc::flash_dq_tc_kernel<D>;
+  int rc = prepare(kern, L::kBytes);
+  if (rc) return rc;
+  dim3 grid(a.B * a.H, (a.Sq + tc::kDqM - 1) / tc::kDqM);
+  kern<<<grid, tc::kThreadsTC, L::kBytes, st>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dq, a);
+  return (int)cudaGetLastError();
+}
+
 // bf16 dk/dv. With no queries (Sq == 0) no q tile is loaded, so the q
 // and dO maps are built over k.
 template <int D>
@@ -1103,10 +1317,9 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Args a = make_args(B, Sq, Sk, H, KVH, causal, scale);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)   // bf16: still the CUDA-core kernel
-    return D == 64
-        ? dq_<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, a, st)
-        : dq_<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, a, st);
+  if (dtype == 1)   // bf16: the tensor-core kernel (D is 64 or 128)
+    return D == 64 ? dq_tc<64>(q, k, v, dout, lse, delta, dq, a, st)
+                   : dq_tc<128>(q, k, v, dout, lse, delta, dq, a, st);
   FLASH_DISPATCH(dq_, q, k, v, dout, lse, delta, dq, a, st)
 }
 

@@ -2,9 +2,9 @@
 // shared-memory matrix descriptor for the 128-byte swizzle, warpgroup
 // matrix multiply (`wgmma.mma_async`, bf16 inputs, float32
 // accumulators, A from shared memory or registers), its fences,
-// `mbarrier`s, TMA tensor loads, `setmaxnreg`, and the host-side
-// encoding of TMA tensor maps. Header only; no CuTe, so a source that
-// includes it builds in seconds.
+// `mbarrier`s, TMA tensor loads, the generic-to-async proxy fence,
+// `setmaxnreg`, and the host-side encoding of TMA tensor maps. Header
+// only; no CuTe, so a source that includes it builds in seconds.
 //
 // Layouts these helpers assume (every tile is written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B from a box 64 bf16 values = 128 bytes
@@ -213,6 +213,37 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands, TMA) that reads or overwrites them next: the
+// fence, then a barrier, between a tile written by threads and the
+// wgmma that reads it (tiles written by TMA need neither)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------- fragment-side helpers
+
+// the dynamic shared-memory base rounded up to the 1024 bytes a
+// swizzle atom needs (the kernels ask for 1024 bytes of slack)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+// a row of an accumulator fragment lives on the 4 lanes of a quad
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+// exp(x) as ex2.approx.ftz(x log2 e): a multiply and one MUFU
+// instruction in place of expf's longer sequence; the tensor-core
+// kernels spend most of a tile on their exps. CUDA documents the error
+// as 2 + |1.16 x| ulp (about 1e-6 relative at the |x| < 20 that carry
+// weight); results under 2^-126 flush to 0, as on a TPU.
+__device__ __forceinline__ float exp_ftz(float x) { return __expf(x); }
+
 // --------------------------------------------------------------- mbarrier
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -340,6 +371,29 @@ inline int make_map_bf16_4d(CUtensorMap* map, const void* base, int n0,
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(base), dims, strides, box, estr,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1;
+}
+
+// A one-byte tensor [n3][n2][n1][n0] (int8 or fp8 values) as a 4-D TMA
+// map whose box is all n0 bytes of dim 0 (n0 % 16 == 0, n0 <= 256), 1
+// of dim 1, `rows` of dim 2 and 1 of dim 3, not swizzled: a box lands
+// as `rows` plain rows of n0 bytes. Reads past the tensor's end fill
+// zeros. Returns 0, or non-zero when the map cannot be encoded.
+inline int make_map_u8_4d(CUtensorMap* map, const void* base, int n0, int n1,
+                          int n2, int n3, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2,
+                              (cuuint64_t)n3};
+  const cuuint64_t strides[3] = {(cuuint64_t)n0, (cuuint64_t)n0 * n1,
+                                 (cuuint64_t)n0 * n1 * n2};
+  const cuuint32_t box[4] = {(cuuint32_t)n0, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                   const_cast<void*>(base), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1;

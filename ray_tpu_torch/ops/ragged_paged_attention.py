@@ -11,13 +11,16 @@ absolute position p attends
 Two implementations:
 - dense (``ragged_prefill_decode_attention`` /
   ``ragged_paged_prefill_decode_attention``), the plain version;
-- the hand-written CUDA kernel ``csrc/ragged_paged.cu`` behind
-  ``ragged_paged_attention``, which keeps
+- the hand-written CUDA kernels ``csrc/ragged_paged.cu`` behind
+  ``ragged_paged_attention``, which keep
   ``ragged_paged_attention_pallas``' contract: each slot's valid tokens
   form one run at positions start[slot] + rank, invalid rows are
-  ignored on input and exact zeros on output. On a CPU tensor it runs
-  ``ragged_paged_attention_plain``; on a CUDA tensor it launches the
-  kernel or raises.
+  ignored on input and exact zeros on output. bf16 queries run the
+  tensor-core kernel, which splits each slot's keys into chunks of 512
+  and merges them in a combine pass (``tc_geometry`` sizes its grid and
+  scratch); float32 and float16 queries run the first, CUDA-core
+  kernel. On a CPU tensor it runs ``ragged_paged_attention_plain``; on
+  a CUDA tensor it launches the kernel or raises.
 
 Both take quantized pools (int8/fp8 values with float32 scale pools,
 ``kv_quant``): the dense op over the dequantized gathered context, the
@@ -172,9 +175,89 @@ def ragged_plan(slot_ids: torch.Tensor, positions: torch.Tensor,
 
 
 def _q_block(group: int, max_seg: int) -> int:
-    """Query tokens per kernel block: about 32 score rows (q_blk tokens
-    x group heads), never more tokens than a segment can hold."""
+    """Query tokens per kernel block of the float32/float16 kernel: about
+    32 score rows (q_blk tokens x group heads), never more tokens than a
+    segment can hold."""
     return max(1, min(32 // max(group, 1), max_seg))
+
+
+# The tensor-core kernel for bf16 queries: a work item is (slot, q tile,
+# kv head, key chunk); a q tile is TC_ROWS rows (TC_ROWS // group tokens
+# x the group's heads of one kv head), a key chunk TC_CHUNK_TILES tiles
+# of TC_TILE keys (the slot's context tiles, then its in-batch tiles).
+TC_ROWS = 64
+TC_TILE = 64
+TC_CHUNK_TILES = 8
+TC_HEAD_DIMS = (64, 128)
+TC_PAGE_SIZES = (8, 16, 32, 64)       # a page is whole 8-row swizzle atoms
+
+
+def tc_takes(dtype: torch.dtype, d: int, page_size: int, group: int) -> bool:
+    """Whether a call runs the tensor-core kernel: bf16 queries with
+    head_dim in TC_HEAD_DIMS, page_size in TC_PAGE_SIZES and group <=
+    TC_ROWS (``rtc::takes`` in the source says the same). Every other
+    call, bf16 ones included (the ``debug`` preset's head_dim 32, pages
+    of 4 rows), runs the CUDA-core kernel."""
+    return (dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+            and page_size in TC_PAGE_SIZES and group <= TC_ROWS)
+
+
+def tc_geometry(t: int, b: int, group: int, max_seg: int,
+                n_ctx_pages: int, page_size: int) -> Tuple[int, int, int]:
+    """(tokens a q tile, (slot, q tile) pairs, key chunks) of the bf16
+    kernel's grid for T tokens over B slots, from static bounds only (no
+    host sync). Slot s holds q_s <= max_seg tokens and sum q_s <= T, so
+    sum ceil(q_s / tpt) <= (T + B (tpt - 1)) // tpt, and at most
+    B ceil(max_seg / tpt). A q tile sees at most ceil(n_ctx_pages *
+    page_size / 64) context tiles and ceil(max_seg / 64) in-batch tiles.
+    The grid is (chunks, pairs, KVH); the chunks' partials need
+    ``scratch_numel`` float32 values when chunks > 1."""
+    tpt = TC_ROWS // group
+    n_pairs = min((t + b * (tpt - 1)) // tpt, b * -(-max_seg // tpt))
+    tiles = -(-n_ctx_pages * page_size // TC_TILE) + -(-max_seg // TC_TILE)
+    return tpt, n_pairs, -(-tiles // TC_CHUNK_TILES)
+
+
+def scratch_numel(t: int, h: int, d: int, n_chunks: int) -> int:
+    """float32 values of the key chunks' partials, 0 for one chunk: acc
+    [T, H, chunks, D], then m and l [T, H, chunks] each (acc first, so
+    its rows keep the 16-byte alignment the combine pass reads them
+    with)."""
+    return 0 if n_chunks <= 1 else t * h * n_chunks * (d + 2)
+
+
+def _call_geometry(t, h, d, dtype, kvh, page_size, b, n_table, ctx_pages,
+                   max_seg_len):
+    """(tensor-core?, max_seg, n_ctx, q_blk, n_pairs, n_chunks) of one
+    call, from shapes only."""
+    max_seg = t if max_seg_len < 0 else max(min(max_seg_len, t), 1)
+    n_ctx = n_table if ctx_pages < 0 else min(ctx_pages, n_table)
+    group = h // kvh
+    if not tc_takes(dtype, d, page_size, group):
+        return False, max_seg, n_ctx, _q_block(group, max_seg), 0, 0
+    return (True, max_seg, n_ctx) + tc_geometry(t, b, group, max_seg, n_ctx,
+                                                page_size)
+
+
+def ragged_scratch(t: int, h: int, d: int, dtype: torch.dtype,
+                   k_pages: torch.Tensor, page_tables: torch.Tensor, *,
+                   ctx_pages: int = -1, max_seg_len: int = -1
+                   ) -> Optional[torch.Tensor]:
+    """One float32 buffer for the key chunks' partials of every
+    ``ragged_paged_attention`` call of a tick with these arguments (q
+    [T, H, D] of `dtype`, one layer's pool `k_pages`), or None when the
+    calls need none (CPU tensors, the CUDA-core kernel, one chunk).
+    The calls run in stream order, so the layers share it."""
+    if page_tables.device.type != "cuda":
+        return None
+    _, page_size, kvh, _ = k_pages.shape
+    geo = _call_geometry(t, h, d, dtype, kvh, page_size,
+                         page_tables.shape[0], page_tables.shape[1],
+                         ctx_pages, max_seg_len)
+    n = scratch_numel(t, h, d, geo[5])
+    if not geo[0] or n == 0:
+        return None
+    return torch.empty(n, dtype=torch.float32, device=page_tables.device)
 
 
 def ragged_paged_attention_plain(
@@ -202,7 +285,8 @@ def ragged_paged_attention(
         max_seg_len: int = -1,
         plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         k_scales: Optional[torch.Tensor] = None,
-        v_scales: Optional[torch.Tensor] = None
+        v_scales: Optional[torch.Tensor] = None,
+        scratch: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Ragged paged attention for one layer, the kernel entry.
 
@@ -218,7 +302,14 @@ def ragged_paged_attention(
     dtype. Returns [T, H, D] with invalid rows exact zeros.
 
     CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/ragged_paged.cu`` (or raise)."""
+    ``csrc/ragged_paged.cu`` (or raise): the calls ``tc_takes`` (bf16
+    queries of head_dim 64 or 128, page_size 8, 16, 32 or 64, group <=
+    64; slot_ids and positions int32) the tensor-core kernel and its
+    combine pass, with float32 scratch for the key chunks' partials when
+    a q tile's keys can span more than one chunk (``tc_geometry``); all
+    others the CUDA-core kernel. `scratch` is ``ragged_scratch``'s
+    buffer for these arguments, shared by a tick's layers (None
+    allocates one for this call). One launch-counter step per call."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pages, v_pages, page_tables, slot_ids, positions, valid,
@@ -250,7 +341,9 @@ def ragged_paged_attention(
         raise TypeError("page_tables and start must be int32")
     if valid.dtype != torch.bool:
         raise TypeError("valid must be bool")
-    max_seg = t if max_seg_len < 0 else max(min(max_seg_len, t), 1)
+    tc, max_seg, n_ctx, q_blk, n_pairs, n_chunks = _call_geometry(
+        t, h, d, q.dtype, kvh, page_size, b, page_tables.shape[1],
+        ctx_pages, max_seg_len)
     if plan is None:
         plan = ragged_plan(slot_ids, positions, valid, start, max_seg)
     qlen, tok_idx = plan
@@ -267,9 +360,36 @@ def ragged_paged_attention(
     if any(x.data_ptr() % 16 for x in (k_pages, v_pages, k_new, v_new)):
         raise ValueError("pools and new KV must be 16-byte aligned (the "
                          "kernel reads them in 16-byte vectors)")
-    n_ctx = page_tables.shape[1] if ctx_pages < 0 else \
-        min(ctx_pages, page_tables.shape[1])
-    q_blk = _q_block(h // kvh, max_seg)
+    tok_ids = (None, None)
+    part_m = part_l = part_acc = None
+    if tc:
+        # the tensor-core kernel: the flat batch's slot and position (the
+        # combine pass writes rows by token), and the chunks' scratch
+        for x in (slot_ids, positions):
+            if x.dtype != torch.int32 or x.device != q.device \
+                    or not x.is_contiguous():
+                raise ValueError("slot_ids/positions must be contiguous "
+                                 "int32 on q's device")
+        tok_ids = (slot_ids.data_ptr(), positions.data_ptr())
+        if q.data_ptr() % 16:
+            raise ValueError("q must be 16-byte aligned")
+        need = scratch_numel(t, h, d, n_chunks)
+        if need:
+            if scratch is None:
+                scratch = torch.empty(need, dtype=torch.float32,
+                                      device=q.device)
+            elif scratch.dtype != torch.float32 \
+                    or scratch.device != q.device \
+                    or scratch.numel() < need \
+                    or not scratch.is_contiguous() \
+                    or scratch.data_ptr() % 16:
+                raise ValueError(f"scratch must be a contiguous, 16-byte "
+                                 f"aligned float32 tensor of at least "
+                                 f"{need} values on q's device")
+            n_acc = t * h * n_chunks * d
+            part_acc = scratch[:n_acc]
+            part_m = scratch[n_acc:n_acc + t * h * n_chunks]
+            part_l = scratch[n_acc + t * h * n_chunks:need]
     out = torch.empty_like(q)
     ptr = lambda x: x.data_ptr() if x is not None else None
     kernel = _kernels.RAGGED_PAGED_BY_KIND[kind]
@@ -279,9 +399,11 @@ def ragged_paged_attention(
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 ptr(k_scales), ptr(v_scales), page_tables.data_ptr(),
                 start.data_ptr(), qlen.data_ptr(), tok_idx.data_ptr(),
-                valid.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                out.data_ptr(), t, b, h, kvh, d, page_size,
-                page_tables.shape[1], n_ctx, max_seg, q_blk,
+                valid.data_ptr(), *tok_ids,
+                k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
+                ptr(part_m), ptr(part_l), ptr(part_acc), t, b, h, kvh, d,
+                page_size, page_tables.shape[1], n_ctx, max_seg,
+                k_pages.shape[0], q_blk, n_pairs, n_chunks,
                 _kernels.dtype_code(q.dtype), kind, stream)
     _kernels.check(rc, kernel.name)
     kernel.launches += 1

@@ -467,3 +467,173 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fa.flash_forward(q.float(), k, v, True, 0.125)
     with pytest.raises(ValueError, match="one device"):
         fa.flash_forward(q, k.cpu(), v, True, 0.125)
+
+
+# ------------------------------------------ bf16: the tensor-core redesigns
+
+DQ_TC_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal: uneven S (1000 cuts the 128-row q
+    # tiles and 64-key tiles), Sq != Sk both ways, GQA group 1 and 4
+    (1, 1000, 1000, 8, 2, 128, True),
+    (1, 1000, 1000, 4, 4, 64, True),
+    (2, 1000, 1000, 4, 4, 128, False),
+    (1, 300, 700, 8, 2, 64, False),
+    (1, 700, 300, 8, 2, 128, True),
+    (2, 256, 640, 4, 4, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", DQ_TC_CASES)
+def test_flash_dq_tc_matches_plain(dev, b, sq, sk, h, kvh, d, causal):
+    """bf16 dq runs flash_dq_tc_kernel: against flash_dq_plain on the
+    same residuals, and bit-identical over two launches."""
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, b, sq, sk, h, kvh, d,
+                                seed=4)
+    scale = d ** -0.5
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    delta = fa.flash_delta(out, do)
+    n0 = _kernels.FLASH_DQ.launches
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, scale)
+    again = fa.flash_dq(q, k, v, do, lse, delta, causal, scale)
+    ref = fa.flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert _kernels.FLASH_DQ.launches == n0 + 2
+    assert torch.equal(dq, again)
+    _flash_close(dq, ref, torch.bfloat16, "dq")
+
+
+TC_RAGGED_CASES = [
+    # name, segs [(start, n)], pad, H, KVH, D, page
+    ("decode_only", [(5, 1), (11, 1), (3, 1), (80, 1)], 0, 32, 8, 128, 16),
+    ("all_padding", [(0, 0)], 6, 8, 2, 64, 16),
+    ("start_zero", [(0, 1), (0, 4), (0, 1)], 2, 32, 8, 128, 16),
+    ("partial_last_page", [(37, 1), (50, 9), (16, 3)], 1, 32, 8, 128, 16),
+    # contexts of 63-65 tiles: 8-9 key chunks merged by the combine pass
+    ("long_decode_many_chunks", [(3999, 1), (4100, 1), (700, 1)], 0,
+     32, 8, 128, 16),
+    # chunks that cross 16-token q tiles and 512-key chunks, one of them
+    # over in-batch keys only (tokens past 512 of a fresh 600-token slot)
+    ("crosses_q_tiles_and_chunks", [(450, 100), (0, 600), (600, 300)], 3,
+     32, 8, 128, 16),
+    ("group1", [(70, 1), (0, 70), (130, 40)], 0, 8, 8, 64, 16),
+    ("group8", [(70, 1), (0, 70), (530, 40)], 0, 16, 2, 128, 16),
+    # group 3: 21 tokens x 3 heads fill 63 of a tile's 64 rows
+    ("group3_padding_rows", [(20, 1), (10, 30)], 0, 6, 2, 64, 16),
+    ("page8", [(100, 1), (33, 50)], 0, 32, 8, 128, 8),
+    ("page64", [(100, 1), (200, 70)], 0, 32, 8, 128, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name,segs,pad,H,KVH,D,page", TC_RAGGED_CASES)
+def test_ragged_tc_kernel_matches_plain(dev, name, segs, pad, H, KVH, D,
+                                        page, kind):
+    """bf16 queries run the tensor-core ragged kernel on each page kind:
+    against the plain version, padding rows exact zeros, two launches
+    bit-identical, one launch-counter step per call."""
+    args = list(_ragged_case(dev, torch.bfloat16, segs, pad, H, KVH, D,
+                             page=page, seed=5))
+    sc = {}
+    if kind != "bf16":
+        args[1], args[2], sc = _quantize_pools(args[1], args[2], kind)
+    kern = _kernels.RAGGED_PAGED_BY_KIND[KIND_CODE.get(kind, 0)]
+    n0 = kern.launches
+    out = rpa.ragged_paged_attention(*args, **sc)
+    again = rpa.ragged_paged_attention(*args, **sc)
+    ref = rpa.ragged_paged_attention_plain(*args, **sc)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 2
+    assert torch.equal(out, again)
+    tol = _tol(torch.bfloat16) if kind == "bf16" else \
+        _quant_tol(torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.all(out[~args[6]] == 0)
+
+
+OFF_TC_RAGGED_CASES = [
+    # name, segs, pad, H, KVH, D, page: bf16 shapes `tc_takes` refuses
+    ("debug_preset_d32", [(5, 1), (0, 3), (40, 20)], 2, 4, 2, 32, 16),
+    ("page4", [(5, 1), (0, 3), (37, 9)], 1, 4, 2, 64, 4),
+    ("page4_8b_widths", [(130, 1), (0, 30), (61, 7)], 0, 32, 8, 128, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name,segs,pad,H,KVH,D,page", OFF_TC_RAGGED_CASES)
+def test_ragged_bf16_off_tensor_core_shapes_match_plain(dev, name, segs, pad,
+                                                        H, KVH, D, page,
+                                                        kind):
+    """bf16 queries of a head_dim or page size the tensor-core kernel
+    does not take run the CUDA-core kernel's bf16 instance: against the
+    plain version, padding rows exact zeros, one launch-counter step."""
+    assert not rpa.tc_takes(torch.bfloat16, D, page, H // KVH)
+    args = list(_ragged_case(dev, torch.bfloat16, segs, pad, H, KVH, D,
+                             page=page, seed=7))
+    sc = {}
+    if kind != "bf16":
+        args[1], args[2], sc = _quantize_pools(args[1], args[2], kind)
+    kern = _kernels.RAGGED_PAGED_BY_KIND[KIND_CODE.get(kind, 0)]
+    n0 = kern.launches
+    out = rpa.ragged_paged_attention(*args, **sc)
+    ref = rpa.ragged_paged_attention_plain(*args, **sc)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    tol = _tol(torch.bfloat16) if kind == "bf16" else \
+        _quant_tol(torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.all(out[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+def test_ragged_tc_shared_scratch(dev):
+    """One ragged_scratch buffer serves several calls (a tick's layers)
+    with the same bits as a buffer of each call's own; a buffer too
+    small raises."""
+    args = _ragged_case(dev, torch.bfloat16, [(3999, 1), (700, 30)], 2,
+                        32, 8, 128, seed=3)
+    q, k_pages, tables = args[0], args[1], args[3]
+    scratch = rpa.ragged_scratch(q.shape[0], 32, 128, torch.bfloat16,
+                                 k_pages, tables)
+    _, _, n_chunks = rpa.tc_geometry(q.shape[0], 2, 4, q.shape[0],
+                                     tables.shape[1], 16)
+    assert n_chunks > 1
+    assert scratch.numel() == rpa.scratch_numel(q.shape[0], 32, 128,
+                                                n_chunks)
+    own = rpa.ragged_paged_attention(*args)
+    for _ in range(2):
+        shared = rpa.ragged_paged_attention(*args, scratch=scratch)
+        assert torch.equal(shared, own)
+    with pytest.raises(ValueError, match="scratch"):
+        rpa.ragged_paged_attention(*args, scratch=scratch[:-1])
+
+
+@pytest.mark.cuda
+def test_default_engine_serves_on_the_card(dev):
+    """InferenceEngine(EngineConfig()): the `debug` preset (bf16,
+    head_dim 32) on the kernel impl, through mixed and decode ticks;
+    every request finishes with its tokens and both kernels launch."""
+    from ray_tpu_torch import (EngineConfig, InferenceEngine, Request,
+                               SamplingParams)
+    eng = InferenceEngine(EngineConfig())
+    assert eng.impl == "kernel"
+    gen = torch.Generator().manual_seed(11)
+    reqs = [Request(f"r{i}", torch.randint(2, 250, (n,),
+                                           generator=gen).tolist(),
+                    SamplingParams(max_tokens=6))
+            for i, n in enumerate((40, 3, 17, 90))]
+    _kernels.reset_launch_counts()
+    for r in reqs:
+        eng.add_request(r)
+    ticks = 0
+    while eng.has_work():
+        eng.step()
+        ticks += 1
+    counts = _kernels.launch_counts()
+    assert ticks >= 3
+    assert counts["ragged_paged"] > 0 and counts["paged_decode"] > 0
+    for r in reqs:
+        assert len(r.output_tokens) == 6
+        assert all(0 <= x < 256 for x in r.output_tokens)

@@ -256,3 +256,122 @@ def test_quant_kernel_entry_matches_pallas_interpret(name, segs, pad, kvh,
     dense = trpa.ragged_paged_prefill_decode_attention(
         *targs[:1], kd, vd, *targs[3:]).numpy()
     np.testing.assert_array_equal(out[v], dense[v])
+
+
+# ------------------------------------- the bf16 tensor-core kernel's grid
+
+# (T, B, group, max_seg, n_ctx_pages, page_size) -> (tokens a q tile,
+# (slot, q tile) pairs, key chunks), worked by hand:
+#   tpt = 64 // group; pairs = min((T + B (tpt - 1)) // tpt,
+#   B ceil(max_seg / tpt)); chunks = ceil((ceil(n_ctx_pages page / 64)
+#   + ceil(max_seg / 64)) / 8)
+TC_GEOMETRY_CASES = [
+    # the kernel phase's tick of chip_smoke.py: 632 // 16 = 39 pairs;
+    # 4096 context keys = 64 tiles + 8 in-batch tiles = 72 -> 9 chunks
+    ((512, 8, 4, 512, 256, 16), (16, 39, 9)),
+    # the engine's 1024-token bucket: 1144 // 16 = 71; 32 + 8 = 40 -> 5
+    ((1024, 8, 4, 512, 128, 16), (16, 71, 5)),
+    # decode rows only: 8 pairs; 128 + 1 = 129 tiles -> 17 chunks
+    ((8, 8, 4, 1, 512, 16), (16, 8, 17)),
+    # group 1: 289 // 64 = 4 pairs (B ceil(70 / 64) = 6); 0 + 2 -> 1
+    ((100, 3, 1, 70, 0, 8), (64, 4, 1)),
+    # group 8: 78 // 8 = 9 pairs (4 x 7 = 28); 5 + 1 = 6 tiles -> 1
+    ((50, 4, 8, 50, 10, 32), (8, 9, 1)),
+    # group 3 (64 rows = 21 tokens x 3 + 1 padding row): 80 // 21 = 3
+    # pairs (2 x 2 = 4); 1 + 1 tiles -> 1 chunk
+    ((40, 2, 3, 30, 4, 16), (21, 3, 1)),
+    # segments capped below T: B ceil(max_seg / tpt) = 2 x 1 binds
+    ((64, 2, 4, 16, 1, 16), (16, 2, 1)),
+]
+
+
+@pytest.mark.parametrize("args,want", TC_GEOMETRY_CASES)
+def test_tc_geometry_hand_worked(args, want):
+    assert trpa.tc_geometry(*args) == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tc_geometry_covers_every_work_item(seed):
+    """Random ticks through ragged_plan: the grid's pairs cover every
+    (slot, q tile) pair with a token, and its chunks every key chunk a
+    q tile's keys (context tiles, then in-batch tiles up to the tile's
+    last token) span."""
+    rng = np.random.default_rng(seed)
+    b = int(rng.integers(1, 9))
+    page = int(rng.choice([8, 16, 32, 64]))
+    group = int(rng.choice([1, 2, 3, 4, 8]))
+    max_seg = int(rng.integers(1, 300))
+    n_ctx = int(rng.integers(0, 40))
+    segs = [(int(rng.integers(0, n_ctx * page + 100)),
+             int(rng.integers(0, max_seg + 1))) for _ in range(b)]
+    pad = int(rng.integers(0, 9))
+    t = max(sum(n for _, n in segs) + pad, 1)
+    slot_ids = np.zeros(t, np.int32)
+    positions = np.zeros(t, np.int32)
+    valid = np.zeros(t, bool)
+    cur = 0
+    for s, (start, n) in enumerate(segs):
+        slot_ids[cur:cur + n] = s
+        positions[cur:cur + n] = np.arange(start, start + n)
+        valid[cur:cur + n] = True
+        cur += n
+    start = np.array([s for s, _ in segs], np.int32)
+    qlen, _ = trpa.ragged_plan(torch.from_numpy(slot_ids),
+                               torch.from_numpy(positions),
+                               torch.from_numpy(valid),
+                               torch.from_numpy(start), max_seg)
+    tpt, n_pairs, n_chunks = trpa.tc_geometry(t, b, group, max_seg, n_ctx,
+                                              page)
+    tile = trpa.TC_TILE
+    pairs = 0
+    for s in range(b):
+        q = min(int(qlen[s]), max_seg)
+        ctx = min(int(start[s]), n_ctx * page)
+        for i0 in range(0, q, tpt):
+            pairs += 1
+            tiles = -(-ctx // tile) + -(-min(i0 + tpt, q) // tile)
+            assert -(-tiles // trpa.TC_CHUNK_TILES) <= n_chunks
+    assert pairs <= n_pairs
+    assert tpt * group <= trpa.TC_ROWS
+
+
+TC_TAKES_CASES = [
+    # dtype, head_dim, page_size, group -> tensor-core kernel?
+    (torch.bfloat16, 128, 16, 4, True),       # the 8b preset
+    (torch.bfloat16, 64, 8, 2, True),         # tiny, smallest page
+    (torch.bfloat16, 64, 64, 64, True),       # largest page and group
+    (torch.bfloat16, 32, 16, 2, False),       # the debug preset
+    (torch.bfloat16, 128, 4, 4, False),       # pages under 8 rows
+    (torch.bfloat16, 128, 24, 4, False),      # pages not tiling 64 keys
+    (torch.bfloat16, 128, 128, 4, False),
+    (torch.bfloat16, 256, 16, 4, False),
+    (torch.bfloat16, 64, 16, 128, False),     # a group past one q tile
+    (torch.float32, 128, 16, 4, False),       # by type
+    (torch.float16, 64, 16, 4, False),
+]
+
+
+@pytest.mark.parametrize("dtype,d,page,group,want", TC_TAKES_CASES)
+def test_tc_takes_routes_by_dtype_and_shape(dtype, d, page, group, want):
+    assert trpa.tc_takes(dtype, d, page, group) is want
+
+
+@pytest.mark.parametrize("args,want", [
+    # one chunk: the items write their rows, no scratch
+    ((512, 32, 128, 1), 0),
+    # acc [T, H, chunks, D] + m and l [T, H, chunks]: 512 x 32 x 9 x 130
+    ((512, 32, 128, 9), 19169280),
+    # the 1024 bucket over the full 512-page table at page 16: 8192 + 512
+    # keys = 136 tiles -> 17 chunks; x 4 bytes ~ 290 MB
+    ((1024, 32, 128, 17), 72417280),
+    ((7, 3, 64, 2), 2772),
+])
+def test_scratch_numel_hand_worked(args, want):
+    assert trpa.scratch_numel(*args) == want
+
+
+def test_ragged_scratch_needs_no_buffer_on_the_cpu():
+    pool = torch.zeros((9, 16, 8, 128), dtype=torch.bfloat16)
+    tables = torch.zeros((2, 512), dtype=torch.int32)
+    assert trpa.ragged_scratch(512, 32, 128, torch.bfloat16, pool,
+                               tables) is None
