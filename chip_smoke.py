@@ -8,14 +8,17 @@ Phases (any failure raises and exits non-zero):
      nvcc per source, in parallel); the tensor-core instances (bf16
      flash forward, dq and dk/dv; the ragged kernel for bf16 queries on
      bf16, int8 and fp8 pages) must hold HGMMA instructions in their
-     SASS, and their ptxas register and spill lines are printed;
+     SASS, and their ptxas register and spill lines are printed; so
+     are the registers, spills and stack of the 6 instances of the
+     pipelined decode kernel;
   3. serving kernels vs plain: each against its plain PyTorch version
      at Llama-3-8B attention widths (H=32, KVH=8, D=128, page 16, bf16
      q), on bf16 pages and then on int8 and fp8 pages with their scale
      pools, with the kernel's time (CUDA events around the wrapper
-     call, and the kernels' device time from the profiler), the plain
-     version's and one PyTorch library call's times, and the least time
-     the card could take; the ragged kernel on each tick of
+     call, and the kernels' device time from the profiler), the host
+     work of a wrapper call in us and the decode route it took, the
+     plain version's and one PyTorch library call's times, and the
+     least time the card could take; the ragged kernel on each tick of
      RAGGED_TICKS, two launches bit-identical;
   4. flash kernels vs plain: forward, dq and dk/dv against their plain
      versions at 8b widths (B=4, S=2048, causal, bf16), at 1b widths
@@ -26,8 +29,9 @@ Phases (any failure raises and exits non-zero):
   5. engine: InferenceEngine on the `8b` preset at full width and depth
      (random bf16 weights from a seeded generator), mixed prefill+decode
      ticks then pure decode, through add_request/step; both kernels'
-     launch counters must move (profiles give each serving kernel's
-     device time a launch); the same requests on
+     launch counters must move, and every decode launch must take the
+     pipelined kernel (profiles give each serving kernel's device time a
+     launch, and the decode launch's); the same requests on
      decode_impl="gather" must give the same greedy tokens (or differ
      only at a stated near-tie); the same holds for a small f32 engine;
      a 5200-token prompt beside a decoding request drives ticks at the
@@ -48,6 +52,9 @@ Phases (any failure raises and exits non-zero):
      step on attention_impl="xla" from the same parameters must agree;
   7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
+
+`--only decode` (development) stops after phase 3's decode rows and
+prints them instead of the result line.
 
 Imports neither jax nor ray_tpu.
 Exits non-zero before printing any result when CUDA is unavailable.
@@ -140,12 +147,12 @@ def device_events(prof):
     return evs
 
 
-def device_ms(fn, keys, calls=10):
+def device_ms(fn, keys, calls=10, by_kernel=False):
     """Device milliseconds a call of fn() spends in the kernels whose
     name holds one of `keys` (torch.profiler over `calls` calls after a
     warm-up): the kernels' own time, without the wrapper's host work
     that the CUDA-event time of a single call also holds when the
-    device waits on the host."""
+    device waits on the host. With by_kernel, also {kernel: ms a call}."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -154,8 +161,27 @@ def device_ms(fn, keys, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(dev_us(e) for e in device_events(prof)
-               if any(k in e.key for k in keys)) / 1e3 / calls
+    rows = {e.key: dev_us(e) / 1e3 / calls for e in device_events(prof)
+            if any(k in e.key for k in keys)}
+    total = sum(rows.values())
+    return (total, rows) if by_kernel else total
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call of fn() takes to return: the wrapper's
+    checks, allocations and launches, with the device running behind
+    it. (median, min) over `calls` calls, each after a synchronise, so
+    no queue of launches backs up; the minimum is the least disturbed
+    by other work on a shared host."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6, min(times) * 1e6
 
 
 # ------------------------------------------------------------ decode kernel
@@ -203,6 +229,7 @@ def kv_row_bytes(c, kind):
 
 
 def check_decode(gen, dev, label, lens, max_pages, kind=None):
+    from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.ops import paged_attention as pa
     import torch.nn.functional as F
     c = decode_case(gen, dev, lens, max_pages)
@@ -232,8 +259,21 @@ def check_decode(gen, dev, label, lens, max_pages, kind=None):
             raise AssertionError(f"decode {label}: {name} error {e} > {tol}")
     new_args = args + (c["k_new"], c["v_new"])
     call = lambda: pa.paged_decode_with_new_token(*new_args, **sc)
+    kern = _kernels.PAGED_DECODE_BY_KIND[{None: 0, "int8": 1,
+                                          "fp8": 2}[kind]]
+    before = dict(kern.routes)
+    call()
+    torch.cuda.synchronize()
+    route = [r for r, n in kern.routes.items() if n != before.get(r, 0)]
+    if route != ["pipelined"]:
+        raise AssertionError(f"decode {label}: a bf16-query call at 8b "
+                             f"shapes took the routes {route}, not the "
+                             f"pipelined kernel")
     ms = time_ms(call)
-    dev_ms = device_ms(call, ("paged_decode",))
+    dev_ms, by_kernel = device_ms(call, ("paged_decode",), by_kernel=True)
+    for name, t in sorted(by_kernel.items()):
+        log(f"[decode {label}]   device {t:.4f} ms  {name[:100]}")
+    h_us, h_min = host_us(call)
     plain_ms = time_ms(lambda: pa.paged_decode_with_new_token_plain(
         *new_args, **sc), iters=5)
     # library yardstick: SDPA over the pre-gathered dense KV + new token
@@ -268,12 +308,15 @@ def check_decode(gen, dev, label, lens, max_pages, kind=None):
               + B * 4 + keys // 16 * 4)
     flops = 4 * H * D * (keys + B)
     b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
-    log(f"[decode {label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+    log(f"[decode {label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+        f"host {h_us:.1f} us a call, least {h_min:.1f}; route "
+        f"{route[0]}), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=max(err, err_n), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                device_ms=dev_ms)
+                device_ms=dev_ms, host_us=h_us, host_us_min=h_min,
+                decode_route=route[0])
 
 
 # ------------------------------------------------------------ ragged kernel
@@ -597,7 +640,7 @@ def check_tensor_cores(info):
         for n, c in inst.items():
             lines = ptxas_lines(ptxas, n)
             log(f"[tensor cores] {kern} instance {n[:72]}: {c} HGMMA; "
-                f"ptxas: {' | '.join(lines) or 'not rebuilt in this run'}")
+                f"ptxas: {' | '.join(lines)}")
         if len(inst) != n_inst or not all(inst.values()):
             raise AssertionError(f"{kern}: all {n_inst} instances must hold "
                                  f"HGMMA instructions: {inst}")
@@ -616,6 +659,27 @@ def ptxas_lines(text, entry):
         elif on and ("spill" in line or "Used" in line):
             out.append(line.strip())
     return out
+
+
+def decode_ptxas(info):
+    """ptxas -v's registers, spills and stack (local memory) of each
+    instance of the pipelined decode kernel (bf16 queries; bf16, int8
+    and fp8 pages x D 64, 128)."""
+    import re
+    text = info["ptxas"].get("paged_decode.cu", "")
+    names = sorted(set(re.findall(
+        r"Compiling entry function '([^']*paged_decode_pipe_kernel[^']*)'",
+        text)))
+    rows = {}
+    for n in names:
+        lines = " ".join(ptxas_lines(text, n))
+        num = lambda pat: int((re.search(pat, lines) or [0, 0])[1])
+        rows[n] = dict(registers=num(r"Used (\d+) registers"),
+                       spill_stores=num(r"(\d+) bytes spill stores"),
+                       spill_loads=num(r"(\d+) bytes spill loads"),
+                       stack_bytes=num(r"(\d+) bytes stack frame"))
+        log(f"[ptxas decode] {n[:80]}: {rows[n]}")
+    return rows
 
 
 def check_flash(gen, dev):
@@ -733,10 +797,12 @@ def run_engine(dev):
     if counts["ragged_paged"] != n_layers * st["ragged_ticks"] or \
             counts["paged_decode"] != n_layers * st["decode_ticks"]:
         raise AssertionError("launch counts do not match ticks x layers")
+    check_decode_route(_kernels, "paged_decode", counts["paged_decode"])
     for o in out_k:
         if len(o) != 16 or not all(0 <= t < 128256 for t in o):
             raise AssertionError(f"bad output stream {o}")
     prof = run_profile(eng, prompts)
+    launch = decode_launch_ms(prof, "8b bf16")
     memory = full_table_memory(eng)
     geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
                            params=eng.params)
@@ -761,7 +827,33 @@ def run_engine(dev):
                         tick_ms_gather=statistics.median(ticks_g),
                         ticks_ms_kernel=ticks_k, ticks_ms_gather=ticks_g,
                         exact=exact, profile=prof, memory=memory,
+                        decode_launch_ms=launch,
                         pool_bytes=pool_bytes(eng)), eng.params, out_k
+
+
+def check_decode_route(kernels, name, n):
+    """Every decode launch of a bf16 engine at 8b shapes took the
+    pipelined kernel (the launch counters by route)."""
+    routes = kernels.route_counts().get(name, {})
+    log(f"[engine] {name} launches by route: {routes}")
+    if routes != {"pipelined": n}:
+        raise AssertionError(f"{name}: {n} launches, routes {routes}: the "
+                             f"pipelined kernel must take all of them")
+
+
+def decode_launch_ms(prof, label):
+    """Device ms a launch of the decode kernel and of its combine pass in
+    the profiled decode ticks."""
+    rows = prof["decode"]["serving"]
+    main = [r for r in rows if "paged_decode" in r["name"]
+            and "combine" not in r["name"]]
+    n = max(sum(r["calls"] for r in main), 1)
+    kern = sum(r["device_ms"] for r in main) / n
+    comb = sum(r["device_ms"] for r in rows
+               if "paged_decode_combine" in r["name"]) / n
+    log(f"[engine {label}] decode launch {kern:.4f} + {comb:.4f} ms "
+        f"(kernel + combine, device, profiled decode ticks)")
+    return dict(kernel=kern, combine=comb)
 
 
 def full_table_memory(eng):
@@ -873,6 +965,8 @@ def run_quant_engine(dev, kind, params, out_bf16):
                                  f"expected {want.get(name, 0)}")
     if min(want.values()) <= 0:
         raise AssertionError(f"{kind} engine: a serving kernel never ran")
+    check_decode_route(_kernels, f"paged_decode_{kind}",
+                       want[f"paged_decode_{kind}"])
     for o in out_k:
         if len(o) != 16 or not all(0 <= t < 128256 for t in o):
             raise AssertionError(f"bad output stream {o}")
@@ -884,6 +978,7 @@ def run_quant_engine(dev, kind, params, out_bf16):
         f"{first}; pools {nbytes / 2**30:.3f} GiB (scales included), "
         f"{st['kv_page_bytes']} bytes a page")
     prof = run_profile(eng, prompts)
+    launch = decode_launch_ms(prof, f"8b {kind}")
     geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
                            params=params)
     out_g, ticks_g = drive(geng, prompts, 16, f"{kind}g")
@@ -913,7 +1008,7 @@ def run_quant_engine(dev, kind, params, out_bf16):
                         ticks_ms_kernel=ticks_k, exact=exact,
                         bf16_agreement=share, first_divergence=first,
                         pool_bytes=nbytes, page_bytes=st["kv_page_bytes"],
-                        profile=prof)
+                        decode_launch_ms=launch, profile=prof)
 
 
 def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
@@ -1216,6 +1311,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
+    ap.add_argument("--only", choices=["decode"], default=None,
+                    help="development: build, then only the decode "
+                         "kernel's phase; prints its rows, not the result "
+                         "line (the default run drives every path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1236,22 +1335,31 @@ def main():
     info = _kernels.build(verbose=True)
     log(f"[build] {info['compiled']} in {time.perf_counter() - t0:.1f} s "
         f"into {info['dir']}")
-    tensor_cores = check_tensor_cores(info)
+    decode_isa = decode_ptxas(info)
+    if len(decode_isa) != 6:
+        raise AssertionError(f"expected 6 instances of the pipelined "
+                             f"decode kernel (bf16, int8, fp8 pages x D "
+                             f"64, 128), ptxas showed {len(decode_isa)}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    wide = check_decode(gen, dev, "512-page table",
-                        [0, 17, 256, 1000, 2049, 3000, 4095, 4096], 512)
-    narrow = check_decode(gen, dev, "8-page table",
-                          [1, 3, 16, 17, 64, 100, 127, 128], 8)
-    ragged, ragged_ticks = check_ragged(gen, dev)
-    quant, quant_ticks = {}, {}
-    for kind in ("int8", "fp8"):
-        quant[kind] = dict(
+    decode = {}
+    for kind in (None, "int8", "fp8"):
+        decode[kind or "bf16"] = dict(
             wide=check_decode(gen, dev, "512-page table",
                               [0, 17, 256, 1000, 2049, 3000, 4095, 4096],
                               512, kind),
             narrow=check_decode(gen, dev, "8-page table",
                                 [1, 3, 16, 17, 64, 100, 127, 128], 8, kind))
+    if args.only == "decode":
+        print(json.dumps(dict(decode=decode, ptxas=decode_isa, card=card)),
+              flush=True)
+        return
+    wide, narrow = decode["bf16"]["wide"], decode["bf16"]["narrow"]
+    tensor_cores = check_tensor_cores(info)
+    ragged, ragged_ticks = check_ragged(gen, dev)
+    quant, quant_ticks = {}, {}
+    for kind in ("int8", "fp8"):
+        quant[kind] = dict(decode[kind])
         quant[kind]["ragged"], quant_ticks[kind] = check_ragged(gen, dev,
                                                                 kind)
     flash = check_flash(gen, dev)
@@ -1312,7 +1420,8 @@ def main():
             json.dump(dict(summary, card=card, ragged_ticks=ticks,
                            engine=engine,
                            quant_engine=quant_engine, train=train,
-                           tensor_cores=tensor_cores), f, indent=1)
+                           tensor_cores=tensor_cores,
+                           decode_ptxas=decode_isa), f, indent=1)
     print(json.dumps(summary), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

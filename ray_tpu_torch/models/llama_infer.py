@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import kv_quant
-from ..ops.paged_attention import (gather_context,
+from ..ops.paged_attention import (decode_scratch, gather_context,
                                    paged_attention_on_gathered,
                                    paged_decode_with_new_token, scatter_kv,
                                    scatter_kv_quant)
@@ -205,6 +205,10 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()]             # (B, H)
     cos, sin = rope_frequencies(cfg, positions)
+    if impl != "gather":
+        # the split context's partials: one buffer for every layer
+        scratch = decode_scratch(b, cfg.n_heads, cfg.head_dim, dt,
+                                 k_pages[0], page_tables)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         if impl == "gather":
@@ -222,7 +226,8 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
                 return paged_decode_with_new_token(
                     q, k_pages[i], v_pages[i], page_tables, positions,
                     k.contiguous(), v.contiguous(),
-                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i))
+                    k_scales=_at(k_scales, i), v_scales=_at(v_scales, i),
+                    scratch=scratch)
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), b,
                                 lambda a: _rope_single(a, cos, sin),
                                 attn_fn)

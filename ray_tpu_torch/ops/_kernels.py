@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "ray_tpu_torch")
@@ -40,7 +42,8 @@ _F = ctypes.c_float
 
 class Kernel:
     """One C entry point of a compiled source: its argument types and
-    launch counter."""
+    launch counter. An entry that routes between kernels by type and
+    shape also counts its launches by route (``count``)."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes):
         self.name = name
@@ -48,7 +51,13 @@ class Kernel:
         self.entry = entry
         self.argtypes = argtypes
         self.launches = 0
+        self.routes: Dict[str, int] = {}
         self._fn = None
+
+    def count(self, route: str) -> None:
+        """One launch, taken by `route`."""
+        self.launches += 1
+        self.routes[route] = self.routes.get(route, 0) + 1
 
     def fn(self):
         if self._fn is None:
@@ -119,7 +128,9 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> Dict[str, object]:
     """Compile (or reuse) and load every kernel library. Returns
-    {"dir", "seconds", "compiled": [sources], "ptxas": {source: text}}."""
+    {"dir", "seconds", "compiled": [sources], "ptxas": {source: text}}.
+    nvcc's output (ptxas -v) is kept beside each library, so a reused
+    build reports it too."""
     with _lock:
         if all(k._fn is not None for k in KERNELS):
             return _build_info
@@ -128,16 +139,18 @@ def build(verbose: bool = False) -> Dict[str, object]:
         os.makedirs(out_dir, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
+        ptxas = {}
         for source in sorted({k.source for k in KERNELS}):
             so = os.path.join(out_dir, _lib(source))
-            if os.path.exists(so):
+            if os.path.exists(so) and os.path.exists(so + ".ptxas"):
+                with open(so + ".ptxas") as f:
+                    ptxas[source] = f.read()
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
             cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
             procs[source] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, so)
-        ptxas = {}
         failed = []
         for name, (p, tmp, so) in procs.items():
             text, _ = p.communicate()
@@ -145,6 +158,8 @@ def build(verbose: bool = False) -> Dict[str, object]:
             if p.returncode != 0:
                 failed.append(f"{name} (rc {p.returncode}):\n{text}")
             else:
+                with open(so + ".ptxas", "w") as f:
+                    f.write(text)
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -160,8 +175,8 @@ def build(verbose: bool = False) -> Dict[str, object]:
         _build_info.update(dir=out_dir, seconds=time.perf_counter() - t0,
                            compiled=sorted(procs), ptxas=ptxas)
         if verbose:
-            for name, text in ptxas.items():
-                print(f"[nvcc {name}]\n{text}")
+            for name in procs:
+                print(f"[nvcc {name}]\n{ptxas[name]}")
         return _build_info
 
 
@@ -179,11 +194,20 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """Launches by route, for the kernels that count them."""
+    return {k.name: dict(k.routes) for k in KERNELS if k.routes}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.routes.clear()
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def dtype_code(dtype) -> Optional[int]:
-    import torch
-    return {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}.get(dtype)
+    """The kernels' query-type code: 0 float32, 1 bfloat16, 2 float16."""
+    return _DTYPE_CODES.get(dtype)

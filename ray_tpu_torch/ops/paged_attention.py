@@ -15,15 +15,22 @@ or in the decode kernel's page loads (``k_scales``/``v_scales``).
 
 Two decode paths:
 - dense gather (``gather_kv`` + ``paged_attention_on_gathered``);
-- the hand-written CUDA kernel ``csrc/paged_decode.cu`` behind
-  ``paged_decode_attention`` / ``paged_decode_with_new_token``. On a CPU
-  tensor these wrappers run the plain PyTorch version beside them
+- the hand-written CUDA kernels ``csrc/paged_decode.cu`` behind
+  ``paged_decode_attention`` / ``paged_decode_with_new_token``: bf16
+  queries of the shapes ``decode_takes`` run the pipelined kernel (page
+  rows in the pool's own type through per-warp ``cp.async`` rings, the
+  products as ``mma.sync`` tiles), every other call the CUDA-core
+  kernel; both split each context into chunks
+  (``decode_split``) merged by a combine pass. On a CPU tensor these
+  wrappers run the plain PyTorch version beside them
   (``paged_decode_attention_plain`` / ``paged_decode_with_new_token_plain``);
-  on a CUDA tensor they launch the kernel or raise.
+  on a CUDA tensor they launch a kernel or raise.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,9 +38,20 @@ import torch
 from . import _kernels, kv_quant
 
 MASK = -1e30
-# keys per block of the decode kernel's split of each context (split-K);
-# a combine pass merges the chunks
-SPLIT_TOKENS = 256
+# The decode kernels cut each context into chunks of split_tokens keys,
+# one block a (sequence, kv head, chunk), and a combine pass merges the
+# chunks (`decode_split` chooses the split).
+MIN_BLOCKS_PER_SM = 2    # what a short table's split aims for
+# The pipelined kernel for bf16 queries (``pdk`` in csrc/paged_decode.cu;
+# ``pdk::takes`` there says the same as `decode_takes`).
+DECODE_TILE = 16                   # keys a warp takes a step (kTile)
+DECODE_MAX_SPLIT = 512             # keys a chunk at most
+DECODE_HEAD_DIMS = (64, 128)
+DECODE_PAGE_SIZES = (8, 16, 32, 64)
+DECODE_MAX_GROUP = 8
+# The CUDA-core kernel (every other call).
+CUDA_CORE_TILE = 64                # its tile (kTK in flash_tile.cuh)
+CUDA_CORE_MAX_SPLIT = 256
 
 
 def gather_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -199,8 +217,98 @@ def check_pool_kind(q, k_pages, v_pages, k_scales, v_scales) -> int:
     return code
 
 
+def decode_takes(dtype: torch.dtype, d: int, page_size: int,
+                 group: int) -> bool:
+    """Whether a decode call runs the pipelined kernel: bf16 queries with
+    head_dim in DECODE_HEAD_DIMS, page_size in DECODE_PAGE_SIZES and
+    group <= DECODE_MAX_GROUP. Every other call (float32 and float16
+    queries; bf16 ones of other shapes, such as the ``debug`` preset's
+    head_dim 32 or pages of 4 rows) runs the CUDA-core kernel."""
+    return (dtype == torch.bfloat16 and d in DECODE_HEAD_DIMS
+            and page_size in DECODE_PAGE_SIZES
+            and 1 <= group <= DECODE_MAX_GROUP)
+
+
+def decode_split(max_pages: int, page_size: int, n_rows: int, tile: int,
+                 max_split: int, n_sm: int = 132) -> Tuple[int, int]:
+    """(split_tokens, n_splits) for a table of `max_pages` pages and
+    `n_rows` (sequence, kv head) pairs (B * KVH), from shapes only (the
+    host knows the table's width, not the lengths). A chunk is a multiple
+    of the page size and of the kernel's `tile`, at most `max_split` keys
+    (rounded down to that multiple) so that long sequences spread over
+    many blocks whatever the others' lengths, and small enough that a
+    short table still gives each of `n_sm` SMs MIN_BLOCKS_PER_SM blocks
+    where the unit allows it."""
+    ctx = max(max_pages * page_size, 1)
+    unit = math.lcm(page_size, tile)
+    want = -(-MIN_BLOCKS_PER_SM * n_sm // max(n_rows, 1))
+    split = min(ctx // want, max_split) // unit * unit
+    split = max(split, unit)
+    return split, -(-ctx // split)
+
+
+def decode_partials_numel(b: int, h: int, d: int, n_splits: int) -> int:
+    """float32 values of the chunks' partials, 0 for one chunk: acc
+    [B, H, n_splits, D], then m and l [B, H, n_splits] each."""
+    return 0 if n_splits <= 1 else b * h * n_splits * (d + 2)
+
+
+def decode_partial_offsets(b: int, h: int, d: int,
+                           n_splits: int) -> Tuple[int, int, int]:
+    """Element offsets of (part_m, part_l, part_acc) in the one float32
+    buffer of `decode_partials_numel` values: acc first (its rows keep
+    the 16-byte alignment of the buffer), then m, then l."""
+    n = b * h * n_splits
+    return n * d, n * d + n, 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(dtype: torch.dtype, d: int, page_size: int, kvh: int,
+                group: int, b: int, max_pages: int,
+                n_sm: int = 132) -> Tuple[bool, int, int]:
+    """(pipelined kernel?, split_tokens, n_splits) of one decode call."""
+    fast = decode_takes(dtype, d, page_size, group)
+    if fast:
+        split, n = decode_split(max_pages, page_size, b * kvh, DECODE_TILE,
+                                DECODE_MAX_SPLIT, n_sm)
+    else:
+        split, n = decode_split(max_pages, page_size, b * kvh,
+                                CUDA_CORE_TILE, CUDA_CORE_MAX_SPLIT, n_sm)
+    return fast, split, n
+
+
+def decode_scratch(b: int, h: int, d: int, dtype: torch.dtype,
+                   k_pages: torch.Tensor, page_tables: torch.Tensor
+                   ) -> Optional[torch.Tensor]:
+    """One float32 buffer for the chunks' partials of every decode call
+    of a tick with these arguments (q [B, H, D] of `dtype`, one layer's
+    pool `k_pages`), or None when the calls need none (CPU tensors, one
+    chunk). The calls run in stream order, so the layers share it."""
+    if page_tables.device.type != "cuda":
+        return None
+    _, page_size, kvh, _ = k_pages.shape
+    _, _, n = decode_plan(dtype, d, page_size, kvh, h // kvh, b,
+                          page_tables.shape[1], _sm_count(page_tables.device))
+    need = decode_partials_numel(b, h, d, n)
+    if need == 0:
+        return None
+    return torch.empty(need, dtype=torch.float32, device=page_tables.device)
+
+
 def _check_decode_args(q, k_pages, v_pages, page_tables, seq_lens,
                        k_new=None, v_new=None, k_scales=None, v_scales=None):
+    """Raise on what the decode kernels do not take; return the pool kind
+    (``check_pool_kind``)."""
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError("q [B, H, D] and pools [P, page, KVH, D] expected")
     b, h, d = q.shape
@@ -217,57 +325,79 @@ def _check_decode_args(q, k_pages, v_pages, page_tables, seq_lens,
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 8 "
                          f"up to 256")
-    ts = [q, k_pages, v_pages, page_tables, seq_lens]
+    ts = (q, k_pages, v_pages, page_tables, seq_lens)
     if k_new is not None:
         if k_new.shape != (b, kvh, d) or v_new.shape != (b, kvh, d) \
                 or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
             raise ValueError("k_new/v_new must be [B, KVH, D] in q's dtype")
-        ts += [k_new, v_new]
-    scales = [k_scales, v_scales] if kind else []
-    for t in ts + scales:
-        if t.device != q.device:
+        ts += (k_new, v_new)
+    if kind:
+        ts += (k_scales, v_scales)
+    dev = q.get_device()
+    for t in ts:
+        if t.get_device() != dev:
             raise ValueError("all inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
-    for t in ts[1:3] + ts[5:]:
-        if t.data_ptr() % 16:
-            raise ValueError("pools and new KV must be 16-byte aligned "
-                             "(the kernel reads them in 16-byte vectors)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or (
+            k_new is not None
+            and (k_new.data_ptr() % 16 or v_new.data_ptr() % 16)):
+        raise ValueError("pools and new KV must be 16-byte aligned "
+                         "(the kernel reads them in 16-byte vectors)")
     return kind
 
 
 def _launch_decode(q, k_pages, v_pages, page_tables, seq_lens, k_new, v_new,
-                   stats: bool, k_scales=None, v_scales=None):
+                   stats: bool, k_scales=None, v_scales=None, scratch=None):
     kind = _check_decode_args(q, k_pages, v_pages, page_tables, seq_lens,
                               k_new, v_new, k_scales, v_scales)
     b, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     max_pages = page_tables.shape[1]
-    n_splits = max(-(-max_pages * page_size // SPLIT_TOKENS), 1)
-    f32 = dict(dtype=torch.float32, device=q.device)
+    dev = q.device
+    idx = dev.index
+    fast, split, n_splits = decode_plan(q.dtype, d, page_size, kvh, h // kvh,
+                                        b, max_pages, _sm_count(dev))
+    if fast and q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (the pipelined kernel "
+                         "reads it in 16-byte vectors)")
     out = torch.empty_like(q)
     m = l = None
     if stats:
-        m = torch.empty((b, h), **f32)
-        l = torch.empty((b, h), **f32)
+        m, l = torch.empty((2, b, h), dtype=torch.float32, device=dev)
     part_m = part_l = part_acc = None
     if n_splits > 1:
-        part_m = torch.empty((b, h, n_splits), **f32)
-        part_l = torch.empty((b, h, n_splits), **f32)
-        part_acc = torch.empty((b, h, n_splits, d), **f32)
-    ptr = lambda t: t.data_ptr() if t is not None else None
+        need = decode_partials_numel(b, h, d, n_splits)
+        if scratch is None:
+            scratch = torch.empty(need, dtype=torch.float32, device=dev)
+        elif scratch.dtype != torch.float32 or scratch.get_device() != idx \
+                or scratch.numel() < need or not scratch.is_contiguous() \
+                or scratch.data_ptr() % 16:
+            raise ValueError(f"scratch must be a contiguous, 16-byte "
+                             f"aligned float32 tensor of at least {need} "
+                             f"values on q's device")
+        base = scratch.data_ptr()
+        part_m, part_l, part_acc = (
+            base + 4 * o for o in decode_partial_offsets(b, h, d, n_splits))
     kernel = _kernels.PAGED_DECODE_BY_KIND[kind]
     fn = kernel.fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales),
-                ptr(v_scales), ptr(page_tables), ptr(seq_lens), ptr(k_new),
-                ptr(v_new), ptr(out), ptr(m), ptr(l), ptr(part_m),
-                ptr(part_l), ptr(part_acc), b, h, kvh, d, page_size,
-                max_pages, SPLIT_TOKENS, n_splits,
-                _kernels.dtype_code(q.dtype), kind, stream)
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            page_tables.data_ptr(), seq_lens.data_ptr(),
+            None if k_new is None else k_new.data_ptr(),
+            None if v_new is None else v_new.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if l is None else l.data_ptr(), part_m, part_l, part_acc,
+            b, h, kvh, d, page_size, max_pages, split, n_splits,
+            _kernels.dtype_code(q.dtype), kind)
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     _kernels.check(rc, kernel.name)
-    kernel.launches += 1
+    kernel.count("pipelined" if fast else "cuda_core")
     return out, m, l
 
 
@@ -276,7 +406,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            seq_lens: torch.Tensor, *,
                            return_stats: bool = False,
                            k_scales: Optional[torch.Tensor] = None,
-                           v_scales: Optional[torch.Tensor] = None):
+                           v_scales: Optional[torch.Tensor] = None,
+                           scratch: Optional[torch.Tensor] = None):
     """Paged decode attention for one layer.
 
     q: [B, H, D]; k_pages/v_pages: [num_pages, page_size, KVH, D] (one
@@ -288,7 +419,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     or fp8 values, dequantized as they are read.
 
     CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/paged_decode.cu`` (or raise)."""
+    ``csrc/paged_decode.cu`` (or raise): the pipelined kernel for the
+    calls ``decode_takes``, the CUDA-core kernel for all others, each
+    with a combine pass when the context is split into several chunks
+    (``decode_split``). `scratch` is ``decode_scratch``'s buffer for the
+    chunks' partials, shared by a tick's layers (None allocates one for
+    this call)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_tables, seq_lens,
@@ -298,7 +434,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"device {q.device}")
     out, m, l = _launch_decode(q, k_pages, v_pages, page_tables, seq_lens,
                                None, None, stats=return_stats,
-                               k_scales=k_scales, v_scales=v_scales)
+                               k_scales=k_scales, v_scales=v_scales,
+                               scratch=scratch)
     return (out, m, l) if return_stats else out
 
 
@@ -308,7 +445,8 @@ def paged_decode_with_new_token(q: torch.Tensor, k_pages: torch.Tensor,
                                 seq_lens: torch.Tensor, k_new: torch.Tensor,
                                 v_new: torch.Tensor, *,
                                 k_scales: Optional[torch.Tensor] = None,
-                                v_scales: Optional[torch.Tensor] = None
+                                v_scales: Optional[torch.Tensor] = None,
+                                scratch: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Decode over the cached pages plus the current token's KV (not yet
     scattered into the pool). q/k_new/v_new: [B, H, D] / [B, KVH, D];
@@ -316,7 +454,7 @@ def paged_decode_with_new_token(q: torch.Tensor, k_pages: torch.Tensor,
     fp8 and the new token's KV stays in q's dtype. On CUDA the kernel
     merges the new token as one more always-live key in the same launch;
     the plain version merges it after the fact, as the JAX package
-    does."""
+    does. `scratch` as in ``paged_decode_attention``."""
     if q.device.type == "cpu":
         return paged_decode_with_new_token_plain(
             q, k_pages, v_pages, page_tables, seq_lens, k_new, v_new,
@@ -327,7 +465,7 @@ def paged_decode_with_new_token(q: torch.Tensor, k_pages: torch.Tensor,
     out, _, _ = _launch_decode(q, k_pages, v_pages, page_tables, seq_lens,
                                k_new.contiguous(), v_new.contiguous(),
                                stats=False, k_scales=k_scales,
-                               v_scales=v_scales)
+                               v_scales=v_scales, scratch=scratch)
     return out
 
 

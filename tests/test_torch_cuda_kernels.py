@@ -637,3 +637,128 @@ def test_default_engine_serves_on_the_card(dev):
     for r in reqs:
         assert len(r.output_tokens) == 6
         assert all(0 <= x < 256 for x in r.output_tokens)
+
+# ------------------------------------ pipelined decode kernel (bf16 queries)
+
+EDGE_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 4095, 4096]
+SHORT_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128]
+
+PIPE_DECODE_CASES = [
+    # name, lens, max_pages, page, H, KVH, D: every one `decode_takes`
+    ("512_pages", EDGE_LENS, 512, 16, 32, 8, 128),
+    ("8_pages", SHORT_LENS, 8, 16, 32, 8, 128),
+    ("page8", EDGE_LENS[:11], 40, 8, 32, 8, 128),
+    ("page32", EDGE_LENS, 128, 32, 32, 8, 128),
+    ("page64_d64_group8", SHORT_LENS, 3, 64, 16, 2, 64),
+    ("d64_group1", EDGE_LENS[:9], 20, 16, 8, 8, 64),
+    ("group3", EDGE_LENS[:10], 17, 16, 12, 4, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name,lens,max_pages,page,H,KVH,D",
+                         PIPE_DECODE_CASES)
+def test_pipelined_decode_matches_plain(dev, name, lens, max_pages, page, H,
+                                        KVH, D, kind):
+    """bf16 queries on bf16, int8 and fp8 pages: the pipelined kernel
+    against the plain version at every length edge (the 16-key tile, the
+    chunk, pages, the table's end), with stats and with the new token;
+    two launches give the same bits, and so does a shared partials
+    buffer; every call takes the pipelined route."""
+    assert pa.decode_takes(torch.bfloat16, D, page, H // KVH)
+    c = _decode_case(dev, torch.bfloat16, lens, max_pages, H, KVH, D,
+                     page=page, seed=5)
+    k, v, sc = c["k"], c["v"], {}
+    tol = _tol(torch.bfloat16)
+    if kind != "bf16":
+        k, v, sc = _quantize_pools(k, v, kind)
+        tol = _quant_tol(torch.bfloat16)
+    args = (c["q"], k, v, c["tables"], c["lens"])
+    new = (c["k_new"], c["v_new"])
+    kern = _kernels.PAGED_DECODE_BY_KIND[KIND_CODE.get(kind, 0)]
+    before = kern.routes.get("pipelined", 0)
+    out, m, l = pa.paged_decode_attention(*args, return_stats=True, **sc)
+    again = pa.paged_decode_attention(*args, return_stats=True, **sc)
+    ref, m_r, l_r = pa.paged_decode_attention_plain(*args, return_stats=True,
+                                                    **sc)
+    out_n = pa.paged_decode_with_new_token(*args, *new, **sc)
+    again_n = pa.paged_decode_with_new_token(*args, *new, **sc)
+    ref_n = pa.paged_decode_with_new_token_plain(*args, *new, **sc)
+    scratch = pa.decode_scratch(len(lens), H, D, torch.bfloat16, k,
+                                c["tables"])
+    shared = [pa.paged_decode_with_new_token(*args, *new, scratch=scratch,
+                                             **sc) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kern.routes["pipelined"] == before + 6
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, l_r, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(out_n.float(), ref_n.float(), **tol)
+    assert all(torch.equal(x, y) for x, y in zip((out, m, l), again))
+    assert torch.equal(out_n, again_n)
+    assert all(torch.equal(out_n, s) for s in shared)
+
+
+@pytest.mark.cuda
+def test_pipelined_decode_scratch_is_checked(dev):
+    """A partials buffer too small, or of the wrong type, raises; the
+    8b decode tick's call needs one (16 chunks)."""
+    c = _decode_case(dev, torch.bfloat16, [3000, 5], 512, 32, 8, 128)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+    scratch = pa.decode_scratch(2, 32, 128, torch.bfloat16, c["k"],
+                                c["tables"])
+    assert scratch is not None and scratch.numel() == \
+        pa.decode_partials_numel(2, 32, 128, pa.decode_plan(
+            torch.bfloat16, 128, 16, 8, 4, 2, 512,
+            pa._sm_count(dev))[2])
+    for bad in (scratch[:-1], scratch.double()):
+        with pytest.raises(ValueError, match="scratch"):
+            pa.paged_decode_attention(*args, scratch=bad)
+
+
+OFF_ROUTE_DECODE_CASES = [
+    # name, lens, max_pages, page, H, KVH, D: bf16 shapes `decode_takes`
+    # refuses, still served by the CUDA-core kernel
+    ("debug_preset_d32", [0, 5, 40, 77], 8, 16, 4, 2, 32),
+    ("page4", [1, 4, 5, 63], 16, 4, 32, 8, 128),
+    ("group16", [3, 70, 200], 16, 16, 32, 2, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name,lens,max_pages,page,H,KVH,D",
+                         OFF_ROUTE_DECODE_CASES)
+def test_decode_off_route_shapes_match_plain(dev, name, lens, max_pages,
+                                             page, H, KVH, D, kind):
+    assert not pa.decode_takes(torch.bfloat16, D, page, H // KVH)
+    c = _decode_case(dev, torch.bfloat16, lens, max_pages, H, KVH, D,
+                     page=page, seed=6)
+    k, v, sc = c["k"], c["v"], {}
+    tol = _tol(torch.bfloat16)
+    if kind != "bf16":
+        k, v, sc = _quantize_pools(k, v, kind)
+        tol = _quant_tol(torch.bfloat16)
+    args = (c["q"], k, v, c["tables"], c["lens"])
+    kern = _kernels.PAGED_DECODE_BY_KIND[KIND_CODE.get(kind, 0)]
+    before = kern.routes.get("cuda_core", 0)
+    out = pa.paged_decode_with_new_token(*args, c["k_new"], c["v_new"], **sc)
+    ref = pa.paged_decode_with_new_token_plain(*args, c["k_new"],
+                                               c["v_new"], **sc)
+    torch.cuda.synchronize()
+    assert kern.routes["cuda_core"] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_decode_other_query_types_take_the_cuda_core_kernel(dev, dtype):
+    c = _decode_case(dev, dtype, [0, 17, 300], 32, 32, 8, 128)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+    before = _kernels.PAGED_DECODE.routes.get("cuda_core", 0)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.PAGED_DECODE.routes["cuda_core"] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))

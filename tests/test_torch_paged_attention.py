@@ -44,6 +44,74 @@ def _j(c, *names):
     return [jnp.asarray(c[n]) for n in names]
 
 
+def _decode_f64(c):
+    """A case's decode sums in float64 numpy (keys at positions
+    < max(seq_len, 1)): out, m and l, the yardstick a failing comparison
+    measures each side against."""
+    q, k, v, tables, lens = (c[n] for n in ("q", "k", "v", "tables", "lens"))
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    kg = k[tables].reshape(b, -1, kvh, d).astype(np.float64)
+    vg = v[tables].reshape(b, -1, kvh, d).astype(np.float64)
+    qg = q.reshape(b, kvh, h // kvh, d).astype(np.float64)
+    s = np.einsum("bkgd,bckd->bkgc", qg, kg) * d ** -0.5
+    live = np.arange(kg.shape[1])[None, :] < np.maximum(lens, 1)[:, None]
+    s = np.where(live[:, None, None], s, -np.inf)
+    m = s.max(-1)
+    p = np.exp(s - m[..., None])
+    l = p.sum(-1)
+    out = np.einsum("bkgc,bckd->bkgd", p, vg) / l[..., None]
+    return out.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+
+
+def _process_state():
+    """The host and the process settings that could move either side's
+    float32 sums, for a failure message."""
+    import platform
+
+    import jax
+    cpu = platform.processor()
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = next((line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("model name")), cpu)
+    except OSError:
+        pass
+    return dict(
+        cpu=cpu, torch_cpu_capability=torch.backends.cpu.get_cpu_capability(),
+        torch_threads=torch.get_num_threads(),
+        torch_matmul_precision=torch.get_float32_matmul_precision(),
+        mkldnn_matmul_precision=getattr(torch.backends.mkldnn.matmul,
+                                        "fp32_precision", None),
+        jax_matmul_precision=jax.config.jax_default_matmul_precision,
+        jax_x64=jax.config.jax_enable_x64, torch=torch.__version__,
+        jax=jax.__version__)
+
+
+def _assert_decode_close(c, port, ref):
+    """The port's (out, m, l) against JAX's, each within TOL. A failure
+    also says, for each of out, m and l, where the two sides differ most
+    and how far each lies from the float64 sums (which side moved), and
+    the host and process state."""
+    names = ("out", "m", "l")
+    for name, t, j in zip(names, port, ref):
+        try:
+            np.testing.assert_allclose(t, j, **TOL)
+        except AssertionError as e:
+            lines = []
+            for n, tt, jj, ff in zip(names, port, ref, _decode_f64(c)):
+                at = tuple(int(i) for i in np.unravel_index(
+                    np.argmax(np.abs(tt - jj)), tt.shape))
+                lines.append(
+                    f"{n}: |port-jax| {np.abs(tt - jj).max():.3e} at {at} "
+                    f"(port {float(tt[at])!r}, jax {float(jj[at])!r}, "
+                    f"f64 {float(ff[at])!r}); "
+                    f"|port-f64| {np.abs(tt - ff).max():.3e}, "
+                    f"|jax-f64| {np.abs(jj - ff).max():.3e}")
+            raise AssertionError(f"{name}: {e}\n" + "\n".join(lines)
+                                 + f"\n{_process_state()}") from None
+
+
 CASES = [
     # name, B, H, KVH, D, num_pages, page_size, max_pages, lens
     ("narrow", 3, 8, 4, 64, 32, 16, 8, [5, 37, 128]),
@@ -63,9 +131,8 @@ def test_decode_plain_matches_pallas_interpret(name, B, H, KVH, D, P, page,
         interpret=True)
     out_t, m_t, l_t = tpa.paged_decode_attention(
         *_t(c, "q", "k", "v", "tables", "lens"), return_stats=True)
-    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
-    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), **TOL)
-    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j), **TOL)
+    _assert_decode_close(c, [x.numpy() for x in (out_t, m_t, l_t)],
+                         [np.asarray(x) for x in (out_j, m_j, l_j)])
 
 
 def test_decode_plain_matches_multipage_interpret():
@@ -77,12 +144,10 @@ def test_decode_plain_matches_multipage_interpret():
         *_j(c, "q", "k", "v", "tables", "lens"), ppb=4, interpret=True)
     out_t, m_t, l_t = tpa.paged_decode_attention(
         *_t(c, "q", "k", "v", "tables", "lens"), return_stats=True)
-    np.testing.assert_allclose(out_t.numpy(),
-                               np.asarray(out_j).reshape(3, 8, 64), **TOL)
-    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j).reshape(3, 8),
-                               **TOL)
-    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j).reshape(3, 8),
-                               **TOL)
+    _assert_decode_close(c, [x.numpy() for x in (out_t, m_t, l_t)],
+                         [np.asarray(out_j).reshape(3, 8, 64),
+                          np.asarray(m_j).reshape(3, 8),
+                          np.asarray(l_j).reshape(3, 8)])
 
 
 @pytest.mark.parametrize("name,B,H,KVH,D,P,page,maxp,lens", CASES)
@@ -272,12 +337,10 @@ def test_quant_decode_plain_matches_multipage_interpret(kind):
     out_t, m_t, l_t = tpa.paged_decode_attention(
         *_tq(c, "q", "k", "v", "tables", "lens"), return_stats=True,
         k_scales=ks, v_scales=vs)
-    np.testing.assert_allclose(out_t.numpy(),
-                               np.asarray(out_j).reshape(3, 8, 64), **TOL)
-    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j).reshape(3, 8),
-                               **TOL)
-    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j).reshape(3, 8),
-                               **TOL)
+    _assert_decode_close(c, [x.numpy() for x in (out_t, m_t, l_t)],
+                         [np.asarray(out_j).reshape(3, 8, 64),
+                          np.asarray(m_j).reshape(3, 8),
+                          np.asarray(l_j).reshape(3, 8)])
 
 
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
