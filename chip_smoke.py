@@ -43,6 +43,20 @@ Phases (any failure raises and exits non-zero):
      (fp8 with its own near-tie margin); a small f32 engine on int8
      pages token-exact; agreement with the bf16-pool streams, decode
      tick, kernel device time a tick and pool bytes printed;
+  5c. decode tick mechanics: on bf16, int8 and fp8 pages (same weights,
+     full depth), the default engine (one CUDA graph replay a decode
+     tick, lagged readback) against cuda_graph=False,
+     async_readback=False: greedy and sampled streams (temperature 0.8,
+     top_p 0.95, top_k 50, per-request seeds) token-exact; the decode
+     launch counters equal layers x decode ticks, all on the pipelined
+     route; the unprofiled steady decode-tick median and, from a
+     profile, kernels busy and device idle, for both engines; 16 steady
+     ticks of the default engine under dispatch_guard with no upload,
+     no capture, one readback a tick, and, in the profiler, no Memcpy
+     HtoD and one cudaGraphLaunch a tick; each engine's peak memory;
+     the noise kernel against its plain version at B 8, V 128256
+     (bits and uniforms bit-equal, Gumbel values within 2^-22 x
+     max(1, |g|)) with its times;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -54,7 +68,8 @@ Phases (any failure raises and exits non-zero):
      {"ok": true, "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
-prints them instead of the result line.
+prints them instead of the result line; `--only ticks` runs phase 5c
+alone on fresh weights, the same way.
 
 Imports neither jax nor ray_tpu.
 Exits non-zero before printing any result when CUDA is unavailable.
@@ -714,10 +729,10 @@ PROMPT_TEXTS = [
 ]
 
 
-def drive(eng, prompts, max_tokens, tag):
+def drive(eng, prompts, max_tokens, tag, **sp):
     from ray_tpu_torch import Request, SamplingParams
     reqs = [Request(f"{tag}{i}", list(p),
-                    SamplingParams(max_tokens=max_tokens))
+                    SamplingParams(max_tokens=max_tokens, **sp))
             for i, p in enumerate(prompts)]
     for r in reqs[:3]:
         eng.add_request(r)
@@ -1110,6 +1125,258 @@ def run_profile(eng, prompts):
     return dict(mixed=mixed, decode=decode)
 
 
+# ------------------------------------------------- decode tick mechanics
+
+SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50)
+STEADY_TICKS = 16       # unprofiled steady decode ticks timed per engine
+PROFILED_TICKS = 8
+GUARD_TICKS = 16
+GUMBEL_TOL = 2.0 ** -22  # |kernel - plain| <= this * max(1, |g|): each
+#                          side's logf lies within an ulp of the true
+#                          value (tests/test_torch_threefry.py)
+
+
+def check_noise(dev, b=8, vocab=128256):
+    """The noise kernel against its plain version at the engine's
+    sampling shape: bits and uniforms bit-equal, Gumbel values within
+    GUMBEL_TOL; its time, device time, the plain version's and the
+    bound (the B x V float32 values written)."""
+    from ray_tpu_torch.ops import threefry as tf
+    gen = torch.Generator().manual_seed(4242)
+    seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    index = torch.randint(0, 4096, (b,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    got = {st: tf.row_noise(seeds, index, vocab, st) for st in tf.STAGES}
+    want = {st: tf.row_noise_plain(seeds, index, vocab, st)
+            for st in tf.STAGES}
+    torch.cuda.synchronize()
+    bits_eq = torch.equal(got["bits"], want["bits"])
+    uni_eq = torch.equal(got["uniform"].view(torch.int32),
+                         want["uniform"].view(torch.int32))
+    g, w = got["gumbel"], want["gumbel"]
+    err = (g - w).abs().max().item()
+    within = bool(((g - w).abs() <= GUMBEL_TOL * w.abs().clamp(min=1.0))
+                  .all().item())
+    same = (g == w).float().mean().item()
+    log(f"[noise] B={b} V={vocab}: bits bit-equal {bits_eq}, uniforms "
+        f"bit-equal {uni_eq}, gumbel max abs err {err:.3e} within "
+        f"2^-22*max(1,|g|) {within} ({100 * same:.2f}% bit-equal)")
+    if not (bits_eq and uni_eq and within and torch.isfinite(g).all()):
+        raise AssertionError("noise kernel disagrees with its plain version")
+    call = lambda: tf.row_gumbel(seeds, index, vocab)
+    ms = time_ms(call)
+    dev_ms = device_ms(call, ("row_gumbel",))
+    # the launch as the decode graph runs it: 20 launches captured in
+    # one graph, replayed back to back (no host work between them)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            call()
+    graph_ms = time_ms(graph.replay) / 20
+    plain_ms = time_ms(lambda: tf.row_noise_plain(seeds, index, vocab),
+                       iters=5)
+    b_ms, b_by = bound(b * vocab * 4 + 2 * b * 4, 0, torch.float32)
+    log(f"[noise] kernel {ms:.4f} ms (device {dev_ms:.4f} ms in the "
+        f"profiler; {graph_ms:.4f} ms a launch replayed in a graph), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
+                graph_ms=graph_ms, gumbel_bit_equal_share=same)
+
+
+def _profile(fn, n):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(n)
+        torch.cuda.synchronize()
+    return prof
+
+
+def steady_decode(eng, label, guard):
+    """A full batch of greedy requests in steady decode: the unprofiled
+    tick median over STEADY_TICKS (step() and a synchronise), kernels
+    busy and device idle over PROFILED_TICKS profiled ticks, then (the
+    default engine) GUARD_TICKS ticks under dispatch_guard inside a
+    profile: no upload, no capture, one readback a tick, no Memcpy HtoD,
+    one graph launch a tick. Then the same batch sampled, timed."""
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    gen = torch.Generator().manual_seed(77)
+    B = eng.config.max_batch_size
+    # room for the mixed ticks of the prefill: no request may finish
+    # inside the timed, profiled or guarded windows
+    n_tok = STEADY_TICKS + PROFILED_TICKS + GUARD_TICKS + 24
+    out = {}
+    for mode, sp in (("greedy", {}), ("sampled", SAMPLED)):
+        for i in range(B):
+            eng.add_request(Request(
+                f"steady-{mode}{i}",
+                torch.randint(1000, 100000, (40 + 61 * i,),
+                              generator=gen).tolist(),
+                SamplingParams(max_tokens=n_tok, seed=900 + i, **sp)))
+        while eng.waiting or any(s.request is not None and not s.ready
+                                 for s in eng.slots):
+            eng.step()
+        for _ in range(3):                 # first decode ticks: capture
+            eng.step()
+
+        def ticks(n):
+            for _ in range(n):
+                eng.step()
+
+        walls = []
+        for _ in range(STEADY_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        res = dict(tick_ms=wall, ticks_ms=walls)
+        if mode == "greedy":
+            prof = _profile(ticks, PROFILED_TICKS)
+            busy = sum(dev_us(e) for e in device_events(prof)) / 1e3 \
+                / PROFILED_TICKS
+            res.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / wall))
+            log(f"[ticks {label}] greedy decode tick median {wall:.2f} ms "
+                f"over {STEADY_TICKS} (unprofiled; all "
+                f"{[round(x, 2) for x in walls]}); kernels busy "
+                f"{busy:.2f} ms a tick over {PROFILED_TICKS} profiled "
+                f"ticks: device idle {100 * res['idle_share']:.1f}%")
+            if guard:
+                res["guard"] = guarded_window(eng, label, dispatch_guard)
+        else:
+            log(f"[ticks {label}] sampled decode tick median {wall:.2f} ms "
+                f"over {STEADY_TICKS} (unprofiled; all "
+                f"{[round(x, 2) for x in walls]})")
+        out[mode] = res
+        for s in eng.slots:
+            if s.request is not None:
+                eng.abort(s.request.request_id)
+        while eng.has_work():
+            eng.step()
+    return out
+
+
+def guarded_window(eng, label, dispatch_guard):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    captures = eng.graph_captures
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with dispatch_guard(engine=eng) as report:
+            for _ in range(GUARD_TICKS):
+                eng.step()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    htod = sum(e.count for e in rows if "Memcpy HtoD" in e.key)
+    launches = sum(e.count for e in rows if "cudaGraphLaunch" in e.key)
+    log(f"[ticks {label}] {GUARD_TICKS} ticks under dispatch_guard: "
+        f"uploads {len(report.uploads)}, captures {len(report.captures)}, "
+        f"readbacks {report.readbacks}; profiler: Memcpy HtoD {htod}, "
+        f"cudaGraphLaunch {launches}")
+    if report.uploads or report.captures or htod \
+            or report.readbacks != GUARD_TICKS \
+            or launches != GUARD_TICKS or eng.graph_captures != captures:
+        raise AssertionError(f"{label}: a steady decode tick is not one "
+                             f"graph launch with no upload")
+    return dict(uploads=len(report.uploads), captures=len(report.captures),
+                readbacks=report.readbacks, memcpy_htod=htod,
+                graph_launches=launches)
+
+
+def tick_engine(kind, params, graph, prompts, tag):
+    """One engine of phase 5c: the default (graph=True: a CUDA graph a
+    decode tick, lagged readback) or today's eager, synchronous path;
+    greedy and sampled streams, launch counters, steady ticks, peak
+    memory. Returns (greedy out, sampled out, numbers)."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, SamplingParams
+    from ray_tpu_torch.ops import _kernels
+    over = {} if graph else dict(cuda_graph=False, async_readback=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(EngineConfig(decode_impl="kernel", kv_dtype=kind,
+                                       **ENGINE_KW, **over), params=params)
+    label = f"{'graph' if graph else 'eager'} {kind}"
+    eng.generate([prompts[4]], SamplingParams(max_tokens=2))
+    res = {}
+    outs = []
+    for mode, sp in (("greedy", {}), ("sampled", SAMPLED)):
+        _kernels.reset_launch_counts()
+        t0 = eng.decode_ticks
+        out, ticks = drive(eng, prompts, 16, f"{tag}{mode}", **sp)
+        counts = _kernels.launch_counts()
+        n = eng.decode_ticks - t0
+        name = "paged_decode" + ("" if kind == "f32" else f"_{kind}")
+        routes = _kernels.route_counts().get(name, {})
+        log(f"[ticks {label}] {mode}: {n} decode ticks, {name} "
+            f"{counts[name]} launches {routes}, row_gumbel "
+            f"{counts['row_gumbel']}; tick median "
+            f"{statistics.median(ticks):.2f} ms")
+        if counts[name] != eng.model_cfg.n_layers * n \
+                or routes != {"pipelined": counts[name]}:
+            raise AssertionError(f"{label}: {name} launches {counts[name]} "
+                                 f"{routes}, decode ticks {n}")
+        if (mode == "sampled") != (counts["row_gumbel"] > 0):
+            raise AssertionError(f"{label}: row_gumbel {counts['row_gumbel']}"
+                                 f" launches in {mode} streams")
+        for o in out:
+            if len(o) != 16 or not all(0 <= t < 128256 for t in o):
+                raise AssertionError(f"bad output stream {o}")
+        outs.append(out)
+        res[f"{mode}_launches"] = counts
+    res["steady"] = steady_decode(eng, label, guard=graph)
+    st = eng.stats()
+    torch.cuda.synchronize()
+    res.update(peak_bytes=torch.cuda.max_memory_allocated() - base,
+               reserved_peak_bytes=torch.cuda.max_memory_reserved(),
+               graph_captures=st["graph_captures"],
+               lagged_ticks=st["lagged_ticks"], drains=st["drains"])
+    log(f"[ticks {label}] peak memory above the weights "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB (reserved peak "
+        f"{res['reserved_peak_bytes'] / 2**30:.3f} GiB); graph captures "
+        f"{st['graph_captures']}, lagged ticks {st['lagged_ticks']}, "
+        f"drains {st['drains']}")
+    eng.release_graphs()
+    del eng
+    return outs[0], outs[1], res
+
+
+def run_tick_mechanics(dev, params):
+    """Phase 5c: the decode tick's mechanics at 8b, full depth, on bf16,
+    int8 and fp8 pages with the bf16 phase's weights: the default engine
+    (one CUDA graph a decode tick, lagged readback) against
+    cuda_graph=False, async_readback=False; token-exact greedy and
+    sampled streams, honest launch counters, steady tick times and idle
+    shares of both, a guarded window of the default engine, peak memory
+    of each; then the noise kernel against its plain version. Returns
+    (row_gumbel launches on the bf16 default engine's sampled streams,
+    the noise kernel's row, numbers)."""
+    from ray_tpu_torch import ByteTokenizer
+    tok = ByteTokenizer(128256)
+    prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+    out = {}
+    for kind in ("f32", "int8", "fp8"):
+        eager = tick_engine(kind, params, False, prompts, f"t{kind}")
+        graph = tick_engine(kind, params, True, prompts, f"t{kind}")
+        for i, mode in enumerate(("greedy", "sampled")):
+            if graph[i] != eager[i]:
+                raise AssertionError(f"{kind} pages: {mode} streams of the "
+                                     f"graph and eager engines differ")
+        log(f"[ticks {kind}] graph vs eager: greedy and sampled streams "
+            f"token-exact")
+        out[kind] = dict(eager=eager[2], graph=graph[2])
+    noise = check_noise(dev)
+    launches = out["f32"]["graph"]["sampled_launches"]["row_gumbel"]
+    return launches, noise, out
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
@@ -1311,10 +1578,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
-    ap.add_argument("--only", choices=["decode"], default=None,
+    ap.add_argument("--only", choices=["decode", "ticks"], default=None,
                     help="development: build, then only the decode "
-                         "kernel's phase; prints its rows, not the result "
-                         "line (the default run drives every path)")
+                         "kernel's phase (decode) or the decode tick's "
+                         "mechanics (ticks, phase 5c on fresh weights); "
+                         "prints its rows, not the result line (the "
+                         "default run drives every path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1340,6 +1609,15 @@ def main():
         raise AssertionError(f"expected 6 instances of the pipelined "
                              f"decode kernel (bf16, int8, fp8 pages x D "
                              f"64, 128), ptxas showed {len(decode_isa)}")
+    if args.only == "ticks":
+        from ray_tpu_torch import EngineConfig, InferenceEngine
+        params = InferenceEngine(EngineConfig(**ENGINE_KW)).params
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, noise, ticks = run_tick_mechanics(dev, params)
+        print(json.dumps(dict(row_gumbel_launches=launches, noise=noise,
+                              ticks=ticks, card=card)), flush=True)
+        return
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     decode = {}
@@ -1373,6 +1651,7 @@ def main():
             dev, kind, params, out_bf16)
         gc.collect()
         torch.cuda.empty_cache()
+    noise_launches, noise, tick_mechanics = run_tick_mechanics(dev, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1413,6 +1692,12 @@ def main():
                             source=src + "flash_attention.cu",
                             replaces=f"ray_tpu/ops/attention.py:{line}",
                             launches=train_counts[kname], **flash[kname]))
+    # not a Pallas kernel: the sampler's threefry noise, which the
+    # reference leaves to XLA (jax.random.categorical at this line)
+    kernels.append(dict(name="row_gumbel", route="cuda",
+                        source=src + "threefry.cu",
+                        replaces="ray_tpu/llm/_internal/engine.py:464",
+                        launches=noise_launches, **noise))
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -1420,6 +1705,7 @@ def main():
             json.dump(dict(summary, card=card, ragged_ticks=ticks,
                            engine=engine,
                            quant_engine=quant_engine, train=train,
+                           tick_mechanics=tick_mechanics,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)
     print(json.dumps(summary), flush=True)

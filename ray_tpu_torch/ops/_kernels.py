@@ -12,7 +12,9 @@ each.
 
 Every kernel has a launch counter (``Kernel.launches``) that its
 wrapper increments once per launch and nowhere else, so a run can show
-that its main path went through the kernel. Nothing here runs at
+that its main path went through the kernel. A CUDA graph replay runs no
+wrapper: it adds the launches its capture recorded (``rewind_counts``,
+``add_counts``). Nothing here runs at
 import: the CPU tests import every module without ``nvcc`` present.
 """
 
@@ -94,8 +96,11 @@ FLASH_DQ = Kernel("flash_dq", "flash_attention.cu", "flash_dq_launch",
                   [_P] * 7 + _FLASH_TAIL)
 FLASH_DKV = Kernel("flash_dkv", "flash_attention.cu", "flash_dkv_launch",
                    [_P] * 8 + _FLASH_TAIL)
+# the sampler's Gumbel noise: seeds, index, out, (B, V, stage), stream
+ROW_GUMBEL = Kernel("row_gumbel", "threefry.cu", "row_gumbel_launch",
+                    [_P] * 3 + [_I] * 3 + [_P])
 KERNELS: List[Kernel] = [*PAGED_DECODE_BY_KIND, *RAGGED_PAGED_BY_KIND,
-                         FLASH_FWD, FLASH_DQ, FLASH_DKV]
+                         FLASH_FWD, FLASH_DQ, FLASH_DKV, ROW_GUMBEL]
 
 _lock = threading.Lock()
 _build_info: Dict[str, object] = {}
@@ -203,6 +208,36 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.routes.clear()
+
+
+def counter_state() -> Dict[str, tuple]:
+    """Every kernel's (launches, launches by route), as they stand."""
+    return {k.name: (k.launches, dict(k.routes)) for k in KERNELS}
+
+
+def rewind_counts(before: Dict[str, tuple]) -> Dict[str, tuple]:
+    """Set the counters back to `before` (``counter_state``) and return
+    what was counted since, in the same form: the launches a CUDA graph
+    capture recorded, which ``add_counts`` adds at each replay."""
+    delta = {}
+    for k in KERNELS:
+        n0, routes0 = before[k.name]
+        moved = {r: n - routes0.get(r, 0) for r, n in k.routes.items()
+                 if n != routes0.get(r, 0)}
+        if k.launches != n0 or moved:
+            delta[k.name] = (k.launches - n0, moved)
+        k.launches, k.routes = n0, dict(routes0)
+    return delta
+
+
+def add_counts(delta: Dict[str, tuple]) -> None:
+    """Count the launches of one graph replay (``rewind_counts``)."""
+    for k in KERNELS:
+        if k.name in delta:
+            n, routes = delta[k.name]
+            k.launches += n
+            for route, m in routes.items():
+                k.routes[route] = k.routes.get(route, 0) + m
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -762,3 +762,129 @@ def test_decode_other_query_types_take_the_cuda_core_kernel(dev, dtype):
     torch.cuda.synchronize()
     assert _kernels.PAGED_DECODE.routes["cuda_core"] == before + 1
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+# ----------------------------------- sampling noise, decode graphs, guard
+
+GUMBEL_TOL = 2.0 ** -22     # as tests/test_torch_threefry.py: each side's
+#                             logf within an ulp of the true value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,vocab", [(8, 128256), (3, 50), (1, 257)])
+def test_row_noise_kernel_matches_plain(dev, b, vocab):
+    """Bits and uniforms bit-equal to the plain version (itself bit-equal
+    to jax.random), Gumbel values within the two logs' rounding."""
+    from ray_tpu_torch.ops import threefry as tf
+    gen = torch.Generator().manual_seed(b * vocab)
+    seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    index = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    before = _kernels.ROW_GUMBEL.launches
+    got = {s: tf.row_noise(seeds, index, vocab, s) for s in tf.STAGES}
+    torch.cuda.synchronize()
+    assert _kernels.ROW_GUMBEL.launches == before + 3
+    want = {s: tf.row_noise_plain(seeds, index, vocab, s)
+            for s in tf.STAGES}
+    assert torch.equal(got["bits"], want["bits"])
+    assert torch.equal(got["uniform"].view(torch.int32),
+                       want["uniform"].view(torch.int32))
+    g, w = got["gumbel"], want["gumbel"]
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= GUMBEL_TOL * w.abs().clamp(min=1.0)).all()
+    assert torch.equal(tf.row_gumbel(seeds, index, vocab), g)
+
+
+def _serve(eng, prompts, **sp):
+    from ray_tpu_torch import Request, SamplingParams
+    reqs = [Request(f"r{i}", p, SamplingParams(**sp))
+            for i, p in enumerate(prompts)]
+    _kernels.reset_launch_counts()
+    for r in reqs[:3]:
+        eng.add_request(r)
+    pending = reqs[3:]
+    while eng.has_work() or pending:
+        eng.step()
+        if pending:
+            eng.add_request(pending.pop(0))
+    return [r.output_tokens for r in reqs], _kernels.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8", "fp8"])
+def test_graph_engine_matches_eager_engine(dev, kind):
+    """The default engine (a CUDA graph per decode tick, pipelined
+    readback) against cuda_graph=False on the same weights: the same
+    greedy and sampled tokens, the same launch counts (the same ticks:
+    both pipelined), paged_decode launched layers x decode ticks; and
+    the tokens of a synchronous eager engine."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    kw = dict(max_batch_size=4, page_size=16, num_pages=129, seed=3,
+              kv_dtype=kind)
+    eg = InferenceEngine(EngineConfig(**kw))
+    ee = InferenceEngine(EngineConfig(cuda_graph=False, **kw),
+                         params=eg.params)
+    es = InferenceEngine(EngineConfig(cuda_graph=False, async_readback=False,
+                                      **kw), params=eg.params)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (40, 3, 17, 90, 9)]
+    name = "paged_decode" + ("" if kind == "f32" else f"_{kind}")
+    for sp in (dict(max_tokens=12),
+               dict(max_tokens=12, temperature=0.8, top_p=0.95, top_k=50)):
+        t0 = eg.decode_ticks
+        out_g, n_g = _serve(eg, prompts, **sp)
+        out_e, n_e = _serve(ee, prompts, **sp)
+        assert out_g == out_e == _serve(es, prompts, **sp)[0]
+        assert n_g == n_e
+        assert n_g[name] == eg.model_cfg.n_layers * (eg.decode_ticks - t0)
+    st = eg.stats()
+    assert st["graph_captures"] == 2 and ee.stats()["graph_captures"] == 0
+    assert st["lagged_ticks"] > 0
+    eg.release_graphs()
+
+
+@pytest.mark.cuda
+def test_graph_engine_counts_launches_per_decode_tick(dev):
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    eng = InferenceEngine(EngineConfig(max_batch_size=4, num_pages=129))
+    gen = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (12, 30, 5)]
+    t0 = eng.decode_ticks
+    _, counts = _serve(eng, prompts, max_tokens=20, temperature=0.7)
+    n = eng.decode_ticks - t0
+    assert n > 10 and eng.stats()["graph_captures"] == 1
+    assert counts["paged_decode"] == eng.model_cfg.n_layers * n
+    assert _kernels.route_counts()["paged_decode"] == {
+        "cuda_core": eng.model_cfg.n_layers * n}     # debug: head_dim 32
+    assert counts["row_gumbel"] >= n
+
+
+@pytest.mark.cuda
+def test_dispatch_guard_on_the_card(dev):
+    """A steady window of graph replays: no upload, no capture, one
+    readback a tick; a stray sync raises at its line."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request, \
+        SamplingParams
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    eng = InferenceEngine(EngineConfig(max_batch_size=3, num_pages=129))
+    for i in range(3):
+        eng.add_request(Request(f"g{i}", [5 + i] * 12, SamplingParams(
+            max_tokens=64, temperature=0.8, top_k=20,
+            repetition_penalty=1.2)))
+    with dispatch_guard(max_captures=1, engine=eng,
+                        raise_on_violation=False) as warm:
+        for _ in range(6):
+            eng.step()
+    assert len(warm.captures) == 1
+    with dispatch_guard(engine=eng) as report:
+        for _ in range(16):
+            eng.step()
+    assert report.uploads == [] and report.captures == []
+    assert report.readbacks == 16
+    with pytest.raises(RuntimeError):
+        with dispatch_guard(engine=eng):
+            eng.step()
+            eng._d_tokens.sum().item()

@@ -3,9 +3,10 @@
 - `_sample` is token-equal to the JAX sampler when fed JAX's own Gumbel
   noise (jax.random.categorical(key, x) is argmax(x + gumbel(key))).
 - The port engine (device="cpu", params converted from the JAX
-  engine's) gives the same greedy tokens as the JAX engine with
-  decode_impl="gather" and async_readback=False (the port reads back
-  synchronously too; the JAX engine's pipelined readback gave
+  engine's; its default pipelined readback, token-exact with its
+  synchronous one: tests/test_torch_engine_pipeline.py) gives the same
+  greedy tokens as the JAX engine with decode_impl="gather" and
+  async_readback=False (the JAX engine's pipelined readback gave
   run-to-run different greedy tokens on the prefix-cache workload
   below, so it is no oracle) on the staggered mixed workload of
   tests/test_ragged_attention.py, with a repetition penalty, and with a
@@ -24,6 +25,7 @@ from ray_tpu.llm._internal import engine as je
 from ray_tpu.models import llama as jl
 from ray_tpu_torch.llm._internal import engine as te
 from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.ops.threefry import row_gumbel
 
 torch.set_num_threads(1)
 
@@ -84,8 +86,13 @@ def test_sample_all_greedy_matches_jax():
 
 
 def test_gumbel_rows_depend_only_on_seed_and_index():
-    a = te.gumbel_rows([3, 3, 8], [10, 11, 10], 50, "cpu")
-    b = te.gumbel_rows([8, 3], [10, 10], 50, "cpu")
+    """The sampler's noise (``row_gumbel``): row b depends only on
+    (seeds[b], index[b]), whatever else shares the batch."""
+    i32 = dict(dtype=torch.int32)
+    a = row_gumbel(torch.tensor([3, 3, 8], **i32),
+                   torch.tensor([10, 11, 10], **i32), 50)
+    b = row_gumbel(torch.tensor([8, 3], **i32), torch.tensor([10, 10], **i32),
+                   50)
     assert torch.equal(a[0], b[1]) and torch.equal(a[2], b[0])
     assert not torch.equal(a[0], a[1])
     assert torch.isfinite(a).all()
@@ -236,7 +243,7 @@ def test_engine_config_rejects_unported_options(over, exc):
 
 
 def test_engine_config_unknown_fields_raise():
-    for field in ("async_readback", "unified_step", "mesh"):
+    for field in ("unified_step", "mesh"):
         with pytest.raises(TypeError):
             te.EngineConfig(**{field: None})
     assert te.InferenceEngine(te.EngineConfig(device="cpu")).impl == "gather"
