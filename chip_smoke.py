@@ -44,8 +44,8 @@ Phases (any failure raises and exits non-zero):
      pages token-exact; agreement with the bf16-pool streams, decode
      tick, kernel device time a tick and pool bytes printed;
   5c. decode tick mechanics: on bf16, int8 and fp8 pages (same weights,
-     full depth), the default engine (one CUDA graph replay a decode
-     tick, lagged readback) against cuda_graph=False,
+     full depth), the default engines of phases 5 and 5b (one CUDA graph
+     replay a decode tick, lagged readback) against cuda_graph=False,
      async_readback=False: greedy and sampled streams (temperature 0.8,
      top_p 0.95, top_k 50, per-request seeds) token-exact; the decode
      launch counters equal layers x decode ticks, all on the pipelined
@@ -68,8 +68,7 @@ Phases (any failure raises and exits non-zero):
      {"ok": true, "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
-prints them instead of the result line; `--only ticks` runs phase 5c
-alone on fresh weights, the same way.
+prints them instead of the result line.
 
 Imports neither jax nor ray_tpu.
 Exits non-zero before printing any result when CUDA is unavailable.
@@ -162,24 +161,55 @@ def device_events(prof):
     return evs
 
 
+def repeat(fn, n):
+    for _ in range(n):
+        fn()
+
+
+def traced(fn, host=False):
+    """torch.profiler over fn() and a synchronise: the device's activity
+    (kernels, copies, the CUDA runtime's calls), and with `host` the
+    host's operators too (slow to gather over eager ticks); returns
+    (profile, wall ms of fn and the synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
 def device_ms(fn, keys, calls=10, by_kernel=False):
     """Device milliseconds a call of fn() spends in the kernels whose
     name holds one of `keys` (torch.profiler over `calls` calls after a
     warm-up): the kernels' own time, without the wrapper's host work
     that the CUDA-event time of a single call also holds when the
-    device waits on the host. With by_kernel, also {kernel: ms a call}."""
-    from torch.profiler import ProfilerActivity, profile
+    device waits on the host. With by_kernel, also {kernel: ms a call}.
+    Each kernel's time is the mean over the launches the profiler
+    recorded, times its launches a call: late in this script's process
+    the profiler records one launch fewer than were made (say 9 of 10)
+    for some kernels, which a sum over `calls` would read as a faster
+    kernel. None (not measured) when no launch was recorded."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = {e.key: dev_us(e) / 1e3 / calls for e in device_events(prof)
-            if any(k in e.key for k in keys)}
+    prof, _ = traced(lambda: repeat(fn, calls))
+    evs = [e for e in device_events(prof) if any(k in e.key for k in keys)]
+    short = [(e.key[:40], e.count) for e in evs if e.count % calls]
+    if short or not evs:
+        log(f"[profiler] {keys}: recorded {short or 'no'} launches over "
+            f"{calls} calls")
+    if not evs:
+        return (None, {}) if by_kernel else None
+    rows = {e.key: dev_us(e) / 1e3 / e.count * max(1, round(e.count / calls))
+            for e in evs}
     total = sum(rows.values())
     return (total, rows) if by_kernel else total
+
+
+def fmt_ms(ms, digits=4):
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 def host_us(fn, calls=200):
@@ -323,7 +353,7 @@ def check_decode(gen, dev, label, lens, max_pages, kind=None):
               + B * 4 + keys // 16 * 4)
     flops = 4 * H * D * (keys + B)
     b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
-    log(f"[decode {label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+    log(f"[decode {label}] kernel {ms:.4f} ms (device {fmt_ms(dev_ms)} ms, "
         f"host {h_us:.1f} us a call, least {h_min:.1f}; route "
         f"{route[0]}), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
@@ -468,7 +498,7 @@ def ragged_tick(gen, dev, kind, label, segs, pad, ctx_pages):
                 for i in range(n))
     b_ms, b_by = bound(nbytes, flops, c["q"].dtype)
     log(f"[{label}] T={t} live={live} kernel {ms:.4f} ms (device "
-        f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+        f"{fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
         f"ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
@@ -609,7 +639,7 @@ def check_flash_case(gen, dev, label, shape, causal, timed):
                          library_ms=library[name], bound_ms=b_ms,
                          bound_by=b_by, device_ms=dev[name])
         log(f"[flash {label}] {name}: kernel {ms[name]:.4f} ms (device "
-            f"{dev[name]:.4f} ms), plain "
+            f"{fmt_ms(dev[name])} ms), plain "
             f"{plain[name]:.4f} ms, sdpa {library[name]:.4f} ms "
             f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
             f"), bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
@@ -780,9 +810,7 @@ ENGINE_KW = dict(model="8b", max_batch_size=8, page_size=16,
 
 
 def run_engine(dev):
-    from ray_tpu_torch import (ByteTokenizer, EngineConfig, InferenceEngine,
-                               SamplingParams)
-    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch import ByteTokenizer, EngineConfig, InferenceEngine
     tok = ByteTokenizer(128256)
     prompts = [tok.encode(t) for t in PROMPT_TEXTS]
     log(f"[engine] prompt lengths {[len(p) for p in prompts]}")
@@ -793,37 +821,22 @@ def run_engine(dev):
     log(f"[engine] 8b init (random bf16 weights, seed 0) "
         f"{time.perf_counter() - t0:.1f} s; "
         f"params {sum(p.numel() for p in _leaves(eng.params)) / 1e9:.3f}B")
-    # warm-up on a throwaway request so the timed run excludes one-time
-    # costs (kernel load, allocator growth)
-    eng.generate([prompts[4]], SamplingParams(max_tokens=2))
-    _kernels.reset_launch_counts()
-    eng.ticks = eng.dispatches = eng.ragged_ticks = eng.decode_ticks = 0
-    out_k, ticks_k = drive(eng, prompts, 16, "k")
-    counts = _kernels.launch_counts()
-    st = eng.stats()
-    log(f"[engine kernel] ticks={st['ticks']} ragged={st['ragged_ticks']} "
-        f"decode={st['decode_ticks']} launches={counts}")
-    log(f"[engine kernel] tick ms: median {statistics.median(ticks_k):.2f} "
-        f"all {[round(x, 2) for x in ticks_k]}")
-    for name in ("paged_decode", "ragged_paged"):
-        if counts[name] <= 0:
-            raise AssertionError(f"main path never launched {name}")
-    n_layers = eng.model_cfg.n_layers
-    if counts["ragged_paged"] != n_layers * st["ragged_ticks"] or \
-            counts["paged_decode"] != n_layers * st["decode_ticks"]:
-        raise AssertionError("launch counts do not match ticks x layers")
-    check_decode_route(_kernels, "paged_decode", counts["paged_decode"])
-    for o in out_k:
-        if len(o) != 16 or not all(0 <= t < 128256 for t in o):
-            raise AssertionError(f"bad output stream {o}")
+    # the default engine (a CUDA graph a decode tick, lagged readback) is
+    # also phase 5c's graph side: greedy then sampled streams
+    out_k, out_s, graph = serve_streams(eng, "f32", prompts, "graph f32")
+    counts = graph["greedy"]["launches"]
+    ticks_k = graph["greedy"]["ticks_ms"]
     prof = run_profile(eng, prompts)
     launch = decode_launch_ms(prof, "8b bf16")
     memory = full_table_memory(eng)
+    # phase 5c's windows, and the graphs released before the next engine
+    graph_side = (out_k, out_s, finish_graph_side(eng, graph, "graph f32"))
     geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
                            params=eng.params)
     out_g, ticks_g = drive(geng, prompts, 16, "g")
     log(f"[engine gather] tick ms: median {statistics.median(ticks_g):.2f}")
     exact = compare_streams(eng, geng, prompts, out_k, out_g, "8b bf16")
+    geng.release_graphs()
     del geng
     # strict parity at a small size: f32 model, tokens must match exactly
     small = dict(model="tiny", max_batch_size=4, page_size=16,
@@ -843,7 +856,8 @@ def run_engine(dev):
                         ticks_ms_kernel=ticks_k, ticks_ms_gather=ticks_g,
                         exact=exact, profile=prof, memory=memory,
                         decode_launch_ms=launch,
-                        pool_bytes=pool_bytes(eng)), eng.params, out_k
+                        pool_bytes=pool_bytes(eng)), \
+        eng.params, out_k, graph_side
 
 
 def check_decode_route(kernels, name, n):
@@ -953,47 +967,28 @@ def run_quant_engine(dev, kind, params, out_bf16):
     bf16 phase's weights: the kind's kernels on the main path (counters
     equal layers x ticks, the bf16 counters untouched), kernel vs gather
     greedy streams (near ties allowed, as in the bf16 phase), and a small
-    f32 engine on the same pages token-exact between the impls."""
-    from ray_tpu_torch import (ByteTokenizer, EngineConfig, InferenceEngine,
-                               SamplingParams)
+    f32 engine on the same pages token-exact between the impls. The
+    engine is the default one, and so also phase 5c's graph side."""
+    from ray_tpu_torch import ByteTokenizer, EngineConfig, InferenceEngine
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops import _kernels
     tok = ByteTokenizer(128256)
     prompts = [tok.encode(t) for t in PROMPT_TEXTS]
     kw = dict(ENGINE_KW, kv_dtype=kind)
     eng = InferenceEngine(EngineConfig(decode_impl="kernel", **kw),
                           params=params)
-    eng.generate([prompts[4]], SamplingParams(max_tokens=2))
-    _kernels.reset_launch_counts()
-    eng.ticks = eng.dispatches = eng.ragged_ticks = eng.decode_ticks = 0
-    out_k, ticks_k = drive(eng, prompts, 16, f"{kind}k")
-    counts = _kernels.launch_counts()
-    st = eng.stats()
-    n_layers = eng.model_cfg.n_layers
-    log(f"[engine {kind}] ticks={st['ticks']} ragged={st['ragged_ticks']} "
-        f"decode={st['decode_ticks']} launches={counts}")
-    want = {f"ragged_paged_{kind}": n_layers * st["ragged_ticks"],
-            f"paged_decode_{kind}": n_layers * st["decode_ticks"]}
-    for name, n in counts.items():
-        if n != want.get(name, 0):
-            raise AssertionError(f"{kind} engine: {name} launched {n} times, "
-                                 f"expected {want.get(name, 0)}")
-    if min(want.values()) <= 0:
-        raise AssertionError(f"{kind} engine: a serving kernel never ran")
-    check_decode_route(_kernels, f"paged_decode_{kind}",
-                       want[f"paged_decode_{kind}"])
-    for o in out_k:
-        if len(o) != 16 or not all(0 <= t < 128256 for t in o):
-            raise AssertionError(f"bad output stream {o}")
+    out_k, out_s, graph = serve_streams(eng, kind, prompts, f"graph {kind}")
+    counts = graph["greedy"]["launches"]
+    ticks_k = graph["greedy"]["ticks_ms"]
     share, first = agreement(out_k, out_bf16)
     nbytes = pool_bytes(eng)
-    log(f"[engine {kind}] tick ms: median {statistics.median(ticks_k):.2f} "
-        f"all {[round(x, 2) for x in ticks_k]}; greedy agreement with the "
-        f"bf16-pool engine {share:.3f}, first divergence per request "
-        f"{first}; pools {nbytes / 2**30:.3f} GiB (scales included), "
-        f"{st['kv_page_bytes']} bytes a page")
+    log(f"[engine {kind}] greedy agreement with the bf16-pool engine "
+        f"{share:.3f}, first divergence per request {first}; pools "
+        f"{nbytes / 2**30:.3f} GiB (scales included), "
+        f"{eng.stats()['kv_page_bytes']} bytes a page")
     prof = run_profile(eng, prompts)
     launch = decode_launch_ms(prof, f"8b {kind}")
+    graph_side = (out_k, out_s, finish_graph_side(eng, graph,
+                                                  f"graph {kind}"))
     geng = InferenceEngine(EngineConfig(decode_impl="gather", **kw),
                            params=params)
     out_g, ticks_g = drive(geng, prompts, 16, f"{kind}g")
@@ -1002,7 +997,8 @@ def run_quant_engine(dev, kind, params, out_bf16):
     margin = NEAR_TIE_FP8 if kind == "fp8" else NEAR_TIE
     exact = compare_streams(eng, geng, prompts, out_k, out_g, f"8b {kind}",
                             margin)
-    del geng, eng
+    geng.release_graphs()
+    del geng
     # a small f32 engine on the same kind of pages: kernel and gather
     # token-exact on int8 pages, within the near tie on fp8 pages
     small = dict(model=llama.config("tiny", dtype=torch.float32),
@@ -1022,8 +1018,9 @@ def run_quant_engine(dev, kind, params, out_bf16):
                         tick_ms_gather=statistics.median(ticks_g),
                         ticks_ms_kernel=ticks_k, exact=exact,
                         bf16_agreement=share, first_divergence=first,
-                        pool_bytes=nbytes, page_bytes=st["kv_page_bytes"],
-                        decode_launch_ms=launch, profile=prof)
+                        pool_bytes=nbytes,
+                        page_bytes=eng.stats()["kv_page_bytes"],
+                        decode_launch_ms=launch, profile=prof), graph_side
 
 
 def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
@@ -1059,24 +1056,42 @@ def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
     return exact
 
 
+def kernel_groups(evs):
+    """The profiler's kernel rows by group: {group: {ms, launches}}."""
+    groups = {}
+    for e in evs:
+        key = e.key.lower()
+        g = ("flash kernels" if "flash_" in key else
+             "serving attention" if ("ragged" in key
+                                     or "paged_decode" in key) else
+             "noise kernel" if "row_gumbel" in key else
+             "float32 matmuls" if "sgemm" in key else
+             "matmuls" if ("nvjet" in key or "gemm" in key
+                           or "cutlass" in key) else
+             "copies and casts" if "copy" in key else
+             "reductions" if "reduce" in key else
+             "elementwise" if "elementwise" in key else "other")
+        r = groups.setdefault(g, dict(ms=0.0, launches=0))
+        r["ms"] += dev_us(e) / 1e3
+        r["launches"] += e.count
+    return groups
+
+
 def profile_ticks(eng, prompts, n_ticks, label):
     """torch.profiler over `n_ticks` engine steps: the kernels with the
     most device time, and device time against wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_ticks):
-            eng.step()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    prof, wall = traced(lambda: repeat(eng.step, n_ticks))
     evs = device_events(prof)
     total = sum(dev_us(e) for e in evs) / 1e3
     top = sorted(evs, key=dev_us, reverse=True)[:10]
     log(f"[profile {label}] {n_ticks} ticks: kernels busy {total:.2f} ms "
         f"on the device ({total / n_ticks:.2f} ms a tick); wall under the "
         f"profiler {wall:.2f} ms")
+    groups = kernel_groups(evs)
+    for g, r in sorted(groups.items(), key=lambda x: -x[1]["ms"]):
+        log(f"[profile {label}] {g:18s} {r['ms'] / n_ticks:8.3f} ms a tick "
+            f"in {r['launches'] / n_ticks:6.1f} launches "
+            f"({100 * r['ms'] / total:.1f}%)")
     rows = []
     for e in top:
         rows.append(dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
@@ -1093,7 +1108,7 @@ def profile_ticks(eng, prompts, n_ticks, label):
                 f"{dev_us(e) / 1e3:.3f} ms over {e.count} launches, "
                 f"{dev_us(e) / 1e3 / e.count:.4f} ms a launch")
     return dict(ticks=n_ticks, profiled_wall_ms=wall, device_ms=total,
-                top=rows, serving=serving)
+                top=rows, serving=serving, groups=groups)
 
 
 def run_profile(eng, prompts):
@@ -1177,22 +1192,12 @@ def check_noise(dev, b=8, vocab=128256):
     plain_ms = time_ms(lambda: tf.row_noise_plain(seeds, index, vocab),
                        iters=5)
     b_ms, b_by = bound(b * vocab * 4 + 2 * b * 4, 0, torch.float32)
-    log(f"[noise] kernel {ms:.4f} ms (device {dev_ms:.4f} ms in the "
+    log(f"[noise] kernel {ms:.4f} ms (device {fmt_ms(dev_ms)} ms in the "
         f"profiler; {graph_ms:.4f} ms a launch replayed in a graph), "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
                 graph_ms=graph_ms, gumbel_bit_equal_share=same)
-
-
-def _profile(fn, n):
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn(n)
-        torch.cuda.synchronize()
-    return prof
 
 
 def steady_decode(eng, label, guard):
@@ -1223,10 +1228,6 @@ def steady_decode(eng, label, guard):
         for _ in range(3):                 # first decode ticks: capture
             eng.step()
 
-        def ticks(n):
-            for _ in range(n):
-                eng.step()
-
         walls = []
         for _ in range(STEADY_TICKS):
             torch.cuda.synchronize()
@@ -1237,7 +1238,7 @@ def steady_decode(eng, label, guard):
         wall = statistics.median(walls)
         res = dict(tick_ms=wall, ticks_ms=walls)
         if mode == "greedy":
-            prof = _profile(ticks, PROFILED_TICKS)
+            prof, _ = traced(lambda: repeat(eng.step, PROFILED_TICKS))
             busy = sum(dev_us(e) for e in device_events(prof)) / 1e3 \
                 / PROFILED_TICKS
             res.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / wall))
@@ -1262,15 +1263,16 @@ def steady_decode(eng, label, guard):
 
 
 def guarded_window(eng, label, dispatch_guard):
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
     captures = eng.graph_captures
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    reports = []
+
+    def window():
         with dispatch_guard(engine=eng) as report:
             for _ in range(GUARD_TICKS):
                 eng.step()
-        torch.cuda.synchronize()
+        reports.append(report)
+    prof, _ = traced(window, host=True)
+    report = reports[0]
     rows = prof.key_averages()
     htod = sum(e.count for e in rows if "Memcpy HtoD" in e.key)
     launches = sum(e.count for e in rows if "cudaGraphLaunch" in e.key)
@@ -1288,83 +1290,109 @@ def guarded_window(eng, label, dispatch_guard):
                 graph_launches=launches)
 
 
-def tick_engine(kind, params, graph, prompts, tag):
-    """One engine of phase 5c: the default (graph=True: a CUDA graph a
-    decode tick, lagged readback) or today's eager, synchronous path;
-    greedy and sampled streams, launch counters, steady ticks, peak
-    memory. Returns (greedy out, sampled out, numbers)."""
-    from ray_tpu_torch import EngineConfig, InferenceEngine, SamplingParams
+def serve_streams(eng, kind, prompts, label):
+    """A fresh engine's first work: the warm-up request, then the 6
+    prompts greedy and then sampled (SAMPLED; seeds from the request
+    ids), 16 tokens each. In each drive the kind's serving counters
+    equal layers x ticks, every decode launch takes the pipelined route,
+    the other serving counters stay 0, and row_gumbel launches in the
+    sampled drive only. Returns (greedy out, sampled out, numbers); the
+    numbers hold the peak memory above the engine as built, over this
+    work."""
+    from ray_tpu_torch import SamplingParams
     from ray_tpu_torch.ops import _kernels
-    over = {} if graph else dict(cuda_graph=False, async_readback=False)
-    gc.collect()
-    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = InferenceEngine(EngineConfig(decode_impl="kernel", kv_dtype=kind,
-                                       **ENGINE_KW, **over), params=params)
-    label = f"{'graph' if graph else 'eager'} {kind}"
+    # warm-up on a throwaway request so the timed run excludes one-time
+    # costs (kernel load, allocator growth)
     eng.generate([prompts[4]], SamplingParams(max_tokens=2))
-    res = {}
-    outs = []
+    suffix = "" if kind == "f32" else f"_{kind}"
+    n_layers = eng.model_cfg.n_layers
+    res, outs = {}, []
     for mode, sp in (("greedy", {}), ("sampled", SAMPLED)):
         _kernels.reset_launch_counts()
-        t0 = eng.decode_ticks
-        out, ticks = drive(eng, prompts, 16, f"{tag}{mode}", **sp)
+        r0, d0 = eng.ragged_ticks, eng.decode_ticks
+        out, ticks = drive(eng, prompts, 16, f"t{kind}{mode}", **sp)
         counts = _kernels.launch_counts()
-        n = eng.decode_ticks - t0
-        name = "paged_decode" + ("" if kind == "f32" else f"_{kind}")
-        routes = _kernels.route_counts().get(name, {})
-        log(f"[ticks {label}] {mode}: {n} decode ticks, {name} "
-            f"{counts[name]} launches {routes}, row_gumbel "
-            f"{counts['row_gumbel']}; tick median "
-            f"{statistics.median(ticks):.2f} ms")
-        if counts[name] != eng.model_cfg.n_layers * n \
-                or routes != {"pipelined": counts[name]}:
-            raise AssertionError(f"{label}: {name} launches {counts[name]} "
-                                 f"{routes}, decode ticks {n}")
+        nr, nd = eng.ragged_ticks - r0, eng.decode_ticks - d0
+        decode = f"paged_decode{suffix}"
+        want = {f"ragged_paged{suffix}": n_layers * nr, decode: n_layers * nd}
+        log(f"[ticks {label}] {mode}: {nr} mixed and {nd} decode ticks, launches "
+            f"{ {k: n for k, n in counts.items() if n} }; tick median "
+            f"{statistics.median(ticks):.2f} ms, all "
+            f"{[round(x, 2) for x in ticks]}")
+        for name, n in counts.items():
+            if name != "row_gumbel" and n != want.get(name, 0):
+                raise AssertionError(f"{label}: {name} launched {n} times, "
+                                     f"expected {want.get(name, 0)}")
+        if min(want.values()) <= 0:
+            raise AssertionError(f"{label}: a serving kernel never ran")
         if (mode == "sampled") != (counts["row_gumbel"] > 0):
             raise AssertionError(f"{label}: row_gumbel {counts['row_gumbel']}"
                                  f" launches in {mode} streams")
+        check_decode_route(_kernels, decode, want[decode])
         for o in out:
             if len(o) != 16 or not all(0 <= t < 128256 for t in o):
                 raise AssertionError(f"bad output stream {o}")
         outs.append(out)
-        res[f"{mode}_launches"] = counts
-    res["steady"] = steady_decode(eng, label, guard=graph)
-    st = eng.stats()
+        res[mode] = dict(launches=counts, ticks_ms=ticks)
     torch.cuda.synchronize()
-    res.update(peak_bytes=torch.cuda.max_memory_allocated() - base,
-               reserved_peak_bytes=torch.cuda.max_memory_reserved(),
-               graph_captures=st["graph_captures"],
-               lagged_ticks=st["lagged_ticks"], drains=st["drains"])
-    log(f"[ticks {label}] peak memory above the weights "
-        f"{res['peak_bytes'] / 2**30:.3f} GiB (reserved peak "
-        f"{res['reserved_peak_bytes'] / 2**30:.3f} GiB); graph captures "
-        f"{st['graph_captures']}, lagged ticks {st['lagged_ticks']}, "
-        f"drains {st['drains']}")
-    eng.release_graphs()
-    del eng
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    log(f"[ticks {label}] peak memory above the engine as built, over the "
+        f"warm-up and both drives: {res['peak_bytes'] / 2**30:.3f} GiB")
     return outs[0], outs[1], res
 
 
-def run_tick_mechanics(dev, params):
+def finish_graph_side(eng, res, label):
+    """Phase 5c on a default engine that phase 5 or 5b has used: the
+    steady windows with the guarded one; then its graphs are released."""
+    res["steady"] = steady_decode(eng, label, guard=True)
+    st = eng.stats()
+    res.update(graph_captures=st["graph_captures"],
+               lagged_ticks=st["lagged_ticks"], drains=st["drains"])
+    log(f"[ticks {label}] graph captures {st['graph_captures']}, lagged ticks "
+        f"{st['lagged_ticks']}, drains {st['drains']}")
+    eng.release_graphs()
+    return res
+
+
+def eager_engine(kind, params, prompts):
+    """Phase 5c's other side: cuda_graph=False, async_readback=False (the
+    eager, synchronous path) on the default engine's weights, with the
+    same work as phases 5 and 5b gave the default engine first."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(EngineConfig(
+        decode_impl="kernel", kv_dtype=kind, cuda_graph=False,
+        async_readback=False, **ENGINE_KW), params=params)
+    label = f"eager {kind}"
+    greedy, sampled, res = serve_streams(eng, kind, prompts, label)
+    res["steady"] = steady_decode(eng, label, guard=False)
+    if eng.stats()["graph_captures"]:
+        raise AssertionError(f"{label}: the eager engine captured a graph")
+    del eng
+    return greedy, sampled, res
+
+
+def run_tick_mechanics(dev, params, graph_sides):
     """Phase 5c: the decode tick's mechanics at 8b, full depth, on bf16,
-    int8 and fp8 pages with the bf16 phase's weights: the default engine
-    (one CUDA graph a decode tick, lagged readback) against
-    cuda_graph=False, async_readback=False; token-exact greedy and
-    sampled streams, honest launch counters, steady tick times and idle
-    shares of both, a guarded window of the default engine, peak memory
-    of each; then the noise kernel against its plain version. Returns
-    (row_gumbel launches on the bf16 default engine's sampled streams,
-    the noise kernel's row, numbers)."""
+    int8 and fp8 pages with the bf16 phase's weights: the default
+    engines of phases 5 and 5b (one CUDA graph a decode tick, lagged
+    readback; `graph_sides`) against cuda_graph=False,
+    async_readback=False; token-exact greedy and sampled streams, honest
+    launch counters, steady tick times and idle shares of both, a
+    guarded window of the default engine, peak memory of each; then the
+    noise kernel against its plain version. Returns (the noise kernel's
+    row, numbers)."""
     from ray_tpu_torch import ByteTokenizer
     tok = ByteTokenizer(128256)
     prompts = [tok.encode(t) for t in PROMPT_TEXTS]
     out = {}
     for kind in ("f32", "int8", "fp8"):
-        eager = tick_engine(kind, params, False, prompts, f"t{kind}")
-        graph = tick_engine(kind, params, True, prompts, f"t{kind}")
+        eager = eager_engine(kind, params, prompts)
+        graph = graph_sides[kind]
         for i, mode in enumerate(("greedy", "sampled")):
             if graph[i] != eager[i]:
                 raise AssertionError(f"{kind} pages: {mode} streams of the "
@@ -1372,9 +1400,7 @@ def run_tick_mechanics(dev, params):
         log(f"[ticks {kind}] graph vs eager: greedy and sampled streams "
             f"token-exact")
         out[kind] = dict(eager=eager[2], graph=graph[2])
-    noise = check_noise(dev)
-    launches = out["f32"]["graph"]["sampled_launches"]["row_gumbel"]
-    return launches, noise, out
+    return check_noise(dev), out
 
 
 # ------------------------------------------------------------------- train
@@ -1392,28 +1418,14 @@ def _sync_metrics(m):
 def profile_step(bundle, state, tokens):
     """torch.profiler over one train step: the kernels with the most
     device time, and device busy time against wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, m = bundle.step(state, tokens)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    out = []
+    prof, wall = traced(lambda: out.append(bundle.step(state, tokens)))
+    state, m = out[0]
     evs = device_events(prof)
     busy = sum(dev_us(e) for e in evs) / 1e3
     log(f"[profile train step] kernels busy {busy:.2f} ms on the device; "
         f"wall under the profiler {wall:.2f} ms")
-    groups = {}
-    for e in evs:
-        key = e.key.lower()
-        g = ("flash kernels" if "flash_" in key else
-             "matmuls" if ("nvjet" in key or "gemm" in key
-                           or "cutlass" in key) else
-             "copies and casts" if "copy" in key else
-             "reductions" if "reduce" in key else
-             "elementwise" if "elementwise" in key else "other")
-        groups[g] = groups.get(g, 0.0) + dev_us(e) / 1e3
+    groups = {g: r["ms"] for g, r in kernel_groups(evs).items()}
     for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"[profile train step] {g:17s} {ms:9.3f} ms "
             f"({100 * ms / busy:.1f}%)")
@@ -1578,12 +1590,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
-    ap.add_argument("--only", choices=["decode", "ticks"], default=None,
+    ap.add_argument("--only", choices=["decode"], default=None,
                     help="development: build, then only the decode "
-                         "kernel's phase (decode) or the decode tick's "
-                         "mechanics (ticks, phase 5c on fresh weights); "
-                         "prints its rows, not the result line (the "
-                         "default run drives every path)")
+                         "kernel's phase; prints its rows, not the result "
+                         "line (the default run drives every path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1609,15 +1619,7 @@ def main():
         raise AssertionError(f"expected 6 instances of the pipelined "
                              f"decode kernel (bf16, int8, fp8 pages x D "
                              f"64, 128), ptxas showed {len(decode_isa)}")
-    if args.only == "ticks":
-        from ray_tpu_torch import EngineConfig, InferenceEngine
-        params = InferenceEngine(EngineConfig(**ENGINE_KW)).params
-        gc.collect()
-        torch.cuda.empty_cache()
-        launches, noise, ticks = run_tick_mechanics(dev, params)
-        print(json.dumps(dict(row_gumbel_launches=launches, noise=noise,
-                              ticks=ticks, card=card)), flush=True)
-        return
+    t_kernels = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     decode = {}
@@ -1642,20 +1644,32 @@ def main():
                                                                 kind)
     flash = check_flash(gen, dev)
     ticks = dict(bf16=ragged_ticks, **quant_ticks)
-    counts, engine, params, out_bf16 = run_engine(dev)
+    phase_s = {"3-4": time.perf_counter() - t_kernels}
+    t0 = time.perf_counter()
+    counts, engine, params, out_bf16, graph_f32 = run_engine(dev)
+    graph_sides = dict(f32=graph_f32)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_s["5"] = time.perf_counter() - t0
     quant_counts, quant_engine = {}, {}
     for kind in ("int8", "fp8"):
-        quant_counts[kind], quant_engine[kind] = run_quant_engine(
-            dev, kind, params, out_bf16)
+        t0 = time.perf_counter()
+        quant_counts[kind], quant_engine[kind], graph_sides[kind] = \
+            run_quant_engine(dev, kind, params, out_bf16)
         gc.collect()
         torch.cuda.empty_cache()
-    noise_launches, noise, tick_mechanics = run_tick_mechanics(dev, params)
+        phase_s[f"5b {kind}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    noise, tick_mechanics = run_tick_mechanics(dev, params, graph_sides)
+    noise_launches = graph_f32[2]["sampled"]["launches"]["row_gumbel"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase_s["5c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     train_counts, train = run_train(dev)
+    phase_s["6"] = time.perf_counter() - t0
+    log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     src = "ray_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="ragged_paged", route="cuda", source=src + "ragged_paged.cu",

@@ -11,11 +11,13 @@
 // Gumbel value -log(-log(u)) (mode "low"). The plain version is
 // ray_tpu_torch/ops/threefry.py:row_gumbel_plain.
 //
-// Bound: the B x V float32 values written (4 bytes each); per value the
-// thread runs two 20-round hashes (the row key, then its column) in
-// integer instructions and two logf. Design: one thread per (row,
-// column), no shared memory, coalesced stores. seeds and index are read
-// from device memory, so a CUDA graph replays the launch with new values.
+// Bound: the B x V float32 values written (4 bytes each); per value a
+// 20-round hash of its column in integer instructions and two logf, and
+// per thread one more hash for the row key. Design: each thread derives
+// its row's key once and then makes kColsPerThread columns, a grid
+// stride apart (stores stay coalesced); no shared memory. seeds and
+// index are read from device memory, so a CUDA graph replays the launch
+// with new values.
 // Float steps keep JAX's order with round-to-nearest intrinsics (no
 // contraction into fma), and logf is the accurate one (no fast-math
 // flags: at most 1 ulp off the rounded result).
@@ -24,6 +26,9 @@
 #include <stdint.h>
 
 namespace tfy {
+
+// columns a thread makes: its row key (one hash) is shared by them
+constexpr int kColsPerThread = 4;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -90,7 +95,8 @@ extern "C" int row_gumbel_launch(const void* seeds, const void* index,
                                  void* stream) {
   if (B <= 0 || B > 65535 || V <= 0 || stage < 0 || stage > 2) return -1;
   const int threads = 256;
-  const int blocks = (V + threads - 1) / threads;
+  const int per_block = threads * tfy::kColsPerThread;
+  const int blocks = (V + per_block - 1) / per_block;
   tfy::row_gumbel_kernel<<<dim3(blocks, B), threads, 0,
                            (cudaStream_t)stream>>>(
       (const int32_t*)seeds, (const int32_t*)index, (float*)out, V, stage);

@@ -21,7 +21,7 @@ from JAX's only where the two ``log`` implementations round apart
 ``row_gumbel`` is the sampler's entry: the noise of the token at
 absolute index ``index[b]`` of the request seeded ``seeds[b]``. CPU
 tensors take the plain version (``row_noise_plain``); CUDA tensors
-launch ``csrc/threefry.cu`` (one thread per (row, vocab column)) or
+launch ``csrc/threefry.cu`` (a thread per row and 4 vocab columns) or
 raise.
 """
 

@@ -771,7 +771,8 @@ GUMBEL_TOL = 2.0 ** -22     # as tests/test_torch_threefry.py: each side's
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,vocab", [(8, 128256), (3, 50), (1, 257)])
+@pytest.mark.parametrize("b,vocab", [(8, 128256), (3, 50), (1, 257),
+                                     (2, 5000)])
 def test_row_noise_kernel_matches_plain(dev, b, vocab):
     """Bits and uniforms bit-equal to the plain version (itself bit-equal
     to jax.random), Gumbel values within the two logs' rounding."""
