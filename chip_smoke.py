@@ -57,6 +57,26 @@ Phases (any failure raises and exits non-zero):
      the noise kernel against its plain version at B 8, V 128256
      (bits and uniforms bit-equal, Gumbel values within 2^-22 x
      max(1, |g|)) with its times;
+  5d. KV memory hierarchy: on bf16, int8 and fp8 pages (same weights,
+     full depth, default engines): 16 seeded prompts of 240-720 tokens,
+     96 tokens each, at B 8 on 128 usable pages (kv_watermark_tokens
+     32, an unbounded host tier) against the same requests on 1024
+     pages, greedy (bf16) and sampled: every request finishes, at least
+     one spill, growth preemption and restore, the tier empty at the
+     end, the kind's serving kernels launched, tokens equal to the ample
+     engine's or differing at a near tie (greedy: the teacher-logits
+     rule of phase 5; sampled: the sampler's scores with the request's
+     noise); preemptions by reason, peaks of parked requests and page
+     pressure, wall and output tokens/s of both; then 16 guarded steady
+     ticks after the storm (no upload, no capture, a readback and a
+     cudaGraphLaunch a tick); a manual preempt and restore of 1 of 8
+     decoding requests, all 8 streams token-exact against the engine
+     never preempting, no new capture, the pools in place, the restored
+     rows byte-equal to the host copy; spill and restore of 8 and 48
+     pages timed (CUDA events, GB/s) beside a pinned copy_ of the same
+     bytes; a session exported mid-decode through the RTKV wire into a
+     second engine, token-exact; an int8 frame into an fp8 engine
+     refused; an exported prefix hitting in the second engine;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -1024,15 +1044,16 @@ def run_quant_engine(dev, kind, params, out_bf16):
 
 
 def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
-                    margin=NEAR_TIE):
-    """Greedy streams of the kernel and gather engines must be identical,
-    or first differ where the two candidates' logits lie within the
-    near-tie margin (the teacher-forced logits at the divergence point
-    are printed for both engines; every divergence is printed before a
-    failure is raised). Returns whether all were identical."""
+                    margin=NEAR_TIE, names=("kernel", "gather")):
+    """Greedy streams of two engines (by default the kernel and gather
+    engines; `names` says which) must be identical, or first differ
+    where the two candidates' logits lie within the near-tie margin
+    (the teacher-forced logits at the divergence point are printed for
+    both engines; every divergence is printed before a failure is
+    raised). Returns whether all were identical."""
+    nk, ng = names
     exact = out_k == out_g
-    log(f"[engine {label}] kernel vs gather greedy streams identical: "
-        f"{exact}")
+    log(f"[engine {label}] {nk} vs {ng} greedy streams identical: {exact}")
     beyond = []
     for i, (a, b) in enumerate(zip(out_k, out_g)):
         if a == b:
@@ -1043,15 +1064,15 @@ def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
         lg = teacher_logits(eng_g, ctx)
         top = lg.topk(2)
         gap = abs(lg[a[j]].item() - lg[b[j]].item())
-        log(f"[engine {label}] request {i} diverges at output {j}: kernel "
-            f"token {a[j]}, gather token {b[j]}; gather top2 "
-            f"{top.indices.tolist()} {top.values.tolist()}; kernel top2 "
+        log(f"[engine {label}] request {i} diverges at output {j}: {nk} "
+            f"token {a[j]}, {ng} token {b[j]}; {ng} top2 "
+            f"{top.indices.tolist()} {top.values.tolist()}; {nk} top2 "
             f"{lk.topk(2).indices.tolist()} {lk.topk(2).values.tolist()}; "
             f"gap {gap:.4f} (near-tie margin {margin:.4f})")
         if gap > margin:
             beyond.append(i)
     if beyond:
-        raise AssertionError(f"{label} requests {beyond}: kernel and gather "
+        raise AssertionError(f"{label} requests {beyond}: {nk} and {ng} "
                              f"engines differ beyond a near tie")
     return exact
 
@@ -1403,6 +1424,493 @@ def run_tick_mechanics(dev, params, graph_sides):
     return check_noise(dev), out
 
 
+# --------------------------------------------------- KV hierarchy (5d)
+
+OVERSUB_N = 16           # seeded prompts of 240-720 tokens
+OVERSUB_TOKENS = 96      # output tokens each: up to 51 pages a request
+# a token budget that holds a full 512-token chunk for every slot: each
+# prompt is chunked at the same offsets in every engine, whatever else
+# shares its ticks (on int8/fp8 pages a token reads the keys of its own
+# chunk unquantized, so other chunk offsets would be other numbers)
+KV_KW = dict(ENGINE_KW, max_num_batched_tokens=8 * 512 + 8)
+# 128 usable pages, under half of what 8 resident requests want (~290,
+# up to 408); optimistic admission reserves prompt + 32 tokens
+OVERSUB_KW = dict(KV_KW, num_pages=129, enable_kv_offload=True,
+                  kv_watermark_tokens=32)
+MOVE_PAGES = (8, 48)     # page counts of the timed spills and restores
+MOVE_ITERS = 5
+
+
+def kind_label(kind):
+    return "bf16" if kind == "f32" else kind
+
+
+def oversub_requests(tag, sp):
+    """The oversubscription workload: the same prompts and per-request
+    seeds in every run (request ids differ by `tag`)."""
+    from ray_tpu_torch import Request, SamplingParams
+    gen = torch.Generator().manual_seed(5151)
+    lens = torch.randint(240, 721, (OVERSUB_N,), generator=gen).tolist()
+    return [Request(f"{tag}{i}",
+                    torch.randint(1000, 100000, (n,), generator=gen).tolist(),
+                    SamplingParams(max_tokens=OVERSUB_TOKENS, seed=700 + i,
+                                   **sp))
+            for i, n in enumerate(lens)]
+
+
+def serve_all(eng, reqs):
+    """Every request added at once, then step() until done (the prefix
+    cache cleared first, so earlier runs give no hits). Returns the
+    wall seconds (to a synchronise) and the peaks of parked requests
+    and page pressure over the ticks."""
+    eng.allocator.clear_cache()
+    for r in reqs:
+        eng.add_request(r)
+    parked = pressure = 0
+    steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        steps += 1
+        parked = max(parked, len(eng.parked))
+        pressure = max(pressure, eng.page_pressure())
+        if steps > 20000:
+            raise AssertionError("the engine did not finish the workload")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, parked, pressure
+
+
+def sampler_kept(logits, p):
+    """The engine sampler's top-k/top-p filter (`_sample`) on one row:
+    a bool mask over the vocabulary."""
+    scaled = logits / p.temperature
+    order = torch.argsort(-scaled, stable=True)
+    sl = scaled[order]
+    if p.top_k > 0:
+        rank = torch.arange(sl.numel(), device=sl.device)
+        sl = torch.where(rank >= p.top_k, torch.full_like(sl, -math.inf), sl)
+    probs = torch.softmax(sl, dim=-1)
+    keep = ((torch.cumsum(probs, dim=-1) - probs) < p.top_p) \
+        & torch.isfinite(sl)
+    return torch.zeros_like(keep).scatter(0, order, keep)
+
+
+def pickable(logits, noise, tok, p, margin):
+    """Could the sampler pick `tok` from some logits within `margin` of
+    these (each entry moved by at most margin)? It must pass the filter
+    with its logit raised and all others lowered, and every kept rival
+    whose score (logit / temperature + noise) beats its own by more than
+    2 x margin / temperature must drop out of the filter with its logit
+    lowered and all others raised (rivals checked one at a time)."""
+    up = logits - margin
+    up[tok] = logits[tok] + margin
+    if not bool(sampler_kept(up, p)[tok]):
+        return False
+    score = logits / p.temperature + noise
+    rivals = sampler_kept(logits, p) \
+        & (score > score[tok] + 2 * margin / p.temperature)
+    for c in torch.nonzero(rivals).flatten().tolist():
+        down = logits + margin
+        down[c] = logits[c] - margin
+        if bool(sampler_kept(down, p)[c]):
+            return False
+    return True
+
+
+def compare_sampled(eng_o, eng_a, reqs_o, reqs_a, label, margin):
+    """Sampled streams of an engine against a reference engine's, same
+    prompts and seeds: identical, or first differing at a near tie of
+    the sampler: at the first divergence, under the reference engine's
+    teacher-forced logits (as in compare_streams) and the request's own
+    noise, each of the two tokens is `pickable` within `margin` (with a
+    random model the top-k/top-p edge runs through near-equal logits, so
+    most such ties are a token at the edge). Every divergence is printed
+    before a failure is raised. Returns whether all were identical."""
+    from ray_tpu_torch.ops.threefry import row_gumbel
+    dev = eng_a.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    beyond, n_div = [], 0
+    for ro, ra in zip(reqs_o, reqs_a):
+        a, b = ro.output_tokens, ra.output_tokens
+        if a == b:
+            continue
+        n_div += 1
+        j = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+        p = ra.params
+        lg = teacher_logits(eng_a, ra.prompt_tokens + b[:j]).float()
+        g = row_gumbel(torch.tensor([p.seed], **i32),
+                       torch.tensor([len(ra.prompt_tokens) + j], **i32),
+                       lg.numel())[0]
+        kept = sampler_kept(lg, p)
+        picks = {t: pickable(lg, g, t, p, margin) for t in (a[j], b[j])}
+        tie = all(picks.values())
+        log(f"[kv {label}] {ro.request_id} diverges at output {j}: token "
+            f"{a[j]} against {b[j]}; teacher logits {lg[a[j]].item():.4f} / "
+            f"{lg[b[j]].item():.4f}, kept {bool(kept[a[j]])} / "
+            f"{bool(kept[b[j]])} of {int(kept.sum())}; each pickable within "
+            f"{margin}: {picks}; near tie {tie}")
+        if not tie:
+            beyond.append(ro.request_id)
+    if beyond:
+        raise AssertionError(f"{label}: sampled streams differ beyond a "
+                             f"near tie: {beyond}")
+    return n_div == 0
+
+
+def oversubscribe(eng, ample, kind, modes):
+    """The workload on the 128-page engine and on the ample one, per
+    sampling mode: every request finishes with "length"; at least one
+    spill, one growth or requeue preemption and one restore; the tier
+    empty at the end; the kind's serving kernels launched; tokens equal
+    to the ample engine's or differing at a near tie. Returns each
+    run's numbers."""
+    from ray_tpu_torch import SamplingParams
+    from ray_tpu_torch.ops import _kernels
+    label = kind_label(kind)
+    suffix = "" if kind == "f32" else f"_{kind}"
+    margin = NEAR_TIE_FP8 if kind == "fp8" else NEAR_TIE
+    tier = eng.host_tier
+    runs = {}
+    for mode, sp in modes:
+        for e in (ample, eng):     # this mode's graph captured untimed
+            e.generate([[1000 + i for i in range(40)]],
+                       SamplingParams(max_tokens=4, seed=1, **sp))
+        reqs_a = oversub_requests(f"ample-{kind}-{mode}-", sp)
+        wall_a, _, _ = serve_all(ample, reqs_a)
+        reqs = oversub_requests(f"over-{kind}-{mode}-", sp)
+        pre0 = dict(eng.preempt_counts)
+        sp0, rs0 = tier.spills_total, tier.restores_total
+        _kernels.reset_launch_counts()
+        wall, parked, pressure = serve_all(eng, reqs)
+        counts = _kernels.launch_counts()
+        pre = {k: n - pre0.get(k, 0) for k, n in eng.preempt_counts.items()
+               if n - pre0.get(k, 0)}
+        spills = tier.spills_total - sp0
+        restores = tier.restores_total - rs0
+        requeues = sum(pre.values()) - spills
+        n_out = sum(len(r.output_tokens) for r in reqs)
+        tps, tps_a = n_out / wall, n_out / wall_a
+        log(f"[kv {label} {mode}] 128 pages: {wall:.2f} s, {tps:.1f} output "
+            f"tokens/s; ample (1024 pages) {wall_a:.2f} s, {tps_a:.1f} "
+            f"tokens/s ({tps / tps_a:.2f}x); preemptions {pre}, spills "
+            f"{spills}, restores {restores}; peak parked {parked}, peak "
+            f"page pressure {pressure:.3f}; launches "
+            f"{ {k: n for k, n in counts.items() if n} }; requeued "
+            f"{requeues}")
+        bad = [r.request_id for r in reqs
+               if r.finish_reason != "length"
+               or len(r.output_tokens) != OVERSUB_TOKENS]
+        if bad:
+            raise AssertionError(f"{label} {mode}: unfinished {bad}")
+        if spills < 1 or restores < 1 or pre.get("growth", 0) < 1:
+            raise AssertionError(f"{label} {mode}: the pool never ran short "
+                                 f"(preemptions {pre}, spills {spills})")
+        if len(tier) or tier.used_pages or tier.used_bytes:
+            raise AssertionError(f"{label} {mode}: the host tier is not "
+                                 f"empty at the end")
+        for name in (f"ragged_paged{suffix}", f"paged_decode{suffix}"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"{label} {mode}: {name} never ran")
+        out_o = [r.output_tokens for r in reqs]
+        out_a = [r.output_tokens for r in reqs_a]
+        if mode == "greedy":
+            exact = compare_streams(
+                eng, ample, [r.prompt_tokens for r in reqs], out_o, out_a,
+                f"{label} {mode}", margin, names=("128-page", "ample"))
+        else:
+            exact = compare_sampled(eng, ample, reqs, reqs_a,
+                                    f"{label} {mode}", margin)
+        runs[mode] = dict(wall_s=wall, tokens_per_s=tps, ample_wall_s=wall_a,
+                          ample_tokens_per_s=tps_a, preemptions=pre,
+                          spills=spills, restores=restores,
+                          requeues=requeues, peak_parked=parked, peak_page_pressure=pressure,
+                          exact=exact, launches=counts)
+    return runs
+
+
+def steady_guard(eng, kind):
+    """After the storm: 8 sampled requests that fit whole, past their
+    growth (every slot's pages cover its final need), then phase 5c's
+    guarded window (no upload, no capture, a readback and a graph launch
+    a tick)."""
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    gen = torch.Generator().manual_seed(78)
+    B = eng.config.max_batch_size
+    page = eng.allocator.page_size
+    eng.allocator.clear_cache()
+    reqs = [Request(f"guard-{kind}-{i}",
+                    torch.randint(1000, 100000, (40 + 9 * i,),
+                                  generator=gen).tolist(),
+                    SamplingParams(max_tokens=96, seed=60 + i,
+                                   **SAMPLED))
+            for i in range(B)]
+    for r in reqs:
+        eng.add_request(r)
+
+    def grown():
+        return all(s.request is not None and s.ready
+                   and len(s.pages) * page >= s.position + 1
+                   + s.request.params.max_tokens
+                   - len(s.request.output_tokens) for s in eng.slots)
+
+    steps = 0
+    while not grown():
+        eng.step()
+        steps += 1
+        if steps > 200:
+            raise AssertionError("the steady batch never grew whole")
+    for _ in range(3):
+        eng.step()
+    res = guarded_window(eng, f"kv {kind_label(kind)} after the storm",
+                         dispatch_guard)
+    for r in reqs:
+        eng.abort(r.request_id)
+    while eng.has_work():
+        eng.step()
+    return res
+
+
+def restored_rows_equal(eng, slot, parked):
+    """A gather of the restored slot's first `position` token rows
+    against the host copy it was restored from, byte for byte (values
+    and, on one-byte pages, scales)."""
+    from ray_tpu_torch.llm._internal.engine import _bits
+    from ray_tpu_torch.llm._internal.kv_offload import host_tensor
+    got = eng._gather_pages(slot.pages[:parked.n_pages])
+    for g, h in zip(got, eng._host_pages(parked)):
+        rows_g = _bits(g.cpu()).flatten(1, 2)[:, :parked.position]
+        rows_h = _bits(host_tensor(h)).flatten(1, 2)[:, :parked.position]
+        if not torch.equal(rows_g, rows_h):
+            return False
+    return True
+
+
+def manual_preempt(eng, kind):
+    """8 sampled requests in steady decode, no admission pending: a run
+    never preempted, then the same requests with one preempted (spilled)
+    8 ticks into decode and restored at the next step. All 8 streams
+    token-exact, no graph capture in the second run, the pools at their
+    addresses, and the restored rows byte-equal to the host copy."""
+    from ray_tpu_torch import Request, SamplingParams
+    gen = torch.Generator().manual_seed(79)
+    prompts = [torch.randint(1000, 100000, (60 + 23 * i,),
+                             generator=gen).tolist() for i in range(8)]
+    victim = 3
+
+    def run(tag, preempt):
+        eng.allocator.clear_cache()
+        reqs = [Request(f"{tag}{i}", p, SamplingParams(
+            max_tokens=48, seed=80 + i, **SAMPLED))
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.add_request(r)
+        while eng.waiting or any(s.request is not None and not s.ready
+                                 for s in eng.slots):
+            eng.step()
+        for _ in range(8):
+            eng.step()
+        info = {}
+        if preempt:
+            rid = reqs[victim].request_id
+            if not eng.preempt(rid):
+                raise AssertionError(f"{kind}: preempt refused")
+            parked = eng.parked[0]
+            eng.step()                       # restores, then decodes
+            slot = next((s for s in eng.slots
+                         if s.request is reqs[victim]), None)
+            if slot is None or eng.parked:
+                raise AssertionError(f"{kind}: the victim was not restored "
+                                     f"at the next step")
+            info = dict(pages=parked.n_pages, position=parked.position,
+                        bytes_equal=restored_rows_equal(eng, slot, parked))
+        while eng.has_work():
+            eng.step()
+        return [r.output_tokens for r in reqs], info
+
+    want, _ = run(f"man-ref-{kind}-", False)
+    captures = eng.graph_captures
+    ptrs = [t.data_ptr() for t in eng._pools()]
+    got, info = run(f"man-pre-{kind}-", True)
+    info.update(exact=got == want,
+                captures_unchanged=eng.graph_captures == captures,
+                pools_in_place=[t.data_ptr() for t in eng._pools()] == ptrs)
+    log(f"[kv {kind_label(kind)}] manual preempt of 1 of 8 decoding "
+        f"requests ({info['pages']} pages, position {info['position']}), "
+        f"restored at the next step: 8 streams token-exact {info['exact']}; "
+        f"graph captures unchanged {info['captures_unchanged']}; pools in "
+        f"place {info['pools_in_place']}; restored rows byte-equal to the "
+        f"host copy {info['bytes_equal']}")
+    if not all(info[k] for k in ("exact", "captures_unchanged",
+                                 "pools_in_place", "bytes_equal")):
+        raise AssertionError(f"{kind}: manual preempt and restore: {info}")
+    return info
+
+
+def time_moves(eng, kind):
+    """Spill (page gather + copy into pinned memory) and restore (upload
+    from pinned memory + in-place index_copy_) of MOVE_PAGES pages, CUDA
+    events around the engine's own calls, each beside a plain pinned
+    copy_ of the same bytes in the same direction; GB/s of the page
+    bytes (values and scales)."""
+    out = {}
+    for n in MOVE_PAGES:
+        pages = list(range(n))
+        nbytes = n * eng.kv_page_bytes
+
+        def spill():
+            return eng._copy_to_host(eng._gather_pages(pages))[0]
+
+        hosts = spill()
+        torch.cuda.synchronize()
+        spill_ms = time_ms(spill, iters=MOVE_ITERS, warmup=1)
+        restore_ms = time_ms(lambda: eng._scatter_pages(pages, hosts),
+                             iters=MOVE_ITERS, warmup=1)
+        eng._finalize_spills()           # lets go of the uploads' holds
+        dev_buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        host_buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        d2h_ms = time_ms(lambda: host_buf.copy_(dev_buf, non_blocking=True),
+                         iters=MOVE_ITERS, warmup=1)
+        h2d_ms = time_ms(lambda: dev_buf.copy_(host_buf, non_blocking=True),
+                         iters=MOVE_ITERS, warmup=1)
+        gbs = {k: nbytes / ms / 1e6 for k, ms in (
+            ("spill", spill_ms), ("restore", restore_ms),
+            ("d2h_copy", d2h_ms), ("h2d_copy", h2d_ms))}
+        log(f"[kv {kind_label(kind)}] {n} pages ({nbytes / 2**20:.1f} MiB): "
+            f"spill {spill_ms:.3f} ms = {gbs['spill']:.1f} GB/s (pinned "
+            f"d2h copy_ {d2h_ms:.3f} ms = {gbs['d2h_copy']:.1f} GB/s); "
+            f"restore {restore_ms:.3f} ms = {gbs['restore']:.1f} GB/s "
+            f"(pinned h2d copy_ {h2d_ms:.3f} ms = {gbs['h2d_copy']:.1f} "
+            f"GB/s)")
+        out[n] = dict(bytes=nbytes, spill_ms=spill_ms, restore_ms=restore_ms,
+                      d2h_copy_ms=d2h_ms, h2d_copy_ms=h2d_ms, gb_s=gbs)
+    return out
+
+
+def transport(eng, params, kind, frames):
+    """A decoding session exported mid-stream, through the RTKV wire,
+    into a second engine (same weights, its own pool), finished there:
+    token-exact against the exporter never exporting; an int8 frame into
+    an fp8 engine raises; a prefix exported from the first engine and
+    imported into the second hits at the next admission of its prompt.
+    `frames` collects each kind's session frame."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request, \
+        SamplingParams
+    from ray_tpu_torch.serve.llm import kv_transport as kvt
+    label = kind_label(kind)
+    gen = torch.Generator().manual_seed(81)
+    prompt = torch.randint(1000, 100000, (333,), generator=gen).tolist()
+    sp = SamplingParams(max_tokens=64, seed=99, **SAMPLED)
+
+    def request(tag):
+        return Request(f"ship-{kind}-{tag}", list(prompt),
+                       SamplingParams(**vars(sp)))
+
+    eng.allocator.clear_cache()
+    ref = request("ref")
+    eng.add_request(ref)
+    while eng.has_work():
+        eng.step()
+    eng.allocator.clear_cache()
+    src = request("moved")
+    eng.add_request(src)
+    while len(src.output_tokens) < 20:
+        eng.step()
+    state = eng.export_session(src.request_id)
+    blob = kvt.encode_session(state)
+    frames[kind] = blob
+    dst = InferenceEngine(EngineConfig(decode_impl="kernel", **dict(
+        KV_KW, num_pages=257, kv_dtype=kind, enable_kv_offload=True)),
+        params=params)
+    got = dst.import_session(kvt.decode_session(blob))
+    while dst.has_work():
+        dst.step()
+    exact = got.output_tokens == ref.output_tokens
+    log(f"[kv {label}] session exported at {len(state['output_tokens'])} "
+        f"tokens ({state['n_pages']} pages, frame {len(blob) / 2**20:.2f} "
+        f"MiB), imported into a second engine: token-exact {exact}; its "
+        f"graph captures {dst.graph_captures}")
+    if not exact or got.finish_reason != "length":
+        raise AssertionError(f"{label}: the imported session diverged")
+    refused = True
+    if kind == "fp8":
+        try:
+            kvt.ship_kind_compatible(
+                kvt.decode_session(frames["int8"])["kv_dtype"], dst.kv_kind)
+            refused = False
+        except kvt.TransportError:
+            pass
+        try:
+            dst.import_session(kvt.decode_session(frames["int8"]))
+            refused = False
+        except ValueError:
+            pass
+        log(f"[kv {label}] an int8 session frame into the fp8 engine: "
+            f"refused {refused}")
+        if not refused:
+            raise AssertionError("an int8 frame entered an fp8 engine")
+    # a prefix prefilled on the first engine seeds the second's cache
+    p2 = torch.randint(1000, 100000, (300,), generator=gen).tolist()
+    eng.add_request(Request(f"pfx-{kind}", p2, SamplingParams(max_tokens=2)))
+    while eng.has_work():
+        eng.step()
+    exp = eng.export_prefix(p2)
+    pfx = kvt.decode_prefix(kvt.encode_prefix(
+        exp["tokens"], exp["k"], exp["v"], exp.get("k_scales"),
+        exp.get("v_scales"), kv_dtype=exp["kv_dtype"]))
+    seeded = dst.import_prefix(pfx["tokens"], pfx["k"], pfx["v"],
+                               pfx["k_scales"], pfx["v_scales"],
+                               kv_dtype=pfx["kv_dtype"])
+    hits0 = dst.allocator.cache_hit_tokens
+    probe = Request(f"pfx-{kind}-probe", p2, SamplingParams(max_tokens=2))
+    dst.add_request(probe)
+    while dst.has_work():
+        dst.step()
+    hit = dst.allocator.cache_hit_tokens - hits0
+    log(f"[kv {label}] prefix of {len(p2)} tokens: {seeded} pages imported, "
+        f"the next admission hit {hit} tokens")
+    if seeded != len(p2) // 16 or hit != (len(p2) - 1) // 16 * 16:
+        raise AssertionError(f"{label}: the imported prefix did not hit")
+    dst.release_graphs()
+    return dict(exact=exact, pages=state["n_pages"], frame_bytes=len(blob),
+                refused_other_kind=refused, prefix_pages=seeded,
+                prefix_hit_tokens=hit)
+
+
+def run_kv_hierarchy(params):
+    """Phase 5d on bf16, int8 and fp8 pages with the bf16 phase's
+    weights, default engines (CUDA graph, lagged readback): the
+    oversubscribed workload against an ample pool (greedy and sampled on
+    bf16 pages, sampled on int8 and fp8), the guarded window after it, a
+    manual preempt and restore in steady decode, spill and restore
+    times, session and prefix transport."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    out, frames = {}, {}
+    for kind in ("f32", "int8", "fp8"):
+        modes = ([("greedy", {}), ("sampled", SAMPLED)] if kind == "f32"
+                 else [("sampled", SAMPLED)])
+        eng = InferenceEngine(EngineConfig(
+            decode_impl="kernel", **dict(OVERSUB_KW, kv_dtype=kind)),
+            params=params)
+        ample = InferenceEngine(EngineConfig(
+            decode_impl="kernel", **dict(KV_KW, kv_dtype=kind)),
+            params=params)
+        res = dict(runs=oversubscribe(eng, ample, kind, modes))
+        ample.release_graphs()
+        del ample
+        res["guard"] = steady_guard(eng, kind)
+        res["manual"] = manual_preempt(eng, kind)
+        res["moves"] = time_moves(eng, kind)
+        res["transport"] = transport(eng, params, kind, frames)
+        eng.release_graphs()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[kind_label(kind)] = res
+    return out
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
@@ -1662,10 +2170,13 @@ def main():
     t0 = time.perf_counter()
     noise, tick_mechanics = run_tick_mechanics(dev, params, graph_sides)
     noise_launches = graph_f32[2]["sampled"]["launches"]["row_gumbel"]
+    phase_s["5c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kv_hierarchy = run_kv_hierarchy(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase_s["5c"] = time.perf_counter() - t0
+    phase_s["5d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_counts, train = run_train(dev)
     phase_s["6"] = time.perf_counter() - t0
@@ -1720,6 +2231,7 @@ def main():
                            engine=engine,
                            quant_engine=quant_engine, train=train,
                            tick_mechanics=tick_mechanics,
+                           kv_hierarchy=kv_hierarchy,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)
     print(json.dumps(summary), flush=True)

@@ -29,10 +29,22 @@ pinned host memory without blocking and fold into slot state one tick
 later; admission, prefill, retirement and abort drain the in-flight tick
 first. ``_read_tokens`` is the one device-to-host sync point.
 
+The KV memory hierarchy, as in the JAX engine: with
+``enable_kv_offload`` a preempted decoding slot spills its pages to a
+host tier (``kv_offload.py``: a gather on the device, a copy to pinned
+host memory that lands one tick later) and a prefilling one requeues at
+the head of the queue; parked requests restore first, token-exact, into
+pages written in place (the decode graphs keep reading the same pools).
+``kv_watermark_tokens`` admits a request with only prompt + watermark
+tokens of pages and grows its pages as it decodes, with preemption as
+the valve. Sessions and cached prefixes leave and enter an engine as
+host state (``export_session``/``import_session``,
+``export_prefix``/``import_prefix``), serialized by
+``serve/llm/kv_transport.py`` in frames the JAX package reads too.
+
 Not here yet: telemetry, perf accounting, attribution, anomaly
-detection, black-box dumps, KV offload and preemption, LoRA,
-speculative and multi-step decode, pp/tp, the legacy two-dispatch step,
-graphs for mixed ticks.
+detection, black-box dumps, LoRA, speculative and multi-step decode,
+pp/tp, the legacy two-dispatch step, graphs for mixed ticks.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
 from .decode_graph import DecodeGraph
 from .kv_cache import PageAllocator
+from .kv_offload import (HostKVTier, ParkedSequence, host_array, host_dtype,
+                         host_tensor, pick_victim)
 
 
 @dataclasses.dataclass
@@ -94,6 +108,19 @@ class EngineConfig:
     # one CUDA graph; False runs the same body eagerly (for A/B runs
     # and debugging). A capture or replay that fails raises.
     cuda_graph: bool = True
+    # KV memory hierarchy: under page pressure a decoding victim's pages
+    # spill to a host tier and it parks until pages free up, then
+    # restores token-exact; a prefilling victim requeues. Off: "out of
+    # pages" just queues.
+    enable_kv_offload: bool = False
+    # host tier capacity in pages (None: unbounded); a full tier makes
+    # preemption fail and the exhaustion path finish the victim
+    host_kv_pages: Optional[int] = None
+    # optimistic admission: None reserves prompt + max_tokens at
+    # admission; W reserves prompt + min(max_tokens, W) and grows a
+    # decoding slot's pages as it goes, preempting under pressure.
+    # Requires enable_kv_offload.
+    kv_watermark_tokens: Optional[int] = None
 
     def resolve_model(self) -> LlamaConfig:
         return llama.config(self.model)
@@ -118,9 +145,29 @@ class Request:
     request_id: str
     prompt_tokens: List[int]
     params: SamplingParams
+    # a LoRA adapter name: the port serves none, so always None here (a
+    # request or an imported session naming one is refused)
+    lora: Optional[str] = None
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     finished: bool = False
     finish_reason: Optional[str] = None
+    # monotonic submission stamp: the victim order's tie-break (the
+    # youngest loses first)
+    submitted_at: float = dataclasses.field(
+        default_factory=time.monotonic)
+    # trace context, carried for the wire
+    trace: Optional[Dict[str, str]] = None
+    # absolute monotonic deadline: past it the request finishes with
+    # "deadline" at the next tick, waiting, running or parked
+    deadline: Optional[float] = None
+    # preemption priority: the lowest loses its slot first
+    priority: int = 0
+    tenant: str = ""
+    # times the request lost its slot and came back (spill and restore,
+    # or a prefill requeue)
+    restarts: int = 0
+    # scheduling lane ("interactive" | "batch"), carried for the wire
+    lane: str = "interactive"
 
 
 class _Slot:
@@ -146,6 +193,15 @@ class _InflightTick:
     tokens: torch.Tensor
     done: Optional[torch.cuda.Event]
     active: np.ndarray
+
+
+# same-size integer dtypes: page copies move bytes on every pool kind
+# (the CPU has no index ops on float8)
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(_BITS[t.element_size()])
 
 
 def derive_seed(request_id: str) -> int:
@@ -229,6 +285,17 @@ class InferenceEngine:
             raise ValueError(f"decode_impl must be auto|gather|kernel, got "
                              f"{ec.decode_impl!r}")
         self.impl = impl
+        if ec.kv_watermark_tokens is not None \
+                and ec.kv_watermark_tokens < 1:
+            raise ValueError("kv_watermark_tokens must be >= 1 or None")
+        if ec.kv_watermark_tokens is not None \
+                and not ec.enable_kv_offload:
+            raise ValueError(
+                "kv_watermark_tokens (optimistic admission) requires "
+                "enable_kv_offload: oversubscribing device pages without "
+                "the preemption valve turns ordinary contention into "
+                "finish_reason=\"error\" failures that a worst-case "
+                "reservation would just queue through")
         self.max_seq = ec.max_seq_len or cfg.max_seq
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -245,6 +312,18 @@ class InferenceEngine:
             ec.num_pages, ec.page_size,
             enable_prefix_caching=ec.enable_prefix_caching)
         self.max_pages_per_seq = self.allocator.pages_needed(self.max_seq)
+        # the KV memory hierarchy: the host tier, preemptions by reason,
+        # spills whose copy to the host is still running (picked up at
+        # the next tick), uploads whose host memory must outlive them
+        self.host_tier: Optional[HostKVTier] = (
+            HostKVTier(ec.host_kv_pages) if ec.enable_kv_offload else None)
+        self.allocator.host_tier = self.host_tier
+        self.preempt_counts: Dict[str, int] = {}
+        self._pending_spills: List[ParkedSequence] = []
+        self._upload_holds: List[Tuple[Any, List[Any]]] = []
+        # the slot last allocating pages: the victim of a MemoryError
+        # that escapes to step()
+        self._alloc_ctx: Optional[int] = None
         kv_shape = (cfg.n_layers, ec.num_pages, ec.page_size,
                     cfg.n_kv_heads, cfg.head_dim)
         pool_dt = kv_quant.storage_dtype(self.kv_kind, cfg.dtype)
@@ -518,6 +597,10 @@ class InferenceEngine:
 
     # -- public entry points --------------------------------------------------
     def add_request(self, request: Request) -> None:
+        if request.lora is not None:
+            raise ValueError(
+                f"unknown LoRA adapter {request.lora!r}: this engine "
+                f"serves no adapters")
         worst_case = len(request.prompt_tokens) + request.params.max_tokens
         if worst_case > self.max_seq:
             raise ValueError(
@@ -535,40 +618,59 @@ class InferenceEngine:
         # (abort), count as work: one more step() delivers them
         return (bool(self.waiting) or bool(self._pending_touched)
                 or self._inflight is not None
+                or (self.host_tier is not None and len(self.host_tier) > 0)
                 or any(s.request is not None for s in self.slots))
 
     def num_active(self) -> int:
         return sum(1 for s in self.slots if s.request is not None)
 
     def step(self) -> List[Request]:
-        """One engine tick: admit, then one forward — the ragged forward
-        when any slot is prefilling, else the decode step. Returns the
-        requests that produced a token (check .finished /
+        """One engine tick, in the JAX engine's order: pick up last
+        tick's spills, expire deadlines, drain the in-flight tick if
+        slot state is about to move, restore parked requests and admit,
+        grow the decoding slots' pages, then one forward: the ragged
+        forward when any slot is prefilling, else the decode step.
+        Returns the requests that produced a token (check .finished /
         .output_tokens). With async_readback a decode tick's tokens
         arrive with the next step (a step may return [] while they are
-        in flight); every step still dispatches once."""
+        in flight); every step still dispatches once. A MemoryError out
+        of an allocation no check covered finishes a victim with
+        finish_reason "error" and the engine goes on."""
         touched: List[Request] = self._pending_touched
         self._pending_touched = []
-        t0 = time.perf_counter()
         self.ticks += 1
-        # admission and prefill are structural: the in-flight tick folds
-        # before slot state moves (a waiting queue that cannot admit
-        # does not force it, or a saturated engine would run
-        # synchronously)
-        prefilling = any(s.request is not None and not s.ready
-                         for s in self.slots)
-        if prefilling or self._admit_possible():
-            self._drain(touched)
-        self._admit()
-        if any(s.request is not None and not s.ready for s in self.slots):
-            self._ragged_step(touched)
-        elif any(s.ready for s in self.slots):
-            self._decode(touched)
+        t0 = time.perf_counter()
+        try:
+            self._step_tick(touched)
+        except MemoryError as exc:
+            self._handle_memory_error(exc, touched)
+            return touched
         self._tick_times.append(((time.perf_counter() - t0) * 1e3,
                                  self._tick_host_s * 1e3,
                                  self._tick_dev_s * 1e3))
         self._tick_host_s = self._tick_dev_s = 0.0
         return touched
+
+    def _step_tick(self, touched: List[Request]) -> None:
+        self._finalize_spills()
+        # an expired request must not take this tick's budget, nor a
+        # waiting one the slot a live request could take
+        self._expire_deadlines(touched)
+        # admission and prefill are structural: the in-flight tick folds
+        # before slot state moves (a waiting queue that cannot admit
+        # does not force it, or a saturated engine would run
+        # synchronously)
+        if self._admit_possible() or any(
+                s.request is not None and not s.ready for s in self.slots):
+            self._drain(touched)
+        self._admit(touched)
+        # optimistic admission: extend reservations before the dispatch
+        # whose KV writes would cross them
+        self._grow_slots(touched)
+        if any(s.request is not None and not s.ready for s in self.slots):
+            self._ragged_step(touched)
+        elif any(s.ready for s in self.slots):
+            self._decode(touched)
 
     def generate(self, prompts: List[List[int]],
                  params: Optional[SamplingParams] = None) -> List[Request]:
@@ -583,10 +685,10 @@ class InferenceEngine:
         return reqs
 
     def abort(self, request_id: str) -> bool:
-        """Stop a request: drop it from the queue, or free its slot and
-        KV pages (an in-flight tick is folded first; its token for this
-        request is discarded, the others reach the next step's
-        return)."""
+        """Stop a request: drop it from the queue, free its slot and KV
+        pages (an in-flight tick is folded first; its token for this
+        request is discarded, the others reach the next step's return),
+        or drop its parked host KV."""
         for i, req in enumerate(self.waiting):
             if req.request_id == request_id:
                 del self.waiting[i]
@@ -599,6 +701,14 @@ class InferenceEngine:
                 self._finish(slot, "abort")
                 self._drain(self._pending_touched)
                 return True
+        if self.host_tier is not None and request_id in self.host_tier:
+            # parked and the client gave up: drop the host KV, never
+            # restore
+            parked = self.host_tier.drop(request_id)
+            self._forget_spill(parked)
+            parked.request.finished = True
+            parked.request.finish_reason = "abort"
+            return True
         return False
 
     def release_graphs(self) -> None:
@@ -624,6 +734,15 @@ class InferenceEngine:
             "kv_page_bytes": self.kv_page_bytes,
             "kv_device_bytes_used": (self.allocator.used_pages
                                      * self.kv_page_bytes),
+            # the KV memory hierarchy: parked requests, demand over the
+            # device pool (> 1: oversubscribed), preemptions by reason,
+            # host bytes pinned by parked payloads (the host tier's own
+            # counters are in "kv")
+            "parked_sessions": len(self.parked),
+            "page_pressure": self.page_pressure(),
+            "preemptions": dict(self.preempt_counts),
+            "kv_host_bytes_used": (self.host_tier.used_bytes
+                                   if self.host_tier is not None else 0),
             "kernel_launches": _kernels.launch_counts(),
             "async_readback": self.config.async_readback,
             "lagged_ticks": self._lagged_ticks,
@@ -650,6 +769,628 @@ class InferenceEngine:
                                 if sums[0] > 0 else 0.0)
         return out
 
+    # -- KV memory hierarchy ------------------------------------------------
+    # Every method here runs at structural time (after a drain, outside
+    # the steady decode path). Pages move as the JAX engine moves them
+    # with jnp.take and .at[].set: a gather of page ids into fresh
+    # buffers (index_select over dim 1) and a write-back into the pools
+    # in place (index_copy_ into a view: never a rebind, since the decode
+    # graphs captured the pools' addresses). The port does not pad page
+    # ids to a power of two as the reference does for its compile cache.
+    # Page ids and restored pages are uploads, reported to an armed
+    # dispatch guard like any structural upload.
+
+    @property
+    def parked(self) -> List[ParkedSequence]:
+        """Parked (spilled or imported) requests, in restore order."""
+        return self.host_tier.entries() if self.host_tier else []
+
+    def _reserve_tokens(self, prompt_len: int, max_tokens: int) -> int:
+        """Admission reservation in tokens: prompt + max_tokens, or under
+        optimistic admission prompt + min(max_tokens, watermark)."""
+        wm = self.config.kv_watermark_tokens
+        if wm is None:
+            return prompt_len + max_tokens
+        return prompt_len + min(max_tokens, wm)
+
+    def _pools(self) -> List[torch.Tensor]:
+        """The pools a page lives in: values, then scales if quantized."""
+        out = [self.k_pages, self.v_pages]
+        if self.k_scales is not None:
+            out += [self.k_scales, self.v_scales]
+        return out
+
+    def _gather_pages(self, pages: List[int]) -> List[torch.Tensor]:
+        """Copy `pages` of every pool into fresh device buffers (L, n,
+        ...), enqueued on the current stream ahead of any write that
+        reuses the pages."""
+        ids = self._dev(np.asarray(pages, np.int64), "page ids")
+        return [_bits(p).index_select(1, ids).view(p.dtype)
+                for p in self._pools()]
+
+    def _copy_to_host(self, bufs: List[torch.Tensor]
+                      ) -> Tuple[List[torch.Tensor], Optional[Any]]:
+        """Start copying gathered pages into pinned host memory without
+        blocking, on the current stream (the gathered buffers may be
+        recycled once it passes the copy); returns the host tensors and
+        the event after the copies. On the CPU the gather already is the
+        host copy."""
+        if self.device.type != "cuda":
+            return bufs, None
+        hosts = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                 for b in bufs]
+        for h, b in zip(hosts, bufs):
+            _bits(h).copy_(_bits(b), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return hosts, done
+
+    def _scatter_pages(self, pages: List[int], arrays: List[Any]) -> None:
+        """Write host page arrays, one per pool (dim 1: pages), into
+        `pages` of the pools, in place: an upload from pinned memory,
+        then index_copy_. On the card the host memory is held until an
+        event after the copies has passed."""
+        ids = self._dev(np.asarray(pages, np.int64), "page ids")
+        cuda = self.device.type == "cuda"
+        held = []
+        for pool, arr in zip(self._pools(), arrays):
+            src = host_tensor(arr)
+            self._count_upload("restored pages")
+            if cuda:
+                if not (src.is_contiguous() and src.is_pinned()):
+                    pinned = torch.empty(src.shape, dtype=src.dtype,
+                                         pin_memory=True)
+                    _bits(pinned).copy_(_bits(src))
+                    src = pinned
+                held.append(src)
+                src = src.to(self.device, non_blocking=True)
+            _bits(pool).index_copy_(1, ids, _bits(src))
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+            self._upload_holds.append((done, held))
+
+    @staticmethod
+    def _host_pages(parked: ParkedSequence) -> List[Any]:
+        """A parked request's host arrays in _pools() order."""
+        out = [parked.k_host, parked.v_host]
+        if parked.k_scales_host is not None:
+            out += [parked.k_scales_host, parked.v_scales_host]
+        return out
+
+    def _finalize_spills(self) -> None:
+        """Pick up the host copies of last tick's spills (they have had
+        a tick to land), and let go of restore uploads' host memory once
+        their copies have passed."""
+        if self._upload_holds:
+            self._upload_holds = [h for h in self._upload_holds
+                                  if not h[0].query()]
+        if not self._pending_spills:
+            return
+        with self._sync_allowed():
+            for parked in self._pending_spills:
+                parked.materialize()
+        self._pending_spills.clear()
+
+    def _forget_spill(self, parked: Optional[ParkedSequence]) -> None:
+        if parked in self._pending_spills:
+            self._pending_spills.remove(parked)
+
+    def _preempt_slot(self, victim: _Slot, reason: str) -> bool:
+        """Preempt one slot (the caller has drained). A decoding victim
+        spills: its cached pages gather into fresh buffers, their copy
+        to the host starts, the request parks and the pages free for the
+        winner. A prefilling victim requeues at the head of the queue:
+        it emitted nothing, and its cached prompt pages stay in the
+        prefix cache. False when the victim cannot be preempted (no host
+        tier for a decoding victim, or a full one)."""
+        req = victim.request
+        if not victim.ready:
+            self.allocator.free(victim.pages)
+            self._clear_slot(victim)
+            req.restarts += 1
+            self.waiting.insert(0, req)
+            self.preempt_counts[reason] = \
+                self.preempt_counts.get(reason, 0) + 1
+            return True
+        tier = self.host_tier
+        if tier is None:
+            return False
+        n_pages = self.allocator.pages_needed(victim.position)
+        if not tier.can_store(n_pages):
+            return False
+        hosts, done = self._copy_to_host(
+            self._gather_pages(victim.pages[:n_pages]))
+        quant = len(hosts) == 4
+        parked = ParkedSequence(
+            request=req, seed=victim.seed, position=victim.position,
+            last_token=victim.last_token, n_pages=n_pages, reason=reason,
+            k_pending=hosts[0], v_pending=hosts[1], kv_kind=self.kv_kind,
+            k_scales_pending=hosts[2] if quant else None,
+            v_scales_pending=hosts[3] if quant else None, done=done)
+        tier.park(parked)
+        self._pending_spills.append(parked)
+        self.allocator.free(victim.pages)
+        self._clear_slot(victim)
+        self.preempt_counts[reason] = self.preempt_counts.get(reason, 0) + 1
+        return True
+
+    def _alloc_or_preempt(self, n: int, protect,
+                          reason: str) -> Optional[List[int]]:
+        """allocate_pages with preemption as the valve: while pages are
+        short, preempt victims in pick_victim's order until the
+        allocation fits or no victim remains (None: exhausted)."""
+        if n <= 0:
+            return []
+        while n > self.allocator.free_pages:
+            victim = (pick_victim(self.slots, protect,
+                                  spill_ok=self.host_tier is not None)
+                      if self.config.enable_kv_offload else None)
+            if victim is None \
+                    or not self._preempt_slot(victim, reason):
+                return None
+        return self.allocator.allocate_pages(n)
+
+    def _grow_slots(self, touched: List[Request]) -> None:
+        """Optimistic admission's page growth: a decoding slot whose next
+        ticks would write past its pages grows before the dispatch: to
+        its full remaining need when pages are plentiful (it grows once),
+        minimally (with preemption) under pressure. A failed growth
+        finishes the slot with "error"."""
+        if self.config.kv_watermark_tokens is None:
+            return
+        page = self.allocator.page_size
+        # headroom past the host position: the next dispatch writes at
+        # s.position, the fold keeps one more row for the in-flight
+        # successor's write, and with async_readback the host position
+        # lags the device by the tick in flight, so growth triggers one
+        # tick early or the fold's assert trips
+        slack = 2 if self.config.async_readback else 1
+
+        def targets(s):
+            """(minimum, full) token targets, both clamped to the
+            request's final need (prompt + max_tokens, which add_request
+            held to max_seq): growth never asks for a page past the
+            table row, nor preempts for one never written."""
+            rem = max(s.request.params.max_tokens
+                      - len(s.request.output_tokens), 1)
+            final = s.position + rem + 1
+            return min(s.position + 1 + slack, final), final
+
+        def short(s):
+            if s.request is None or not s.ready:
+                return False
+            return len(s.pages) * page < targets(s)[0]
+
+        if not any(short(s) for s in self.slots):
+            return
+        self._drain(touched)          # structural: tables change
+        for s in self.slots:
+            if not short(s):
+                continue              # may have retired in the fold
+            min_tokens, full_tokens = targets(s)
+            full_need = self.allocator.pages_needed(full_tokens) \
+                - len(s.pages)
+            min_need = self.allocator.pages_needed(min_tokens) \
+                - len(s.pages)
+            self._alloc_ctx = s.index
+            try:
+                free = self.allocator.free_pages
+                if free >= min_need:
+                    got = self.allocator.allocate_pages(
+                        max(min(full_need, free), min_need))
+                else:
+                    # the victim order holds across growers too: if this
+                    # slot is itself the designated victim, it parks
+                    # rather than preempting a higher-ranked peer
+                    if self.config.enable_kv_offload and pick_victim(
+                            self.slots, (),
+                            spill_ok=self.host_tier is not None) is s \
+                            and self._preempt_slot(s, "growth"):
+                        continue
+                    got = self._alloc_or_preempt(min_need, (s.index,),
+                                                 "growth")
+            finally:
+                self._alloc_ctx = None
+            if got is None:
+                self._kv_exhausted(s, touched)
+                continue
+            s.pages.extend(got)
+            self._page_tables[s.index][:len(s.pages)] = s.pages
+            self._tables_version += 1
+            self._state_stale = True
+
+    def _restore_reserve(self, parked: ParkedSequence) -> int:
+        """Tokens a restore reserves: the spilled ones, the pending one,
+        and the remaining output (or up to the watermark)."""
+        req = parked.request
+        remaining = req.params.max_tokens - len(req.output_tokens)
+        wm = self.config.kv_watermark_tokens
+        return parked.position + 1 + (remaining if wm is None
+                                      else min(remaining, wm))
+
+    def _restore_parked(self) -> None:
+        """Re-admit parked requests in FIFO order, token-exact: full
+        prompt pages still in the prefix cache are shared as they are
+        (their content is the original prefill's), the rest upload from
+        the host tier into fresh pages. The slot resumes the spilled
+        decode state (position cached tokens, last_token pending, the
+        same seed), so the next tick samples with the key a
+        never-preempted engine would have used. A parked request waits
+        while the waiting head outranks it."""
+        tier = self.host_tier
+        if tier is None or not len(tier):
+            return
+        for parked in tier.entries():
+            slot = next((s for s in self.slots if s.request is None), None)
+            if slot is None:
+                break
+            if self.waiting \
+                    and self.waiting[0].priority > parked.request.priority:
+                # continue, not break: a parked request deeper in the
+                # queue that the head does not outrank still restores
+                continue
+            req = parked.request
+            shared, _ = self.allocator.match_prefix(req.prompt_tokens)
+            need = self.allocator.pages_needed(
+                self._restore_reserve(parked)) - len(shared)
+            if need > self.allocator.free_pages:
+                self.allocator.free(shared)   # undo the match refs
+                break        # the FIFO head waits; no preempt-to-restore
+            with self._sync_allowed():
+                parked.materialize()
+            self._forget_spill(parked)
+            tier.pop(req.request_id)
+            pages = shared + self.allocator.allocate_pages(need)
+            lo, hi = len(shared), parked.n_pages
+            if hi > lo:
+                self._scatter_pages(pages[lo:hi], [
+                    a[:, lo:hi] for a in self._host_pages(parked)])
+            slot.request = req
+            slot.pages = pages
+            slot.prefill_pos = len(req.prompt_tokens)
+            slot.position = parked.position
+            slot.last_token = parked.last_token
+            slot.ready = True
+            slot.seed = parked.seed
+            # offer the full prompt pages to the prefix cache again: an
+            # imported session brings prompt KV this engine never
+            # prefilled
+            self.allocator.register_prefix(
+                req.prompt_tokens,
+                pages[:len(req.prompt_tokens) // self.allocator.page_size])
+            self._set_table(slot)
+            req.restarts += 1
+
+    def _restore_possible(self) -> bool:
+        """_restore_parked's feasibility check for the first parked
+        request the waiting head does not outrank (conservative toward
+        True, like _admit_possible)."""
+        tier = self.host_tier
+        if tier is None or not len(tier):
+            return False
+        if not any(s.request is None for s in self.slots):
+            return False
+        head_pri = self.waiting[0].priority if self.waiting else None
+        parked = next((p for p in tier.entries()
+                       if head_pri is None
+                       or p.request.priority >= head_pri), None)
+        if parked is None:
+            return False
+        need = self.allocator.pages_needed(self._restore_reserve(parked))
+        if self.allocator.enable_prefix_caching:
+            need -= ((len(parked.request.prompt_tokens) - 1)
+                     // self.allocator.page_size)
+        return need <= self.allocator.free_pages
+
+    def _kv_exhausted(self, slot: Optional[_Slot],
+                      touched: List[Request]) -> None:
+        """True page exhaustion: the victim finishes with "error" and the
+        engine goes on serving."""
+        if slot is not None and slot.request is not None:
+            req = slot.request
+            self._finish(slot, "error")
+            touched.append(req)
+
+    def _handle_memory_error(self, exc: MemoryError,
+                             touched: List[Request]) -> None:
+        """A MemoryError out of an allocation that no check covered:
+        finish the slot that was allocating (else the designated victim)
+        with "error", and rebuild the device state over the survivors."""
+        victim: Optional[_Slot] = None
+        if self._alloc_ctx is not None:
+            s = self.slots[self._alloc_ctx]
+            if s.request is not None:
+                victim = s
+        self._alloc_ctx = None
+        if victim is None:
+            victim = pick_victim(self.slots, ())
+        self._kv_exhausted(victim, touched)
+        self._refresh_device_state()
+
+    def page_pressure(self) -> float:
+        """Demand on the device pool as a share of its usable pages: live
+        pages plus parked pages that want back in (> 1: oversubscribed)."""
+        usable = self.allocator.num_usable
+        if not usable:
+            return 0.0
+        host = self.host_tier.used_pages if self.host_tier else 0
+        return (self.allocator.used_pages + host) / usable
+
+    def preempt(self, request_id: str, reason: str = "manual") -> bool:
+        """Preempt one running request: it spills to the host tier when
+        decoding, requeues when prefilling, and restores when pages
+        allow. False if it is not in a slot, or cannot park (no host
+        tier, or a full one, for a decoding request)."""
+        for slot in self.slots:
+            req = slot.request
+            if req is None or req.request_id != request_id:
+                continue
+            if slot.ready and self.host_tier is None:
+                return False
+            self._drain(self._pending_touched)
+            req = slot.request
+            if req is None or req.request_id != request_id:
+                return False          # finished in the drain's fold
+            return self._preempt_slot(slot, reason)
+        return False
+
+    # -- session and prefix transport -----------------------------------
+    def session_ids(self) -> List[str]:
+        """Request ids resident on this engine: slots, waiting, parked."""
+        out = [s.request.request_id for s in self.slots
+               if s.request is not None]
+        out += [r.request_id for r in self.waiting]
+        out += [p.request.request_id for p in self.parked]
+        return out
+
+    def export_session(self, request_id: str, reason: str = "migration"
+                       ) -> Optional[Dict[str, Any]]:
+        """Detach one live request for shipping to another engine, as
+        host state (serialized by serve/llm/kv_transport.py): a parked
+        request leaves the host tier as it is, a decoding one spills
+        first, a waiting or prefilling one leaves cold (no pages: it
+        emitted nothing). None when the request is not here, finished,
+        or cannot be captured (a decoding request with no host tier, or
+        a full one). The request leaves with finish_reason "migrated"."""
+        tier = self.host_tier
+        if tier is not None and request_id in tier:
+            parked = tier.export(request_id)
+            self._forget_spill(parked)
+            with self._sync_allowed():
+                parked.materialize()
+            return self._session_state(parked.request, parked)
+        for i, req in enumerate(self.waiting):
+            if req.request_id == request_id:
+                del self.waiting[i]
+                return self._session_state(req, None)
+        slot = next((s for s in self.slots if s.request is not None
+                     and s.request.request_id == request_id), None)
+        if slot is None:
+            return None
+        if slot.ready and tier is None:
+            return None               # decoding KV cannot be captured
+        self._drain(self._pending_touched)
+        req = slot.request
+        if req is None or req.request_id != request_id or req.finished:
+            return None               # finished in the drain's fold
+        was_ready = slot.ready
+        if not self._preempt_slot(slot, reason):
+            return None               # host tier full
+        if not was_ready:
+            # a prefilling victim requeued: take it back off the queue
+            for i, r in enumerate(self.waiting):
+                if r.request_id == request_id:
+                    del self.waiting[i]
+                    return self._session_state(r, None)
+            return None
+        parked = tier.export(request_id)
+        self._forget_spill(parked)
+        with self._sync_allowed():
+            parked.materialize()
+        return self._session_state(parked.request, parked)
+
+    def _session_state(self, req: Request,
+                       parked: Optional[ParkedSequence]) -> Dict[str, Any]:
+        """The exported session: the JAX engine's keys, so either package
+        imports it. Marks the request finished with "migrated"."""
+        req.finished = True
+        req.finish_reason = "migrated"
+        ddl = None
+        if req.deadline is not None:
+            # a monotonic deadline does not survive a process hop: the
+            # importer converts the wall instant back
+            ddl = time.time() + (req.deadline - time.monotonic())
+        return {
+            "request_id": req.request_id,
+            "prompt_tokens": list(req.prompt_tokens),
+            "output_tokens": list(req.output_tokens),
+            "params": dataclasses.asdict(req.params),
+            "lora": req.lora,
+            "priority": int(req.priority),
+            "tenant": req.tenant,
+            "lane": req.lane,
+            "restarts": int(req.restarts),
+            "trace": req.trace,
+            "deadline_epoch": ddl,
+            "seed": (parked.seed if parked is not None
+                     else self._request_seed(req)),
+            "position": 0 if parked is None else parked.position,
+            "last_token": 0 if parked is None else parked.last_token,
+            "n_pages": 0 if parked is None else parked.n_pages,
+            "k": None if parked is None else parked.k_host,
+            "v": None if parked is None else parked.v_host,
+            # pages ship as stored: the importer must serve the same kind
+            "kv_dtype": self.kv_kind,
+            "k_scales": None if parked is None else parked.k_scales_host,
+            "v_scales": None if parked is None else parked.v_scales_host,
+        }
+
+    def import_session(self, state: Dict[str, Any]) -> Request:
+        """Admit a session exported by another engine (this package's or
+        the JAX package's). A warm session (pages attached) parks in the
+        host tier and restores at the next tick like a local spill: the
+        slot resumes the shipped decode state, and since every token's
+        noise is keyed on (seed, absolute index), with the exporter's
+        seed pinned, the stream goes on as if it never moved. A cold one
+        (nothing emitted) just queues. Returns the live Request. Raises
+        ValueError on an id collision or pages this engine cannot take,
+        MemoryError when the host tier cannot hold them."""
+        if state.get("lora") is not None:
+            raise ValueError(
+                f"session names LoRA adapter {state['lora']!r}: this "
+                f"engine serves no adapters")
+        params = dict(state.get("params") or {})
+        if params.get("stop_token_ids") is not None:
+            params["stop_token_ids"] = tuple(params["stop_token_ids"])
+        # pin the exporter's resolved seed: the noise keys must stay the
+        # same under whatever request id the session runs here
+        params["seed"] = int(state["seed"])
+        req = Request(str(state["request_id"]),
+                      [int(t) for t in state["prompt_tokens"]],
+                      SamplingParams(**params),
+                      trace=state.get("trace"),
+                      priority=int(state.get("priority") or 0),
+                      tenant=str(state.get("tenant") or ""),
+                      lane=str(state.get("lane") or "interactive"))
+        req.output_tokens = [int(t) for t in state.get("output_tokens")
+                             or []]
+        req.restarts = int(state.get("restarts") or 0)
+        if state.get("deadline_epoch") is not None:
+            req.deadline = time.monotonic() + (
+                float(state["deadline_epoch"]) - time.time())
+        n_pages = int(state.get("n_pages") or 0)
+        rid = req.request_id
+        if rid in self.session_ids():
+            raise ValueError(f"request {rid!r} is already live on this "
+                             f"engine")
+        if n_pages == 0:
+            if req.output_tokens:
+                raise ValueError(
+                    "cold session carries emitted tokens; replay it "
+                    "through the continuation path instead")
+            self.add_request(req)
+            return req
+        tier = self.host_tier
+        if tier is None:
+            raise ValueError("import_session requires enable_kv_offload "
+                             "(no host tier to stage the pages in)")
+        position = int(state["position"])
+        if self.allocator.pages_needed(position) != n_pages:
+            raise ValueError(
+                f"inconsistent session: position {position} spans "
+                f"{self.allocator.pages_needed(position)} pages, payload "
+                f"carries {n_pages}")
+        if len(req.prompt_tokens) + req.params.max_tokens > self.max_seq:
+            raise ValueError(f"prompt+max_tokens exceeds max_seq_len "
+                             f"{self.max_seq}")
+        src_kind = str(state.get("kv_dtype") or "f32")
+        if src_kind != self.kv_kind:
+            # pages are never reinterpreted across storage kinds
+            raise ValueError(
+                f"incompatible KV dtype kind: session pages are "
+                f"{src_kind!r}, this engine serves {self.kv_kind!r}")
+        want = (self.k_pages.shape[0], n_pages, *self.k_pages.shape[2:])
+        k, v = state.get("k"), state.get("v")
+        self._check_pages((("k", k), ("v", v)), want, self.k_pages.dtype,
+                          "session")
+        ksc = vsc = None
+        if self.k_scales is not None:
+            ksc, vsc = state.get("k_scales"), state.get("v_scales")
+            self._check_pages((("k_scales", ksc), ("v_scales", vsc)),
+                              want[:-1], torch.float32, "quantized session")
+        parked = ParkedSequence(
+            request=req, seed=int(state["seed"]), position=position,
+            last_token=int(state["last_token"]), n_pages=n_pages,
+            reason="import", k_host=k, v_host=v, kv_kind=src_kind,
+            k_scales_host=ksc, v_scales_host=vsc)
+        tier.park(parked, count_spill=False)  # MemoryError when full
+        return req
+
+    @staticmethod
+    def _check_pages(named, want: Tuple[int, ...], dtype: torch.dtype,
+                     what: str) -> None:
+        """Shipped page arrays must have this pool's geometry and dtype."""
+        for name, arr in named:
+            if arr is None:
+                raise ValueError(f"{what} is missing {name}")
+            if tuple(arr.shape) != tuple(want):
+                raise ValueError(
+                    f"incompatible KV geometry: {what} {name} is "
+                    f"{tuple(arr.shape)}, this engine expects "
+                    f"{tuple(want)}")
+            if host_dtype(arr) != dtype:
+                raise ValueError(
+                    f"incompatible KV dtype: {what} {name} is "
+                    f"{arr.dtype}, the pool is {dtype}")
+
+    def export_prefix(self, prompt_tokens: List[int]
+                      ) -> Optional[Dict[str, Any]]:
+        """The cached full prompt pages of this token chain, gathered to
+        host arrays ({tokens, k, v, kv_dtype}, and the scales of
+        quantized pages). None when nothing is cached."""
+        if not self.allocator.enable_prefix_caching:
+            return None
+        pages = self.allocator.cached_prefix_pages(prompt_tokens)
+        if not pages:
+            return None
+        self._drain(self._pending_touched)
+        bufs = self._gather_pages(pages)
+        with self._sync_allowed():
+            hosts = [host_array(b.cpu()) for b in bufs]
+        out = {"k": hosts[0], "v": hosts[1]}
+        if len(hosts) == 4:
+            out["k_scales"], out["v_scales"] = hosts[2], hosts[3]
+        out["tokens"] = [int(t) for t in
+                         prompt_tokens[:len(pages) * self.allocator.page_size]]
+        out["kv_dtype"] = self.kv_kind
+        return out
+
+    def import_prefix(self, tokens: List[int], k_host, v_host,
+                      k_scales=None, v_scales=None,
+                      kv_dtype: str = "f32") -> int:
+        """Seed the prefix cache with pages prefilled elsewhere: the
+        missing tail of the chain uploads into fresh pages and registers
+        under the keys a local prefill would have used, so the next
+        admission of the prompt matches it. Returns the pages newly
+        seeded (0: already cached, no room, or nothing to import)."""
+        if not self.allocator.enable_prefix_caching:
+            return 0
+        if str(kv_dtype or "f32") != self.kv_kind:
+            raise ValueError(
+                f"incompatible prefix KV dtype kind: pages are "
+                f"{kv_dtype!r}, this engine serves {self.kv_kind!r}")
+        page = self.allocator.page_size
+        n = min(len(tokens) // page, int(k_host.shape[1]))
+        if n == 0:
+            return 0
+        want = (self.k_pages.shape[0], int(k_host.shape[1]),
+                *self.k_pages.shape[2:])
+        self._check_pages((("k", k_host), ("v", v_host)), want,
+                          self.k_pages.dtype, "prefix")
+        arrays = [k_host, v_host]
+        if self.k_scales is not None:
+            self._check_pages((("k_scales", k_scales),
+                               ("v_scales", v_scales)), want[:-1],
+                              torch.float32, "quantized prefix")
+            arrays += [k_scales, v_scales]
+        toks = [int(t) for t in tokens[:n * page]]
+        have = self.allocator.cached_prefix_pages(toks)
+        if len(have) >= n:
+            return 0                  # fully cached already
+        need = n - len(have)
+        if need > self.allocator.free_pages:
+            return 0                  # never evict live work for this
+        self._drain(self._pending_touched)
+        fresh = self.allocator.allocate_pages(need)
+        self._scatter_pages(fresh, [a[:, len(have):n] for a in arrays])
+        self.allocator.register_prefix(toks, have + fresh)
+        # registration took the cache's reference on the fresh pages:
+        # release the allocation's, so they are cache-owned (evictable
+        # under pressure, like a local prefill's)
+        self.allocator.free(fresh)
+        return need
+
     # -- internals ------------------------------------------------------------
     @staticmethod
     def _request_seed(req: Request) -> int:
@@ -658,51 +1399,205 @@ class InferenceEngine:
         return derive_seed(req.request_id)
 
     def _admit_possible(self) -> bool:
-        """Could _admit place the head-of-line request this tick?
-        Conservative toward True (best-case prefix sharing): a needless
-        drain costs only overlap, a missed one would let the ragged pack
-        read one-tick-stale slot state."""
-        if not self.waiting or all(s.request is not None
-                                   for s in self.slots):
+        """Could _admit restore or place anyone this tick? Conservative
+        toward True (best-case prefix sharing): a needless drain costs
+        only overlap, a missed one would let the ragged pack read
+        one-tick-stale slot state."""
+        if self.host_tier is not None and len(self.host_tier):
+            top = max(p.request.priority for p in self.host_tier.entries())
+            if not (self.waiting and self.waiting[0].priority > top):
+                # parked requests restore before (and instead of) new
+                # admissions
+                return self._restore_possible()
+            # a head that outranks every parked request admits past
+            # them: a drain is due only when it can move (a free slot
+            # its pages fit, or a victim it outranks)
+            if any(s.request is None for s in self.slots) \
+                    and self._head_fits():
+                return True
+            return self._priority_victim_exists()
+        if not self.waiting:
             return False
+        if not any(s.request is None for s in self.slots):
+            return self._priority_victim_exists()
+        return self._head_fits() or self._priority_victim_exists()
+
+    def _head_fits(self) -> bool:
+        """Could the waiting head's reservation be claimed now, with
+        best-case prefix sharing (every full page of prompt[:-1], the
+        match's cap, cached)?"""
         req = self.waiting[0]
-        need = self.allocator.pages_needed(len(req.prompt_tokens)
-                                           + req.params.max_tokens)
+        need = self.allocator.pages_needed(self._reserve_tokens(
+            len(req.prompt_tokens), req.params.max_tokens))
         if self.allocator.enable_prefix_caching:
-            # every full page of prompt[:-1] cached (the match's cap)
             need -= (len(req.prompt_tokens) - 1) // self.allocator.page_size
         return need <= self.allocator.free_pages
 
-    def _admit(self) -> None:
-        """Claim free slots + KV pages for waiting requests, head of line
-        first; the prefix-cache match decides where each prefill
-        starts."""
+    def _priority_victim_exists(self) -> bool:
+        """Does the waiting head strictly outrank the designated victim
+        (the slot _preempt_for_priority would take), and can that victim
+        be preempted now (a requeue needs nothing, a spill needs room in
+        the host tier)?"""
+        if not self.config.enable_kv_offload or not self.waiting:
+            return False
+        victim = pick_victim(self.slots, (),
+                             spill_ok=self.host_tier is not None)
+        if victim is None or victim.request.priority \
+                >= self.waiting[0].priority:
+            return False
+        if not victim.ready:
+            return True
+        return (self.host_tier is not None
+                and self.host_tier.can_store(
+                    self.allocator.pages_needed(victim.position)))
+
+    def _preempt_for_priority(self, touched: List[Request]) -> None:
+        """While the waiting head strictly outranks the designated
+        victim (pick_victim's order) and cannot be admitted as things
+        stand, preempt that victim: a request must not queue behind the
+        lower-priority work it exists to displace. Equal priorities
+        never preempt. Bounded by the slot count."""
+        if not self.config.enable_kv_offload or not self.waiting:
+            return
+        for _ in range(len(self.slots)):
+            if not self.waiting:
+                return
+            # re-read the head each round: a requeued victim or a fold
+            # can change it
+            head = self.waiting[0]
+            if any(s.request is None for s in self.slots) \
+                    and self._head_fits():
+                return
+            victim = pick_victim(self.slots, (),
+                                 spill_ok=self.host_tier is not None)
+            if victim is None or victim.request.priority >= head.priority:
+                return
+            self._drain(touched)       # preemption is structural
+            if victim.request is None:
+                continue               # retired in the drain's fold
+            if victim.request.priority >= head.priority:
+                return
+            vreq = victim.request
+            if not self._preempt_slot(victim, "priority"):
+                return                 # host tier full: the head waits
+            # a requeued prefilling victim lands at waiting[0]; it was
+            # preempted by the head, so move it behind every waiter that
+            # outranks it (ahead of its own tier), or it would take the
+            # slot back
+            if self.waiting and self.waiting[0] is vreq:
+                self.waiting.pop(0)
+                i = 0
+                while i < len(self.waiting) \
+                        and self.waiting[i].priority > vreq.priority:
+                    i += 1
+                self.waiting.insert(i, vreq)
+
+    def _admit(self, touched: List[Request]) -> None:
+        """Restore parked requests first, then claim free slots and KV
+        pages for waiting requests, head of line first; the prefix-cache
+        match decides where each prefill starts. While any request is
+        parked, new admissions wait (it holds host memory and came
+        first), except a head that outranks every parked request."""
+        self._restore_parked()
+        if self.host_tier is not None and len(self.host_tier):
+            top = max(p.request.priority for p in self.host_tier.entries())
+            if not (self.waiting and self.waiting[0].priority > top):
+                return
+        self._preempt_for_priority(touched)
+        parked_top: Optional[int] = (
+            max(p.request.priority for p in self.host_tier.entries())
+            if self.host_tier is not None and len(self.host_tier)
+            else None)
         for slot in self.slots:
             if not self.waiting:
                 break
             if slot.request is not None:
                 continue
             req = self.waiting[0]
-            reserve = len(req.prompt_tokens) + req.params.max_tokens
+            if parked_top is not None and req.priority <= parked_top:
+                # the exception holds per head: parked-first resumes once
+                # the head no longer outranks every parked request
+                break
+            reserve = self._reserve_tokens(len(req.prompt_tokens),
+                                           req.params.max_tokens)
             shared, matched = self.allocator.match_prefix(req.prompt_tokens)
             need = self.allocator.pages_needed(reserve) - len(shared)
             if need > self.allocator.free_pages:
                 self.allocator.free(shared)   # undo the match refs
                 break                         # head-of-line admission
             self.waiting.pop(0)
-            self.allocator.record_match(matched, len(req.prompt_tokens))
+            if req.restarts == 0:
+                # a requeued victim counts once
+                self.allocator.record_match(matched, len(req.prompt_tokens))
             slot.request = req
-            slot.pages = shared + self.allocator.allocate_pages(need)
+            self._alloc_ctx = slot.index
+            try:
+                slot.pages = shared + self.allocator.allocate_pages(need)
+            finally:
+                self._alloc_ctx = None
             slot.prefill_pos = matched
             slot.ready = False
             slot.position = 0
             slot.seed = self._request_seed(req)
-            table = np.zeros(self.max_pages_per_seq, np.int32)
-            table[:len(slot.pages)] = slot.pages
-            self._page_tables[slot.index] = table
-            self._tables_version += 1
-            self._mark_seen_dirty(slot.index)
-            self._state_stale = True
+            self._set_table(slot)
+
+    def _set_table(self, slot: _Slot) -> None:
+        """Write a slot's page table row (host), and mark the device
+        state for a refill."""
+        table = np.zeros(self.max_pages_per_seq, np.int32)
+        table[:len(slot.pages)] = slot.pages
+        self._page_tables[slot.index] = table
+        self._tables_version += 1
+        self._mark_seen_dirty(slot.index)
+        self._state_stale = True
+
+    def _expire_deadlines(self, touched: List[Request]) -> None:
+        """Requests past their deadline finish with "deadline" at tick
+        entry: parked ones drop their host KV, running ones retire as an
+        abort does (after a drain), waiting ones leave the queue."""
+        has_slot = any(s.request is not None
+                       and s.request.deadline is not None
+                       for s in self.slots)
+        has_wait = any(r.deadline is not None for r in self.waiting)
+        has_park = (self.host_tier is not None and len(self.host_tier) > 0
+                    and any(p.request.deadline is not None
+                            for p in self.parked))
+        if not (has_slot or has_wait or has_park):
+            return
+        now = time.monotonic()
+        if has_park:
+            for parked in self.parked:
+                req = parked.request
+                if req.deadline is None or now < req.deadline:
+                    continue
+                self.host_tier.drop(req.request_id)
+                self._forget_spill(parked)
+                req.finished = True
+                req.finish_reason = "deadline"
+                touched.append(req)
+        if has_slot:
+            expired = [s for s in self.slots
+                       if s.request is not None
+                       and s.request.deadline is not None
+                       and now >= s.request.deadline]
+            if expired:
+                self._drain(touched)
+                for s in expired:
+                    req = s.request
+                    if req is None or req.finished:
+                        continue       # finished in the drain's fold
+                    self._finish(s, "deadline")
+                    touched.append(req)
+        if has_wait:
+            keep: List[Request] = []
+            for req in self.waiting:
+                if req.deadline is not None and now >= req.deadline:
+                    req.finished = True
+                    req.finish_reason = "deadline"
+                    touched.append(req)
+                else:
+                    keep.append(req)
+            self.waiting = keep
 
     def _ragged_step(self, touched: List[Request]) -> None:
         """One unified tick: pack, run the ragged forward, sample, fold
@@ -929,6 +1824,11 @@ class InferenceEngine:
         slot.request.finished = True
         slot.request.finish_reason = reason
         self.allocator.free(slot.pages)
+        self._clear_slot(slot)
+
+    def _clear_slot(self, slot: _Slot) -> None:
+        """Return a slot to the empty state (its pages already released:
+        _finish frees them, a preemption spills and then frees)."""
         slot.request = None
         slot.pages = []
         slot.position = 0

@@ -1,8 +1,9 @@
 """Host-side page allocator for the paged KV cache.
 
 A copy of ``ray_tpu/llm/_internal/kv_cache.py``'s ``PageAllocator``
-(this package imports nothing from the JAX package), without the
-host-tier hook that KV offload uses.
+(this package imports nothing from the JAX package). The engine
+attaches its host KV tier (``kv_offload.HostKVTier``) as ``host_tier``
+so that one ``stats()`` reports device and parked host pages together.
 
 Reference parity: vLLM's BlockManager role (external to the reference —
 net-new here; SURVEY.md §7 step 10). Pages are allocated worst-case at
@@ -22,7 +23,7 @@ and are evicted LRU only under allocation pressure.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 class PageAllocator:
@@ -40,6 +41,9 @@ class PageAllocator:
         self._key_by_page: Dict[int, Tuple] = {}
         self.cache_hit_tokens = 0
         self.cache_query_tokens = 0
+        # the next tier down: the engine's HostKVTier, when KV offload
+        # is on (its stats join this allocator's)
+        self.host_tier: Optional[Any] = None
 
     # ------------------------------------------------------------ basics
     def pages_needed(self, num_tokens: int) -> int:
@@ -111,6 +115,20 @@ class PageAllocator:
             self._rc[page] = self._rc.get(page, 0) + 1
             pages.append(page)
         return pages, len(pages) * self.page_size
+
+    def cached_prefix_pages(self, tokens: Sequence[int]) -> List[int]:
+        """Longest cached chain of FULL pages for `tokens`, in chain
+        order, without taking references or touching the LRU order (the
+        prefix export and import paths only inspect the cache). Unlike
+        match_prefix it is not capped one token short: every cached page
+        of the prompt counts."""
+        pages: List[int] = []
+        for key in self._chain_keys(tokens):
+            page = self._cache.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
 
     def record_match(self, matched: int, prompt_len: int) -> None:
         """Hit-rate accounting, called ONCE per ADMITTED request (a
@@ -192,4 +210,6 @@ class PageAllocator:
             "cache_query_tokens": self.cache_query_tokens,
             "cache_hit_rate": self.cache_hit_rate,
         }
+        if self.host_tier is not None:
+            out.update(self.host_tier.stats())
         return out

@@ -889,3 +889,106 @@ def test_dispatch_guard_on_the_card(dev):
         with dispatch_guard(engine=eng):
             eng.step()
             eng._d_tokens.sum().item()
+
+
+def _restored_rows_equal(eng, slot, parked):
+    """A gather of the restored slot's first `position` token rows
+    against the host copy it was restored from, byte for byte."""
+    from ray_tpu_torch.llm._internal.engine import _bits
+    from ray_tpu_torch.llm._internal.kv_offload import host_tensor
+    got = eng._gather_pages(slot.pages[:parked.n_pages])
+    for g, h in zip(got, eng._host_pages(parked)):
+        rows_g = _bits(g.cpu()).flatten(1, 2)[:, :parked.position]
+        rows_h = _bits(host_tensor(h)).flatten(1, 2)[:, :parked.position]
+        if not torch.equal(rows_g, rows_h):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8", "fp8"])
+def test_graph_engine_preempt_restore_in_place(dev, kind):
+    """Preempt (spill) and restore on the default engine (decode graphs,
+    pipelined readback): every stream equals a run of the same engine
+    never preempted, no graph is captured in that run, the pools keep
+    their addresses (the restore writes in place), and a gather of the
+    restored pages equals the host copy byte for byte."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request, \
+        SamplingParams
+    eng = InferenceEngine(EngineConfig(max_batch_size=4, num_pages=129,
+                                       seed=3, kv_dtype=kind,
+                                       enable_kv_offload=True))
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (40, 23, 57, 9)]
+
+    def run(preempt):
+        eng.allocator.clear_cache()
+        reqs = [Request(f"p{i}", p, SamplingParams(
+            max_tokens=24, temperature=0.8, top_k=40, seed=20 + i))
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.add_request(r)
+        while len(reqs[1].output_tokens) < 6:
+            eng.step()
+        ok = True
+        if preempt:
+            assert eng.preempt("p1")
+            parked = eng.parked[0]
+            eng.step()
+            slot = next(s for s in eng.slots if s.request is reqs[1])
+            ok = _restored_rows_equal(eng, slot, parked)
+        while eng.has_work():
+            eng.step()
+        return [r.output_tokens for r in reqs], ok
+
+    want, _ = run(False)
+    captures = eng.graph_captures
+    ptrs = [t.data_ptr() for t in eng._pools()]
+    got, bytes_equal = run(True)
+    assert got == want
+    assert bytes_equal
+    assert eng.graph_captures == captures
+    assert [t.data_ptr() for t in eng._pools()] == ptrs
+    st = eng.stats()
+    assert st["kv"]["spills_total"] == st["kv"]["restores_total"] == 1
+    eng.release_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "fp8"])
+def test_graph_engine_oversubscribed_matches_eager(dev, kind):
+    """Optimistic admission on the default engine: growth preempts, the
+    victims spill and restore, every request finishes, and the streams,
+    preemption counts, spills and restores equal an engine that runs
+    the same ticks eagerly (cuda_graph=False, same readback mode, so the
+    same packing)."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request, \
+        SamplingParams
+    kw = dict(max_batch_size=4, page_size=8, seed=9, max_prefill_tokens=16,
+              num_pages=15, enable_kv_offload=True, kv_watermark_tokens=8,
+              kv_dtype=kind)
+    graph = InferenceEngine(EngineConfig(**kw))
+    eager = InferenceEngine(EngineConfig(cuda_graph=False, **kw),
+                            params=graph.params)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(2, 250, (12,), generator=gen).tolist()
+               for _ in range(8)]
+    outs = []
+    for e in (graph, eager):
+        reqs = [Request(f"q{i}", p, SamplingParams(
+            max_tokens=44, temperature=0.7, top_p=0.9, seed=i))
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.add_request(r)
+        while e.has_work():
+            e.step()
+        assert all(r.finish_reason == "length" for r in reqs)
+        assert len(e.parked) == 0 and e.host_tier.used_bytes == 0
+        outs.append(([r.output_tokens for r in reqs],
+                     dict(e.preempt_counts), e.host_tier.spills_total,
+                     e.host_tier.restores_total))
+    assert outs[0] == outs[1]
+    assert outs[0][2] >= 1 and outs[0][3] == outs[0][2]
+    assert graph.graph_captures >= 1 and eager.graph_captures == 0
+    graph.release_graphs()
