@@ -19,7 +19,11 @@ Phases (any failure raises and exits non-zero):
      work of a wrapper call in us and the decode route it took, the
      plain version's and one PyTorch library call's times, and the
      least time the card could take; the ragged kernel on each tick of
-     RAGGED_TICKS, two launches bit-identical;
+     RAGGED_TICKS, two launches bit-identical; the sampler's noise
+     kernel against its plain version at B 8, V 128256 (bits and
+     uniforms bit-equal, Gumbel values within 2^-22 x max(1, |g|)) with
+     its times (here, early in the process: late in it the profiler
+     lost some of this kernel's launches, ROADMAP §C);
   4. flash kernels vs plain: forward, dq and dk/dv against their plain
      versions at 8b widths (B=4, S=2048, causal, bf16), at 1b widths
      (D=64), at S=1000 (every tile cut unevenly) and on a small
@@ -54,9 +58,6 @@ Phases (any failure raises and exits non-zero):
      ticks of the default engine under dispatch_guard with no upload,
      no capture, one readback a tick, and, in the profiler, no Memcpy
      HtoD and one cudaGraphLaunch a tick; each engine's peak memory;
-     the noise kernel against its plain version at B 8, V 128256
-     (bits and uniforms bit-equal, Gumbel values within 2^-22 x
-     max(1, |g|)) with its times;
   5d. KV memory hierarchy: on bf16, int8 and fp8 pages (same weights,
      full depth, default engines): 16 seeded prompts of 240-720 tokens,
      96 tokens each, at B 8 on 128 usable pages (kv_watermark_tokens
@@ -77,6 +78,27 @@ Phases (any failure raises and exits non-zero):
      bytes; a session exported mid-decode through the RTKV wire into a
      second engine, token-exact; an int8 frame into an fp8 engine
      refused; an exported prefix hitting in the second engine;
+  5e. serving replica: LLMServerImpl on the `8b` preset at full width
+     and depth (random bf16 weights from seed 0, B 8, pages of 16, 1025
+     pages, every observability switch on): 8 completions, 2 chats and
+     2 token streams (prompts of 14-1535 tokens, greedy, 64 tokens) at
+     once through asyncio; the tokens of each equal those of an engine
+     driven directly with the same weights (or differ at a near tie as
+     in phase 5), responses agree with their tokens; TTFT, TPOT and e2e
+     (p50, p99, from the /debug/trace lifecycles, one a request) and
+     stats()["requests"], output tokens/s; stats()["perf"] against the
+     h100 envelope (every MFU and MBU share in (0, 1]) and the mixed and
+     decode ticks' walls, with a decode tick's bytes by the cost model
+     beside the bytes of the engine's tensors; decode ticks with every
+     switch on against off on one engine (median within the spread); a
+     guarded window with observability on (no upload, no capture, one
+     readback and one cudaGraphLaunch a tick); the cold ticks (compile
+     events) and every tick the anomaly detector flagged, by class; a
+     black-box bundle written and read back; profile_next_ticks(4) over
+     mixed and decode ticks, whose Chrome trace holds as many ragged and
+     decode launches as the counters moved; the exposition parses with
+     the JAX family names; a session moved from one server to a second
+     through the RTKV wire, token-exact;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -88,7 +110,9 @@ Phases (any failure raises and exits non-zero):
      {"ok": true, "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
-prints them instead of the result line.
+prints them instead of the result line. `--only profiler` (development)
+runs the profiler-loss check instead of every phase (see
+`profiler_check`) and prints its counts instead of the result line.
 
 Imports neither jax nor ray_tpu.
 Exits non-zero before printing any result when CUDA is unavailable.
@@ -172,13 +196,14 @@ def dev_us(e):
 
 def device_events(prof):
     """The profiler's device kernel rows (an aten op's row repeats its
-    kernels' time, so only the kernels themselves)."""
+    kernels' time, so only the kernels themselves), the lead-in's
+    kernels left out."""
     evs = [e for e in prof.key_averages() if dev_us(e) > 0
            and str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not evs:
         evs = [e for e in prof.key_averages() if dev_us(e) > 0
                and not e.key.startswith(("aten::", "cuda"))]
-    return evs
+    return [e for e in evs if "spin_kernel" not in e.key]
 
 
 def repeat(fn, n):
@@ -190,15 +215,20 @@ def traced(fn, host=False):
     """torch.profiler over fn() and a synchronise: the device's activity
     (kernels, copies, the CUDA runtime's calls), and with `host` the
     host's operators too (slow to gather over eager ticks); returns
-    (profile, wall ms of fn and the synchronise)."""
+    (profile, wall ms of fn and the synchronise). The window is padded as
+    util/profiling.py says (lead-in kernels before fn, idle time after
+    the synchronise): the profiler loses records at unpadded edges."""
     from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.util import profiling
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     with profile(activities=acts) as prof:
+        profiling.lead_in()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        profiling.settle()
     return prof, wall
 
 
@@ -208,22 +238,18 @@ def device_ms(fn, keys, calls=10, by_kernel=False):
     warm-up): the kernels' own time, without the wrapper's host work
     that the CUDA-event time of a single call also holds when the
     device waits on the host. With by_kernel, also {kernel: ms a call}.
-    Each kernel's time is the mean over the launches the profiler
-    recorded, times its launches a call: late in this script's process
-    the profiler records one launch fewer than were made (say 9 of 10)
-    for some kernels, which a sum over `calls` would read as a faster
-    kernel. None (not measured) when no launch was recorded."""
+    Fails when the profile holds no such kernel, or a kernel's launches
+    are not a whole number a call (a record the profiler lost)."""
     fn()
-    prof, _ = traced(lambda: repeat(fn, calls))
+
+    def short(evs):
+        mine = [e for e in evs if any(k in e.key for k in keys)]
+        return [(e.key[:40], e.count) for e in mine
+                if e.count % calls] or (not mine and "no launch")
+    prof, _ = profiled(lambda: repeat(fn, calls), f"device_ms {keys}",
+                       check=short)
     evs = [e for e in device_events(prof) if any(k in e.key for k in keys)]
-    short = [(e.key[:40], e.count) for e in evs if e.count % calls]
-    if short or not evs:
-        log(f"[profiler] {keys}: recorded {short or 'no'} launches over "
-            f"{calls} calls")
-    if not evs:
-        return (None, {}) if by_kernel else None
-    rows = {e.key: dev_us(e) / 1e3 / e.count * max(1, round(e.count / calls))
-            for e in evs}
+    rows = {e.key: dev_us(e) / 1e3 / calls for e in evs}
     total = sum(rows.values())
     return (total, rows) if by_kernel else total
 
@@ -1077,6 +1103,119 @@ def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
     return exact
 
 
+def profiler_check(seconds=75.0, n=10):
+    """How often a torch.profiler session loses kernel records, by how
+    the session opens: "none" (the work right after the start), "idle"
+    (20 ms of host idle first), "lead" (util/profiling's lead_in and
+    settle around the work). Every ~3 s (bf16 matmuls in between, so
+    the process ages under load) one session a mode, each over `n` spin
+    kernels of ~20 us; a session is short when the trace lacks a kernel
+    whose launch call it holds. Returns {mode: {sessions, short, lost
+    launch indices}}; run it with TEARDOWN_CUPTI=0 in the environment to
+    keep CUPTI up between sessions."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.util import profiling
+    tmp = tempfile.mkdtemp()
+    x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    out = {m: dict(sessions=0, short=0, lost=[]) for m in
+           ("none", "idle", "lead")}
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        for mode, res in out.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if mode == "idle":
+                    time.sleep(0.02)
+                elif mode == "lead":
+                    profiling.lead_in()
+                for _ in range(n):
+                    torch.cuda._sleep(40_000)
+                if mode == "lead":
+                    profiling.settle()
+                else:
+                    torch.cuda.synchronize()
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                evs = json.load(f)["traceEvents"]
+            kern = {e["args"].get("correlation") for e in evs
+                    if e.get("cat") == "kernel" and "spin" in e["name"]}
+            calls = sorted((e for e in evs if e.get("cat") == "cuda_runtime"
+                            and "LaunchKernel" in e["name"]),
+                           key=lambda e: e["ts"])[-n:]
+            lost = [i for i, e in enumerate(calls)
+                    if e["args"].get("correlation") not in kern]
+            res["sessions"] += 1
+            if lost:
+                res["short"] += 1
+                res["lost"].append((round(time.time() - t0, 1), lost))
+        t1 = time.time()
+        while time.time() - t1 < 2.0:
+            for _ in range(50):
+                x @ x
+            torch.cuda.synchronize()
+    log(f"[profiler check] TEARDOWN_CUPTI="
+        f"{os.environ.get('TEARDOWN_CUPTI', 'unset')}: " + "; ".join(
+            f"{m} {r['short']} of {r['sessions']} sessions short"
+            for m, r in out.items()))
+    return out
+
+
+# kernel name part -> the launch counters that count its launches
+RECORDED = (("ragged", "ragged_paged"), ("paged_decode", "paged_decode"),
+            ("flash_fwd", "flash_fwd"), ("flash_dq", "flash_dq"),
+            ("flash_dkv", "flash_dkv"), ("row_gumbel", "row_gumbel"))
+
+
+def lost_records(evs, before):
+    """Each hand-written kernel's launches in a profile's rows against
+    the launch counters' moves since `before` (combine passes apart):
+    {kernel: (recorded, counted)} where they differ."""
+    from ray_tpu_torch.ops import _kernels
+    after = _kernels.launch_counts()
+    out = {}
+    for key, counter in RECORDED:
+        got = sum(e.count for e in evs
+                  if key in e.key and "combine" not in e.key)
+        want = sum(after[k] - before[k] for k in after
+                   if k.startswith(counter))
+        if got != want:
+            out[key] = (got, want)
+    return out
+
+
+# profile windows this run, and those that lost a record
+PROFILES = dict(windows=0, lost=0)
+PROFILE_ATTEMPTS = 3
+
+
+def profiled(window, label, host=False, check=None):
+    """traced(window) with a check of the records: by default every
+    hand-written kernel's launches against the launch counters
+    (lost_records); `check(evs)` returns what is missing instead. A
+    profile that lost records is taken again over the next call of
+    `window` (equivalent work: more steady ticks, another train step,
+    the same kernel calls), at most PROFILE_ATTEMPTS windows; then the
+    run fails. Every loss is printed (ROADMAP §C: the profiler at times
+    loses a whole session)."""
+    from ray_tpu_torch.ops import _kernels
+    for attempt in range(PROFILE_ATTEMPTS):
+        before = _kernels.launch_counts()
+        prof, wall = traced(window, host=host)
+        evs = device_events(prof)
+        lost = check(evs) if check else lost_records(evs, before)
+        PROFILES["windows"] += 1
+        if not lost:
+            return prof, wall
+        PROFILES["lost"] += 1
+        log(f"[profiler] {label}: the profile lost records {lost} "
+            f"(window {attempt + 1} of {PROFILE_ATTEMPTS})")
+    raise AssertionError(f"{label}: {PROFILE_ATTEMPTS} profiles lost "
+                         f"records")
+
+
 def kernel_groups(evs):
     """The profiler's kernel rows by group: {group: {ms, launches}}."""
     groups = {}
@@ -1100,8 +1239,10 @@ def kernel_groups(evs):
 
 def profile_ticks(eng, prompts, n_ticks, label):
     """torch.profiler over `n_ticks` engine steps: the kernels with the
-    most device time, and device time against wall time."""
-    prof, wall = traced(lambda: repeat(eng.step, n_ticks))
+    most device time, and device time against wall time. The serving
+    kernels' launches in the profile must equal the launch counters'."""
+    prof, wall = profiled(lambda: repeat(eng.step, n_ticks),
+                          f"profile {label}")
     evs = device_events(prof)
     total = sum(dev_us(e) for e in evs) / 1e3
     top = sorted(evs, key=dev_us, reverse=True)[:10]
@@ -1140,7 +1281,7 @@ def run_profile(eng, prompts):
         # a fresh first token per prompt: no prefix-cache hit, so the
         # prompts prefill in full and the first ticks are mixed ticks
         eng.add_request(Request(f"prof{i}", [200 + i] + list(p),
-                                SamplingParams(max_tokens=40)))
+                                SamplingParams(max_tokens=64)))
     mixed = profile_ticks(eng, prompts, 3, "mixed ticks")
     while any(s.request is not None and not s.ready for s in eng.slots):
         eng.step()
@@ -1229,12 +1370,14 @@ def steady_decode(eng, label, guard):
     profile: no upload, no capture, one readback a tick, no Memcpy HtoD,
     one graph launch a tick. Then the same batch sampled, timed."""
     from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.util.dispatch_guard import dispatch_guard
     gen = torch.Generator().manual_seed(77)
     B = eng.config.max_batch_size
     # room for the mixed ticks of the prefill: no request may finish
     # inside the timed, profiled or guarded windows
-    n_tok = STEADY_TICKS + PROFILED_TICKS + GUARD_TICKS + 24
+    n_tok = STEADY_TICKS + (PROFILED_TICKS + GUARD_TICKS) \
+        * PROFILE_ATTEMPTS + 24
     out = {}
     for mode, sp in (("greedy", {}), ("sampled", SAMPLED)):
         for i in range(B):
@@ -1259,7 +1402,8 @@ def steady_decode(eng, label, guard):
         wall = statistics.median(walls)
         res = dict(tick_ms=wall, ticks_ms=walls)
         if mode == "greedy":
-            prof, _ = traced(lambda: repeat(eng.step, PROFILED_TICKS))
+            prof, _ = profiled(lambda: repeat(eng.step, PROFILED_TICKS),
+                               f"ticks {label} profile")
             busy = sum(dev_us(e) for e in device_events(prof)) / 1e3 \
                 / PROFILED_TICKS
             res.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / wall))
@@ -1292,8 +1436,8 @@ def guarded_window(eng, label, dispatch_guard):
             for _ in range(GUARD_TICKS):
                 eng.step()
         reports.append(report)
-    prof, _ = traced(window, host=True)
-    report = reports[0]
+    prof, _ = profiled(window, f"ticks {label} guard", host=True)
+    report = reports[-1]
     rows = prof.key_averages()
     htod = sum(e.count for e in rows if "Memcpy HtoD" in e.key)
     launches = sum(e.count for e in rows if "cudaGraphLaunch" in e.key)
@@ -1301,7 +1445,7 @@ def guarded_window(eng, label, dispatch_guard):
         f"uploads {len(report.uploads)}, captures {len(report.captures)}, "
         f"readbacks {report.readbacks}; profiler: Memcpy HtoD {htod}, "
         f"cudaGraphLaunch {launches}")
-    if report.uploads or report.captures or htod \
+    if any(r.uploads or r.captures for r in reports) or htod \
             or report.readbacks != GUARD_TICKS \
             or launches != GUARD_TICKS or eng.graph_captures != captures:
         raise AssertionError(f"{label}: a steady decode tick is not one "
@@ -1404,9 +1548,8 @@ def run_tick_mechanics(dev, params, graph_sides):
     readback; `graph_sides`) against cuda_graph=False,
     async_readback=False; token-exact greedy and sampled streams, honest
     launch counters, steady tick times and idle shares of both, a
-    guarded window of the default engine, peak memory of each; then the
-    noise kernel against its plain version. Returns (the noise kernel's
-    row, numbers)."""
+    guarded window of the default engine, peak memory of each. Returns
+    the numbers."""
     from ray_tpu_torch import ByteTokenizer
     tok = ByteTokenizer(128256)
     prompts = [tok.encode(t) for t in PROMPT_TEXTS]
@@ -1421,7 +1564,7 @@ def run_tick_mechanics(dev, params, graph_sides):
         log(f"[ticks {kind}] graph vs eager: greedy and sampled streams "
             f"token-exact")
         out[kind] = dict(eager=eager[2], graph=graph[2])
-    return check_noise(dev), out
+    return out
 
 
 # --------------------------------------------------- KV hierarchy (5d)
@@ -1911,6 +2054,599 @@ def run_kv_hierarchy(params):
     return out
 
 
+# ----------------------------------------------------------- serving replica
+
+SERVER_MODEL = "8b"
+SERVER_KW = dict(max_batch_size=8, page_size=16, max_prefill_tokens=512,
+                 num_pages=1025, seed=0, enable_kv_offload=True)
+SERVER_TOKENS = 64
+AB_TICKS = 16           # steady decode ticks a window of the overhead A/B
+PROFILE_TICKS = 4
+# the observability switches, all off (the A/B's other arm)
+OBS_OFF = dict(enable_metrics=False, enable_perf_accounting=False,
+               enable_attribution=False, enable_anomaly_detection=False,
+               enable_blackbox=False)
+# families every exposition must carry (the JAX package's names)
+FAMILIES = ("ray_tpu_llm_ttft_seconds", "ray_tpu_llm_itl_seconds",
+            "ray_tpu_llm_queue_wait_seconds",
+            "ray_tpu_llm_e2e_latency_seconds",
+            "ray_tpu_llm_generated_tokens_total",
+            "ray_tpu_llm_finished_total", "ray_tpu_llm_kv_pages_used",
+            "ray_tpu_llm_flops_total", "ray_tpu_llm_hbm_bytes_total",
+            "ray_tpu_llm_mfu", "ray_tpu_llm_mbu")
+
+
+def server_bodies():
+    """12 OpenAI bodies, greedy, SERVER_TOKENS each: 8 completions, 2
+    chats and 2 token streams over prompts of 14-1535 tokens."""
+    t = PROMPT_TEXTS
+    comp = [dict(prompt=x) for x in t] + [
+        dict(prompt=t[0][:700] + " Part two."), dict(prompt=t[2] + " Again.")]
+    chat = [dict(messages=[{"role": "user", "content": t[3]}]),
+            dict(messages=[{"role": "system", "content": "Be brief."},
+                           {"role": "user", "content": t[1]}])]
+    stream = [dict(prompt=t[4] + " Tell me more."),
+              dict(prompt=t[5] + " Why?")]
+    for b in comp + chat + stream:
+        b.update(max_tokens=SERVER_TOKENS, temperature=0.0)
+    return comp, chat, stream
+
+
+async def serve_bodies(srv, comp, chat, stream):
+    """All bodies at once through the server's entry points; returns
+    (unary results, stream token lists, wall s)."""
+    import asyncio
+
+    async def tokens(body):
+        out = []
+        async for c in srv.completions_stream_tokens(dict(body)):
+            out += c["toks"]
+        return out
+    t0 = time.perf_counter()
+    res = await asyncio.gather(
+        *[srv.completions(dict(b)) for b in comp],
+        *[srv.chat(dict(b)) for b in chat],
+        *[tokens(b) for b in stream])
+    wall = time.perf_counter() - t0
+    n = len(comp) + len(chat)
+    return res[:n], res[n:], wall
+
+
+def lifecycles(trace):
+    """Per request of a /debug/trace document: TTFT, TPOT and e2e (ms)
+    from its lifecycle events; fails unless every request has exactly
+    one queued, prefill, first_token, decode and finished event."""
+    by = {}
+    for e in trace["traceEvents"]:
+        rid = (e.get("args") or {}).get("request_id")
+        if rid is None or e.get("cat") != "request" \
+                or e["name"] == "prefill_chunk":
+            continue
+        name = "finished" if e["name"].startswith("finished:") else e["name"]
+        by.setdefault(rid, {}).setdefault(name, []).append(e)
+    out = {}
+    for rid, evs in by.items():
+        if sorted(evs) != ["decode", "finished", "first_token", "prefill",
+                           "queued"] or any(len(v) != 1
+                                            for v in evs.values()):
+            raise AssertionError(f"request {rid}: lifecycle events "
+                                 f"{ {k: len(v) for k, v in evs.items()} }")
+        q, d = evs["queued"][0]["ts"], evs["decode"][0]
+        n = d["args"]["generated_tokens"]
+        out[rid] = dict(ttft=(evs["first_token"][0]["ts"] - q) / 1e3,
+                        tpot=d["dur"] / 1e3 / max(n - 1, 1),
+                        e2e=(evs["finished"][0]["ts"] - q) / 1e3, tokens=n)
+    return out
+
+
+def pctl(vals, q):
+    s = sorted(vals)
+    return s[min(int(q * (len(s) - 1) + 0.5), len(s) - 1)] if s else 0.0
+
+
+def tick_kinds(eng):
+    """The perf window's ticks by kind (ragged: mixed, decode): count,
+    median wall ms, and MFU/MBU over their summed walls."""
+    env = eng.perf.envelope
+    out = {}
+    for kind in ("ragged", "decode"):
+        ts = [t for t in eng.perf.window() if t.kind == kind]
+        if not ts:
+            continue
+        busy = sum(t.wall_ms for t in ts) / 1e3
+        out[kind] = dict(
+            ticks=len(ts), wall_ms=statistics.median(t.wall_ms for t in ts),
+            tokens=statistics.median(t.decode_tokens + t.prefill_tokens
+                                     for t in ts),
+            tflop=statistics.median(t.flops for t in ts) / 1e12,
+            gb=statistics.median(t.hbm_bytes for t in ts) / 1e9,
+            mfu=sum(t.flops for t in ts) / (busy * env.peak_flops),
+            mbu=sum(t.hbm_bytes for t in ts) / (busy * env.peak_bytes_per_s))
+    return out
+
+
+def actual_decode_bytes(eng, sample):
+    """A decode tick's weight bytes as this engine holds them (every
+    layer matrix and norm, the final norm and the float32 head, read
+    once; one embedding row a token), beside the cost model's closed
+    form for the same tick."""
+    p = eng.params
+    nb = lambda t: t.numel() * t.element_size()
+    weights = (sum(nb(t) for t in p["layers"].values()) + nb(p["final_norm"])
+               + nb(p["lm_head"])
+               + sample.decode_tokens * p["embed"].shape[1]
+               * p["embed"].element_size())
+    kv = sample.bytes_kv_read + sample.bytes_kv_write
+    return dict(model_weights=sample.bytes_weights, actual_weights=weights,
+                kv=kv, model_total=sample.hbm_bytes, actual_total=weights + kv)
+
+
+def quiet_profiler(eng):
+    """Let a profile the anomaly detector armed on `eng` run out before
+    this script profiles or times it: one profiler at a time, and no
+    profiled tick inside a timed window."""
+    from ray_tpu_torch import Request, SamplingParams
+    n = 0
+    while eng._profile is not None:
+        if not eng.has_work():
+            n += 1
+            eng.add_request(Request(f"quiet{n}", [5, 6, 7],
+                                    SamplingParams(max_tokens=2)))
+        eng.step()
+
+
+def pump_gaps(eng):
+    """Host ms between consecutive ticks spent outside step() (the
+    server's pump, its executor hop and the streams' work): each tick's
+    commit stamp minus the previous one's, less its own wall; median,
+    p90 and max over the ticks of the perf window, and their sum beside
+    the summed tick walls."""
+    ts = eng.perf.window()
+    gaps = [(b.mono_ts - a.mono_ts) * 1e3 - b.wall_ms
+            for a, b in zip(ts, ts[1:])]
+    return dict(median_ms=statistics.median(gaps), p90_ms=pctl(gaps, 0.9),
+                max_ms=max(gaps), sum_ms=sum(gaps),
+                walls_ms=sum(t.wall_ms for t in ts), ticks=len(gaps))
+
+
+def set_observability(eng, saved=None):
+    """Turn every observability switch of `eng` off (returns what to
+    restore), or back on from `saved`: the overhead A/B on one engine."""
+    names = ("perf", "attrib", "anomaly")
+    if saved is None:
+        saved = {n: getattr(eng, n) for n in names}
+        saved["metrics"] = eng.telemetry.enabled
+        for n in names:
+            setattr(eng, n, None)
+        eng.telemetry.enabled = False
+        return saved
+    for n in names:
+        setattr(eng, n, saved[n])
+    eng.telemetry.enabled = saved["metrics"]
+    return None
+
+
+def overhead_ab(eng):
+    """Steady decode ticks, windows of AB_TICKS with observability off,
+    on, on, off, on one engine (same requests, weights and graphs):
+    each window's median tick (step() and a synchronise). The on
+    windows' median must not exceed the off windows' by more than the
+    spread between windows of one arm (or 2%)."""
+    from ray_tpu_torch import Request, SamplingParams
+    gen = torch.Generator().manual_seed(88)
+    for i in range(eng.config.max_batch_size):
+        eng.add_request(Request(
+            f"ab{i}", torch.randint(1000, 100000, (30 + 40 * i,),
+                                    generator=gen).tolist(),
+            SamplingParams(max_tokens=4 * AB_TICKS + 40
+                           + PROFILE_ATTEMPTS * GUARD_TICKS)))
+    while eng.waiting or any(s.request is not None and not s.ready
+                             for s in eng.slots):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    meds = {}
+    for arm in ("off", "on", "on2", "off2"):
+        quiet_profiler(eng)
+        saved = set_observability(eng) if arm.startswith("off") else None
+        walls = []
+        for _ in range(AB_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if saved is not None:
+            set_observability(eng, saved)
+        meds[arm] = statistics.median(walls)
+    on = statistics.median([meds["on"], meds["on2"]])
+    off = statistics.median([meds["off"], meds["off2"]])
+    spread = max(abs(meds["on"] - meds["on2"]),
+                 abs(meds["off"] - meds["off2"]))
+    log(f"[server] overhead A/B, {AB_TICKS} steady decode ticks a window: "
+        f"median tick off {meds['off']:.3f} / on {meds['on']:.3f} / on "
+        f"{meds['on2']:.3f} / off {meds['off2']:.3f} ms; on {on:.3f} vs off "
+        f"{off:.3f} ms, spread {spread:.3f} ms")
+    if on > off + max(spread, 0.02 * off):
+        raise AssertionError(f"decode tick with observability on {on:.3f} "
+                             f"ms against off {off:.3f} ms: beyond the "
+                             f"spread {spread:.3f} ms")
+    return dict(windows_ms=meds, on_ms=on, off_ms=off, spread_ms=spread)
+
+
+def profile_window(srv):
+    """profile_next_ticks over PROFILE_TICKS ticks holding mixed ticks
+    (two 600-token prompts prefilling beside six decoding requests) and a
+    decode tick: the Chrome trace must hold as many ragged and decode
+    kernel launches as the launch counters moved (the combine passes
+    apart). A trace that lost records is taken again on a fresh window
+    (at most PROFILE_ATTEMPTS), as `profiled` does."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        res = profile_attempt(srv, attempt)
+        PROFILES["windows"] += 1
+        if res["recorded"] == res["counted"]:
+            return res
+        PROFILES["lost"] += 1
+        log(f"[profiler] profile_next_ticks: the trace lost records "
+            f"(window {attempt + 1} of {PROFILE_ATTEMPTS})")
+    raise AssertionError("the profile's kernel launches differ from the "
+                         "launch counters")
+
+
+def profile_attempt(srv, attempt):
+    import asyncio
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util import profiling
+    eng = srv.engine
+    gen = torch.Generator().manual_seed(99 + attempt)
+    for i in range(8):
+        n = 600 if i >= 6 else 40 + 11 * i
+        eng.add_request(Request(
+            f"prof{attempt}-{i}", torch.randint(1000, 100000, (n,),
+                                                generator=gen).tolist(),
+            SamplingParams(max_tokens=24)))
+        if i == 5:
+            while eng.waiting or any(s.request is not None and not s.ready
+                                     for s in eng.slots):
+                eng.step()
+            eng.step()
+    log_dir = asyncio.run(srv.start_profile(
+        {"ticks": PROFILE_TICKS}))["log_dir"]
+    before = _kernels.launch_counts()
+    ragged0 = eng.ragged_ticks
+    for _ in range(PROFILE_TICKS):
+        eng.step()
+    after = _kernels.launch_counts()
+    mixed = eng.ragged_ticks - ragged0
+    files = profiling.trace_files(log_dir)
+    if len(files) != 1 or mixed < 1 or mixed == PROFILE_TICKS:
+        raise AssertionError(f"profile_next_ticks wrote {files} over "
+                             f"{mixed} mixed ticks")
+    with open(files[0]) as f:
+        evs = json.load(f)["traceEvents"]
+    rec = profiling.kernel_launches(evs, "ragged", "paged_decode")
+    got = {k: sum(n for name, n in rec.items()
+                  if k in name and "combine" not in name)
+           for k in ("ragged", "paged_decode")}
+    want = {k: after[c] - before[c] for k, c in (
+        ("ragged", "ragged_paged"), ("paged_decode", "paged_decode"))}
+    log(f"[server] profile_next_ticks({PROFILE_TICKS}): {mixed} mixed and "
+        f"{PROFILE_TICKS - mixed} decode ticks; trace {files[0]} "
+        f"({os.path.getsize(files[0]) / 2**20:.1f} MiB): kernel launches "
+        f"{got}, counters {want}")
+    while eng.has_work():
+        eng.step()
+    return dict(mixed_ticks=mixed, recorded=got, counted=want)
+
+
+def check_exposition(text):
+    """Prometheus text: every sample line parses, every family of
+    FAMILIES is declared; returns the sample count."""
+    import re
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*'
+                        r'="(?:[^"\\]|\\.)*",?)*\})? \S+$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not sample.match(line):
+            raise AssertionError(f"exposition line does not parse: {line!r}")
+        n += 1
+    missing = [f for f in FAMILIES if f"# TYPE {f} " not in text]
+    if missing:
+        raise AssertionError(f"exposition lacks families {missing}")
+    return n
+
+
+def move_session(srv_a, srv_b):
+    """One request served alone on server A end to end, and the same
+    request exported from A mid-decode (through the RTKV wire) and
+    resumed on server B: token-exact."""
+    import asyncio
+    body = dict(prompt=PROMPT_TEXTS[1], max_tokens=48, temperature=0.0)
+
+    async def whole():
+        out = []
+        async for c in srv_a.completions_stream_tokens(
+                dict(body, _request_id="whole")):
+            out += c["toks"]
+        return out
+
+    async def moved():
+        got = []
+
+        async def consume():
+            async for c in srv_a.completions_stream_tokens(
+                    dict(body, _request_id="mover")):
+                got.extend(c["toks"])
+        task = asyncio.create_task(consume())
+        while len(got) < 16:
+            await asyncio.sleep(0.005)
+        exp = await srv_a.export_session({"request_id": "mover"})
+        await task
+        if exp["session"] is None:
+            raise AssertionError("export_session found no session")
+        rest = []
+        async for c in srv_b.resume_stream_tokens(
+                {"_session": exp["session"], "_resume_offset": len(got)}):
+            rest.extend(c["toks"])
+        return got, rest, exp
+    ref = asyncio.run(whole())
+    got, rest, exp = asyncio.run(moved())
+    log(f"[server] session moved after {len(got)} tokens ({exp['pages']} "
+        f"pages, {exp['bytes'] / 2**20:.1f} MiB frame): {len(rest)} more on "
+        f"server B; token-exact with the unmoved request: "
+        f"{got + rest == ref}")
+    if got + rest != ref:
+        raise AssertionError("the moved session's tokens differ")
+    return dict(tokens_before=len(got), pages=exp["pages"],
+                frame_bytes=exp["bytes"])
+
+
+def watch_detector(eng):
+    """Every tick the engine's anomaly detector observes, as (kind, wall
+    ms, compile events in the tick), recorded beside it."""
+    ticks = []
+    det = eng.anomaly
+    observe = det.observe
+    last = [eng.compiles]
+
+    def observing(sample, wall_ms, host_ms, device_ms, compiles, *a, **k):
+        ticks.append((sample.kind, wall_ms, compiles - last[0]))
+        last[0] = compiles
+        return observe(sample, wall_ms, host_ms, device_ms, compiles, *a,
+                       **k)
+    det.observe = observing
+    return ticks
+
+
+def cold_ticks(eng, ticks, since):
+    """The cold ticks (those with compile events: a ragged bucket's first
+    tick, a decode graph's capture (in the tick that first runs its
+    sampling mode, eagerly), a kernel build) of the server's run, then
+    of a recapture after the detector's warm-up (the graphs dropped, 8
+    fresh requests): each is printed with its wall and whether the
+    detector judged it; every flagged tick is printed with its class.
+    The recapture's first decode tick must carry a compile event, so the
+    detector reads it as recompile (its first rule), never unknown; a
+    flagged tick with compile events must
+    read recompile; the anomaly bundles stay within the rate limit (one
+    per dump_min_interval_s since the server started at `since`)."""
+    from ray_tpu_torch import Request, SamplingParams
+    start = len(ticks)
+    eng.release_graphs()
+    gen = torch.Generator().manual_seed(66)
+    for i in range(eng.config.max_batch_size):
+        eng.add_request(Request(f"cold{i}", torch.randint(
+            1000, 100000, (50,), generator=gen).tolist(),
+            SamplingParams(max_tokens=12)))
+    while eng.has_work():
+        eng.step()
+    det = eng.anomaly
+    warm = det.config.warmup_ticks
+    flagged = [e for e in eng.telemetry.recorder.events()
+               if e["event"] == "tick_anomaly"]
+    cold = [(i, k, w, d) for i, (k, w, d) in enumerate(ticks) if d > 0]
+    for i, k, w, d in cold:
+        where = "recapture" if i >= start else "serving run"
+        log(f"[server] cold tick {i} ({where}, {k}): wall {w:.2f} ms, "
+            f"{d} compile event(s), detector class recompile, "
+            f"{'absorbed by the warm-up' if i < warm else 'judged'}")
+    for e in flagged:
+        log(f"[server] flagged tick: {e['anomaly_kind']}, wall "
+            f"{e['wall_ms']} ms against {e['predicted_ms']} ms predicted, "
+            f"z {e['z']}, compile events {e['compile_delta']}, composition "
+            f"{e['composition']}")
+    st = det.stats()
+    bundles = sum(1 for b in eng.blackbox.list()
+                  if b["cause"] == "tick_anomaly")
+    limit = 1 + int((time.monotonic() - since)
+                    / det.config.dump_min_interval_s)
+    log(f"[server] anomaly detector: {st['ticks']} ticks (warm-up {warm}),"
+        f" flagged {st['anomalies_total']} by kind {st['by_kind']}; "
+        f"{bundles} anomaly bundles in the spool")
+    recap = [d for i, (k, w, d) in enumerate(ticks)
+             if i >= start and k == "decode"][:2]
+    if recap != [int(eng._capture_graphs), 0] or any(e["compile_delta"] > 0
+                              and e["anomaly_kind"] != "recompile"
+                              for e in flagged) or bundles > limit:
+        raise AssertionError(f"cold ticks: recapture compile events "
+                             f"{recap}, flagged {flagged}, {bundles} "
+                             f"bundles")
+    return dict(cold=cold, flagged=flagged, by_kind=st["by_kind"],
+                bundles=bundles)
+
+
+def run_server():
+    """Phase 5e: LLMServerImpl on the `8b` preset at full width and depth
+    (random bf16 weights from seed 0), every observability switch on."""
+    import asyncio
+    from ray_tpu_torch import (EngineConfig, InferenceEngine, LLMServerImpl,
+                               Request, SamplingParams)
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    cfg = dict(model_id="8b", model_source=SERVER_MODEL,
+               engine_kwargs=SERVER_KW)
+    t0 = time.perf_counter()
+    since = time.monotonic()
+    srv = LLMServerImpl(dict(cfg))
+    eng = srv.engine
+    log(f"[server] LLMServerImpl 8b on {eng.device} in "
+        f"{time.perf_counter() - t0:.1f} s; envelope "
+        f"{eng.perf.envelope.name} ({eng.perf.envelope.source})")
+    if eng.perf.envelope.name != "h100":
+        raise AssertionError(f"perf envelope {eng.perf.envelope.name}")
+    ticks = watch_detector(eng)
+    submitted = []
+    add = eng.add_request
+
+    def recording(req):
+        submitted.append(req)
+        return add(req)
+    eng.add_request = recording
+    comp, chat, stream = server_bodies()
+    unary, streamed, wall = asyncio.run(serve_bodies(srv, comp, chat, stream))
+    del eng.add_request
+    by_prompt = {tuple(r.prompt_tokens): r for r in submitted}
+    tok = srv.tokenizer
+    prompts = ([tok.encode(b["prompt"]) for b in comp]
+               + [tok.encode(tok.apply_chat_template(b["messages"]))
+                  for b in chat]
+               + [tok.encode(b["prompt"]) for b in stream])
+    reqs = [by_prompt[tuple(p)] for p in prompts]
+    for r, u in zip(reqs, unary):
+        text = u["choices"][0].get("text", u["choices"][0].get(
+            "message", {}).get("content"))
+        if text != tok.decode(r.output_tokens) \
+                or u["usage"]["completion_tokens"] != len(r.output_tokens):
+            raise AssertionError(f"{r.request_id}: response disagrees with "
+                                 f"its tokens")
+    for r, s in zip(reqs[len(unary):], streamed):
+        if s != r.output_tokens:
+            raise AssertionError(f"{r.request_id}: streamed tokens differ")
+    n_out = sum(len(r.output_tokens) for r in reqs)
+    log(f"[server] {len(reqs)} requests ({len(comp)} completions, "
+        f"{len(chat)} chats, {len(stream)} token streams), prompts "
+        f"{sorted(len(p) for p in prompts)} tokens: {n_out} output tokens "
+        f"in {wall:.2f} s, {n_out / wall:.1f} output tokens/s; finish "
+        f"{sorted({r.finish_reason for r in reqs})}")
+    # the same requests on an engine driven directly with the same weights
+    ref = InferenceEngine(EngineConfig(model=SERVER_MODEL, **SERVER_KW),
+                          params=eng.params)
+    rreqs = [Request(f"direct{i}", list(p),
+                     SamplingParams(max_tokens=SERVER_TOKENS,
+                                    stop_token_ids=r.params.stop_token_ids))
+             for i, (p, r) in enumerate(zip(prompts, reqs))]
+    for r in rreqs:
+        ref.add_request(r)
+    while ref.has_work():
+        ref.step()
+    exact = compare_streams(eng, ref, prompts,
+                            [r.output_tokens for r in reqs],
+                            [r.output_tokens for r in rreqs], "server 8b",
+                            names=("server", "engine"))
+    ref.release_graphs()
+    del ref, rreqs
+    st = eng.stats()
+    rq = st["requests"]
+    lc = lifecycles(asyncio.run(srv.debug_trace()))
+    served = {r.request_id for r in reqs}
+    if not served <= set(lc):
+        raise AssertionError(f"requests without a lifecycle: "
+                             f"{served - set(lc)}")
+    times = {k: [lc[r][k] for r in served] for k in ("ttft", "tpot", "e2e")}
+    log(f"[server] stats()['requests']: ttft avg {rq['ttft_ms_avg']} ms, itl "
+        f"avg {rq['itl_ms_avg']} ms, queue wait avg {rq['queue_wait_ms_avg']}"
+        f" ms, e2e avg {rq['e2e_ms_avg']} ms, finished {rq['finished']}, "
+        f"generated {rq['generated_tokens']}")
+    log("[server] lifecycles (/debug/trace), ms p50 / p99: " + "; ".join(
+        f"{k} {pctl(v, 0.5):.2f} / {pctl(v, 0.99):.2f}"
+        for k, v in times.items()))
+    perf = st["perf"]
+    kinds = tick_kinds(eng)
+    gaps = pump_gaps(eng)
+    log(f"[server] between ticks, outside step(): median "
+        f"{gaps['median_ms']:.2f} ms, p90 {gaps['p90_ms']:.2f} ms, max "
+        f"{gaps['max_ms']:.1f} ms, {gaps['sum_ms']:.0f} ms in all over "
+        f"{gaps['ticks']} gaps, beside {gaps['walls_ms']:.0f} ms inside "
+        f"step()")
+    log(f"[server] stats()['perf']: envelope {perf['envelope']}, decode "
+        f"{perf['decode_tokens_per_s']} and prefill "
+        f"{perf['prefill_tokens_per_s']} tokens/s, MFU {perf['mfu']}, MBU "
+        f"{perf['mbu']}, roof {perf['roof']}, {perf['window']} ticks")
+    for k, v in kinds.items():
+        log(f"[server] {'mixed' if k == 'ragged' else 'decode'} ticks: "
+            f"{v['ticks']}, median wall {v['wall_ms']:.2f} ms, median "
+            f"{v['tokens']} tokens, {v['tflop']:.3f} TFLOP and "
+            f"{v['gb']:.2f} GB a tick (cost model); MFU {v['mfu']:.4f}, MBU "
+            f"{v['mbu']:.4f}")
+    shares = [perf["mfu"], perf["mbu"]] + [v[s] for v in kinds.values()
+                                           for s in ("mfu", "mbu")]
+    if perf["envelope"] != "h100" or not all(0 < x <= 1.0 for x in shares) \
+            or set(kinds) != {"ragged", "decode"}:
+        raise AssertionError(f"perf shares {shares} (each must lie in "
+                             f"(0, 1]), tick kinds {sorted(kinds)}")
+    dec = [t for t in eng.perf.window() if t.kind == "decode"][-1]
+    nbytes = actual_decode_bytes(eng, dec)
+    log(f"[server] a decode tick of {dec.decode_tokens} tokens: cost model "
+        f"{nbytes['model_total'] / 1e9:.3f} GB (weights "
+        f"{nbytes['model_weights'] / 1e9:.3f}), this engine's tensors "
+        f"{nbytes['actual_total'] / 1e9:.3f} GB (weights "
+        f"{nbytes['actual_weights'] / 1e9:.3f}: layer matrices in "
+        f"{eng.params['layers']['wq'].dtype}, head in float32, one "
+        f"embedding row a token); KV {nbytes['kv'] / 1e9:.3f}")
+    ab = overhead_ab(eng)
+    # black box with requests in flight (the A/B's requests still decode)
+    dump = asyncio.run(srv.debug_dump({"cause": "smoke"}))
+    bundle = asyncio.run(srv.debug_bundle(dump["bundle"]))
+    listed = asyncio.run(srv.debug_bundles())
+    if bundle is None or not bundle["flight_recorder"] \
+            or not bundle["tick_times_ms"] \
+            or "ray_tpu_llm_ttft_seconds" not in bundle["metrics_exposition"] \
+            or not bundle["in_flight_requests"] \
+            or dump["bundle"] not in {b["id"] for b in listed}:
+        raise AssertionError(f"black-box bundle {dump} incomplete")
+    log(f"[server] debug_dump {dump['bundle']}: {len(bundle['flight_recorder'])}"
+        f" events, {len(bundle['tick_times_ms'])} tick times, "
+        f"{len(bundle['in_flight_requests'])} in-flight requests, exposition "
+        f"{len(bundle['metrics_exposition'])} chars; spool {len(listed)} "
+        f"bundles")
+    quiet_profiler(eng)
+    guard = guarded_window(eng, "server 8b", dispatch_guard)
+    for s in eng.slots:
+        if s.request is not None:
+            eng.abort(s.request.request_id)
+    while eng.has_work():
+        eng.step()
+    anomaly = cold_ticks(eng, ticks, since)
+    quiet_profiler(eng)
+    prof = profile_window(srv)
+    n_samples = check_exposition(asyncio.run(srv.metrics_text()))
+    events = asyncio.run(srv.debug_events(since=0))
+    if not events["events"] or events["high_water"] < len(events["events"]):
+        raise AssertionError("debug_events(since=0) is empty")
+    log(f"[server] metrics_text: {n_samples} samples, families {FAMILIES} "
+        f"present; debug_events: {len(events['events'])} events, high water "
+        f"{events['high_water']}; /debug/attribution top "
+        f"{[r['request_id'] for r in asyncio.run(srv.debug_attribution(3))['top']]}")
+    srv_b = LLMServerImpl(dict(cfg))
+    moved = move_session(srv, srv_b)
+    srv_b.engine.release_graphs()
+    eng.release_graphs()
+    del srv_b
+    return dict(requests=len(reqs), output_tokens=n_out, wall_s=wall,
+                tokens_per_s=n_out / wall, exact=exact,
+                times={k: dict(p50=pctl(v, 0.5), p99=pctl(v, 0.99))
+                       for k, v in times.items()},
+                requests_summary=rq, perf={k: perf[k] for k in (
+                    "envelope", "mfu", "mbu", "roof", "decode_tokens_per_s",
+                    "prefill_tokens_per_s", "window")},
+                tick_kinds=kinds, pump_gaps=gaps, decode_bytes=nbytes,
+                overhead=ab,
+                guard=guard, anomaly=anomaly,
+                profile=prof, session=moved, bundle=dump["bundle"])
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
@@ -1927,8 +2663,11 @@ def profile_step(bundle, state, tokens):
     """torch.profiler over one train step: the kernels with the most
     device time, and device busy time against wall time."""
     out = []
-    prof, wall = traced(lambda: out.append(bundle.step(state, tokens)))
-    state, m = out[0]
+
+    def step():
+        out.append(bundle.step(out[-1][0] if out else state, tokens))
+    prof, wall = profiled(step, "profile train step")
+    state, m = out[-1]
     evs = device_events(prof)
     busy = sum(dev_us(e) for e in evs) / 1e3
     log(f"[profile train step] kernels busy {busy:.2f} ms on the device; "
@@ -2098,14 +2837,18 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
-    ap.add_argument("--only", choices=["decode"], default=None,
+    ap.add_argument("--only", choices=["decode", "profiler"], default=None,
                     help="development: build, then only the decode "
-                         "kernel's phase; prints its rows, not the result "
-                         "line (the default run drives every path)")
+                         "kernel's phase, or only the profiler-loss "
+                         "check; prints their rows, not the result line "
+                         "(the default run drives every path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
+    if args.only == "profiler":
+        print(json.dumps(profiler_check()), flush=True)
+        return
     from ray_tpu_torch.ops import _kernels   # fails outside the repo
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2150,6 +2893,7 @@ def main():
         quant[kind] = dict(decode[kind])
         quant[kind]["ragged"], quant_ticks[kind] = check_ragged(gen, dev,
                                                                 kind)
+    noise = check_noise(dev)
     flash = check_flash(gen, dev)
     ticks = dict(bf16=ragged_ticks, **quant_ticks)
     phase_s = {"3-4": time.perf_counter() - t_kernels}
@@ -2168,7 +2912,7 @@ def main():
         torch.cuda.empty_cache()
         phase_s[f"5b {kind}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    noise, tick_mechanics = run_tick_mechanics(dev, params, graph_sides)
+    tick_mechanics = run_tick_mechanics(dev, params, graph_sides)
     noise_launches = graph_f32[2]["sampled"]["launches"]["row_gumbel"]
     phase_s["5c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2178,9 +2922,16 @@ def main():
     torch.cuda.empty_cache()
     phase_s["5d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    server = run_server()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["5e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     train_counts, train = run_train(dev)
     phase_s["6"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
+    log(f"[profiler] {PROFILES['windows']} profile windows, "
+        f"{PROFILES['lost']} of them lost records and were taken again")
     src = "ray_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="ragged_paged", route="cuda", source=src + "ragged_paged.cu",
@@ -2231,7 +2982,8 @@ def main():
                            engine=engine,
                            quant_engine=quant_engine, train=train,
                            tick_mechanics=tick_mechanics,
-                           kv_hierarchy=kv_hierarchy,
+                           kv_hierarchy=kv_hierarchy, server=server,
+                           profiles=PROFILES,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)
     print(json.dumps(summary), flush=True)

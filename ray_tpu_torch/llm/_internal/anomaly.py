@@ -1,0 +1,306 @@
+"""Tick-anomaly flight analyzer: robust residuals + classified capture.
+
+A copy of ``ray_tpu/llm/_internal/anomaly.py``. The tick_times
+telemetry shows that a p99 tail
+exists, but not WHY a specific tick went slow — and by the time an
+operator asks, the evidence is gone. This module watches every
+committed tick's measured wall time against the analytic prediction
+the cost model (perfmodel.py) already produces (flops/peak vs bytes/peak — the
+roofline lower bound), keeps a robust residual baseline
+(median + MAD over the log-residual, so the CPU envelope's constant
+calibration bias cancels and a handful of outliers can't poison the
+baseline), and flags ticks whose robust z-score clears the threshold.
+
+A flagged tick is CLASSIFIED from host-side evidence the engine
+already has — in priority order:
+
+    recompile         the engine's compile counter moved this tick (a
+                      steady-state engine never compiles; in this
+                      package it counts CUDA graph captures, kernel
+                      builds at first use and the ragged kernel's
+                      first launch per bucket)
+    h2d_transfer      the tick moved restore/import h2d page bytes
+    gc_pause          the gc.callbacks monitor saw a collector pause
+                      overlapping the tick
+    host_fold_stall   the host-fold share of the tick wall is far
+                      above its own baseline
+    device_straggler  the blocked-readback (device) share dominates
+    unknown           slow with no fingerprint — the profile capture
+                      below is exactly for these
+
+and triggers evidence capture: a `tick_anomaly` flight-recorder event
+carrying the offending batch composition, an auto-armed
+`profile_next_ticks` capture (rate-limited), and a rate-limited
+black-box bundle — so the postmortem exists BEFORE anyone asks.
+The recent anomaly rate rides `stats()["anomaly"]`, fleet_stats →
+`ReplicaSnapshot` → `/fleet` rows, and feeds the fleet watchdog as a
+page precursor (serve/llm/watchdog.py `observe_anomaly`).
+
+Zero-sync discipline: pure host arithmetic over numbers the engine
+already holds — no device values, nothing on the tick
+path beyond a few float ops (the dispatch-guard suite runs with the
+detector enabled). The capture actions run only when a tick has
+ALREADY gone anomalous.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import threading
+import time
+from typing import Any, Dict, Optional
+
+_WINDOW = 512
+
+
+@dataclasses.dataclass
+class AnomalyConfig:
+    enabled: bool = True
+    # residual samples required before judging: cold-start compiles
+    # and first-touch page faults land inside the warmup and build
+    # the baseline instead of paging it
+    warmup_ticks: int = 64
+    # robust z-score (median + MAD over log-residuals) that flags a
+    # tick; 6 is deliberately conservative — the detector must stay
+    # silent through CI timer noise and only speak for real stalls
+    z_threshold: float = 6.0
+    # ticks faster than this can't carry a meaningful stall signature
+    # (timer quantization noise dominates)
+    min_wall_ms: float = 0.5
+    # MAD floor in log-space: ultra-stable timing must not turn a
+    # small wobble into a huge z. 0.15 means that even at zero
+    # observed spread, a trigger needs wall >= e^(6*0.15/0.6745)
+    # ~ 3.8x the cost-normalized median — scheduler/GC jitter on
+    # sub-ms CPU ticks stays silent, a recompile (tens of ms against
+    # a ~1 ms baseline) still clears it by an order of magnitude
+    mad_floor: float = 0.15
+    # classification thresholds (fractions of the tick wall)
+    gc_share: float = 0.2           # gc pause >= this share -> gc_pause
+    host_share_over: float = 0.3    # host share above ITS baseline
+    device_share: float = 0.6       # device share of wall
+    # capture reactions (each rate-limited independently)
+    auto_profile: bool = True
+    profile_ticks: int = 4
+    profile_min_interval_s: float = 30.0
+    auto_dump: bool = True
+    dump_min_interval_s: float = 30.0
+    # recent window the anomaly RATE is computed over
+    rate_window: int = 256
+
+
+class GcMonitor:
+    """Process-wide gc.callbacks pause accountant. Installed once,
+    lazily, by the first detector; every detector reads the cumulative
+    pause clock and differences it per tick. The callback itself is
+    two attribute writes — cheap enough to leave installed."""
+
+    _instance: "Optional[GcMonitor]" = None
+    _instance_lock = threading.Lock()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._start: Optional[float] = None
+        self.pause_s_total = 0.0
+        self.collections = 0
+
+    @classmethod
+    def instance(cls) -> "GcMonitor":
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = cls()
+                import gc
+                gc.callbacks.append(cls._instance._cb)
+            return cls._instance
+
+    def _cb(self, phase: str, info: Dict[str, Any]) -> None:
+        if phase == "start":
+            self._start = time.monotonic()
+        elif phase == "stop" and self._start is not None:
+            dt = time.monotonic() - self._start
+            self._start = None
+            with self._lock:
+                self.pause_s_total += dt
+                self.collections += 1
+
+    def snapshot(self) -> float:
+        with self._lock:
+            return self.pause_s_total
+
+
+class TickAnomalyDetector:
+    """Feed `observe()` once per committed tick (under the engine step
+    lock — mutation needs no lock of its own); read `stats()` from
+    scrape threads (its own lock). Returns the anomaly event dict on
+    trigger, with `arm_profile` / `dump` booleans pre-resolved against
+    the rate limits so the engine just acts on them."""
+
+    def __init__(self, config: Optional[AnomalyConfig] = None):
+        self.config = config or AnomalyConfig()
+        self._resid: "collections.deque[float]" = collections.deque(
+            maxlen=_WINDOW)
+        self._host_share: "collections.deque[float]" = \
+            collections.deque(maxlen=_WINDOW)
+        self._recent: "collections.deque[int]" = collections.deque(
+            maxlen=max(int(self.config.rate_window), 1))
+        self._prev_compiles: Optional[int] = None
+        self._gc = GcMonitor.instance()
+        self._gc_prev = self._gc.snapshot()
+        self._last_profile = -math.inf
+        self._last_dump = -math.inf
+        self._lock = threading.Lock()
+        self.ticks = 0
+        self.anomalies_total = 0
+        self.by_kind: Dict[str, int] = {}
+        self.last: Optional[Dict[str, Any]] = None
+
+    # -- math ----------------------------------------------------------
+    @staticmethod
+    def _median(vals) -> float:
+        s = sorted(vals)
+        n = len(s)
+        if not n:
+            return 0.0
+        mid = n // 2
+        return s[mid] if n % 2 else 0.5 * (s[mid - 1] + s[mid])
+
+    def _robust_z(self, x: float) -> float:
+        med = self._median(self._resid)
+        mad = self._median([abs(v - med) for v in self._resid])
+        mad = max(mad, self.config.mad_floor)
+        # 0.6745 = Phi^-1(0.75): scales MAD to a sigma-equivalent
+        return 0.6745 * (x - med) / mad
+
+    @staticmethod
+    def predicted_ms(sample: Any, peak_flops: float,
+                     peak_bytes: float) -> float:
+        """Roofline lower bound for the tick: whichever roof binds.
+        A constant multiplicative calibration error (the CPU envelope
+        is generous by design) cancels in the log-residual baseline."""
+        f = float(getattr(sample, "flops", 0.0))
+        b = float(getattr(sample, "hbm_bytes", 0.0))
+        return max(f / max(peak_flops, 1.0),
+                   b / max(peak_bytes, 1.0)) * 1e3
+
+    # -- the per-tick observation --------------------------------------
+    def observe(self, sample: Any, wall_ms: float, host_ms: float,
+                device_ms: float, compiles: int,
+                peak_flops: float, peak_bytes: float,
+                now: Optional[float] = None) -> Optional[Dict[str, Any]]:
+        cfg = self.config
+        if not cfg.enabled:
+            return None
+        now = time.monotonic() if now is None else now
+        # host-side evidence deltas, gathered unconditionally so the
+        # baselines stay honest even while warming up
+        compile_delta = (0 if self._prev_compiles is None
+                         else max(compiles - self._prev_compiles, 0))
+        self._prev_compiles = compiles
+        gc_total = self._gc.snapshot()
+        gc_ms = max(gc_total - self._gc_prev, 0.0) * 1e3
+        self._gc_prev = gc_total
+        pred_ms = self.predicted_ms(sample, peak_flops, peak_bytes)
+        resid = math.log(max(wall_ms, 1e-6) / max(pred_ms, 1e-6))
+        host_share = (host_ms / wall_ms) if wall_ms > 0 else 0.0
+        warmed = len(self._resid) >= cfg.warmup_ticks
+        z = self._robust_z(resid) if warmed else 0.0
+        self._resid.append(resid)
+        triggered = (warmed and z >= cfg.z_threshold
+                     and wall_ms >= cfg.min_wall_ms)
+        # the host-share baseline is only consumed by classification —
+        # compute it lazily on TRIGGERED ticks (before this tick's
+        # share joins the window), keeping healthy ticks at the two
+        # sorts the z-score itself needs
+        host_base = (self._median(self._host_share)
+                     if triggered and self._host_share else 0.0)
+        self._host_share.append(host_share)
+        with self._lock:
+            self.ticks += 1
+            self._recent.append(1 if triggered else 0)
+            if not triggered:
+                return None
+            kind = self._classify(sample, wall_ms, host_ms, device_ms,
+                                  compile_delta, gc_ms, host_base)
+            self.anomalies_total += 1
+            self.by_kind[kind] = self.by_kind.get(kind, 0) + 1
+            arm = (cfg.auto_profile
+                   and now - self._last_profile
+                   >= cfg.profile_min_interval_s)
+            if arm:
+                self._last_profile = now
+            dump = (cfg.auto_dump
+                    and now - self._last_dump >= cfg.dump_min_interval_s)
+            if dump:
+                self._last_dump = now
+            event = {
+                "kind": kind,
+                "z": round(z, 2),
+                "wall_ms": round(wall_ms, 3),
+                "predicted_ms": round(pred_ms, 3),
+                "host_ms": round(host_ms, 3),
+                "device_ms": round(device_ms, 3),
+                "gc_pause_ms": round(gc_ms, 3),
+                "compile_delta": compile_delta,
+                "arm_profile": arm,
+                "dump": dump,
+                # the offending batch composition — the evidence an
+                # operator needs to reproduce the tick
+                "composition": {
+                    "tick_kind": getattr(sample, "kind", ""),
+                    "dispatches": getattr(sample, "dispatches", 0),
+                    "decode_tokens": getattr(sample, "decode_tokens",
+                                             0),
+                    "prefill_tokens": getattr(sample,
+                                              "prefill_tokens", 0),
+                    "bytes_h2d": int(getattr(sample, "bytes_h2d",
+                                             0.0)),
+                    "bytes_d2h": int(getattr(sample, "bytes_d2h",
+                                             0.0)),
+                },
+            }
+            self.last = event
+            return dict(event)
+
+    def _classify(self, sample: Any, wall_ms: float, host_ms: float,
+                  device_ms: float, compile_delta: int, gc_ms: float,
+                  host_base: float) -> str:
+        cfg = self.config
+        if compile_delta > 0:
+            return "recompile"
+        if float(getattr(sample, "bytes_h2d", 0.0)) > 0:
+            return "h2d_transfer"
+        if wall_ms > 0 and gc_ms >= cfg.gc_share * wall_ms:
+            return "gc_pause"
+        if wall_ms > 0 and (host_ms / wall_ms
+                            >= host_base + cfg.host_share_over):
+            return "host_fold_stall"
+        if wall_ms > 0 and device_ms / wall_ms >= cfg.device_share:
+            return "device_straggler"
+        return "unknown"
+
+    # -- scrape-time reads ---------------------------------------------
+    def rate(self) -> float:
+        """Anomalous fraction of the recent rate_window ticks."""
+        with self._lock:
+            if not self._recent:
+                return 0.0
+            return sum(self._recent) / len(self._recent)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            recent = (sum(self._recent) / len(self._recent)
+                      if self._recent else 0.0)
+            return {
+                "enabled": self.config.enabled,
+                "ticks": self.ticks,
+                "warmed": len(self._resid) >= self.config.warmup_ticks,
+                "anomalies_total": self.anomalies_total,
+                "by_kind": dict(self.by_kind),
+                "rate": round(recent, 4),
+                "last": self.last,
+                "gc_collections": self._gc.collections,
+            }
+
+
+__all__ = ["AnomalyConfig", "TickAnomalyDetector", "GcMonitor"]

@@ -1,0 +1,503 @@
+"""Per-request cost attribution: receipts over the analytic cost model.
+
+A copy of ``ray_tpu/llm/_internal/attribution.py``. The PerfAccountant
+says what a TICK cost, but a ragged
+batch merges many tenants' work into one dispatch — the fleet could
+not say WHO consumed the FLOPs/HBM. This module splits every committed
+tick's analytic cost across the requests in that tick's batch, using
+quantities the engine already knows host-side at plan time (decode
+rows, prefill chunk sizes, per-slot context lengths, KV pages held,
+spill/restore page traffic), and accumulates them into per-request
+*receipts*:
+
+    {flops (gemm/attn), hbm_bytes (weights/kv_read/kv_write),
+     spill/restore bytes, decode/prefill tokens, kv_page_ticks,
+     queue/wall/host/device time shares}
+
+surfaced in the finish event, `stats()["attribution"]`, the
+OpenAI-style `usage.cost` block, per-tenant Prometheus counters, and
+`GET /debug/attribution` (merged at `/fleet/debug/attribution`).
+
+Conservation contract (the acceptance gate): summed per-request
+receipts equal the PerfAccountant's tick totals EXACTLY — closed form,
+not banded. Two mechanisms make that possible:
+
+- Every per-slot cost the engine charges is an integer-valued float
+  (products of ints: the cost model's closed forms) far below 2**53,
+  so float accumulation is exact and order-independent; receipts store
+  them as ints.
+- Batch-shared costs (the per-dispatch weight-read bytes) are split at
+  commit time by largest-remainder INTEGER division proportional to
+  each participant's FLOP share, so the shares always re-sum to the
+  tick's exact total.
+
+Time shares (wall/host/device ms) split pro-rata by FLOP share too —
+they are measurements, not closed forms, so no exactness is claimed
+beyond "the shares sum to the tick".
+
+One deliberate scope boundary: fleet prefix-store export/import page
+traffic (engine.export_prefix / import_prefix) is fleet-owned, not
+per-request — it stays in the accountant's d2h/h2d totals only, so
+the conservation gate runs over request-attributable workloads
+(prefill + decode + spill/restore + session shipping).
+
+Zero-sync discipline: everything here is host-side Python
+over plain ints/floats — no device values. The
+dispatch-guard suite runs with attribution enabled.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Any, Dict, List, Optional
+
+# finished receipts retained for /debug/attribution + usage.cost
+# lookups (overflowed receipts still fold into totals()/tenants(),
+# so conservation and rollups never lose them)
+_DONE_RING = 512
+_TOPK = 8
+
+# integer receipt fields that must conserve exactly against the
+# PerfAccountant's cumulative totals (perfmodel totals key -> receipt
+# attribute)
+CONSERVED_FIELDS = (
+    ("flops_gemm", "flops_gemm"),
+    ("flops_attn", "flops_attn"),
+    ("bytes_weights", "bytes_weights"),
+    ("bytes_kv_read", "bytes_kv_read"),
+    ("bytes_kv_write", "bytes_kv_write"),
+    ("bytes_d2h", "bytes_d2h"),
+    ("bytes_h2d", "bytes_h2d"),
+    ("decode_tokens", "decode_tokens"),
+    ("prefill_tokens", "prefill_tokens"),
+)
+
+
+@dataclasses.dataclass
+class RequestReceipt:
+    """One request's accumulated cost (ints where conservation is
+    claimed, float ms for the measured time shares)."""
+    request_id: str
+    tenant: str = ""
+    flops_gemm: int = 0
+    flops_attn: int = 0
+    bytes_weights: int = 0          # FLOP-share split of dispatch reads
+    bytes_kv_read: int = 0
+    bytes_kv_write: int = 0
+    bytes_d2h: int = 0              # KV spill / session-export traffic
+    bytes_h2d: int = 0              # KV restore / session-import traffic
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    kv_page_ticks: int = 0          # sum over ticks of pages held
+    ticks: int = 0                  # committed ticks this request rode
+    wall_ms: float = 0.0            # FLOP-share of each tick's wall
+    host_ms: float = 0.0
+    device_ms: float = 0.0
+    queue_ms: float = 0.0           # admission queue wait
+    finished: bool = False
+    finish_reason: Optional[str] = None
+
+    @property
+    def flops(self) -> int:
+        return self.flops_gemm + self.flops_attn
+
+    @property
+    def hbm_bytes(self) -> int:
+        """Device-HBM traffic (same convention as PerfSample.hbm_bytes:
+        d2h/h2d spill traffic is PCIe/host, tracked separately)."""
+        return (self.bytes_weights + self.bytes_kv_read
+                + self.bytes_kv_write)
+
+    def cost_block(self) -> Dict[str, Any]:
+        """The OpenAI-style `usage.cost` payload (and the finish
+        event's receipt brief): small, flat, JSON-able."""
+        return {
+            "flops": self.flops,
+            "hbm_bytes": self.hbm_bytes,
+            "kv_page_ticks": self.kv_page_ticks,
+            "wall_ms": round(self.wall_ms, 3),
+            "host_ms": round(self.host_ms, 3),
+            "device_ms": round(self.device_ms, 3),
+            "queue_ms": round(self.queue_ms, 3),
+            "decode_tokens": self.decode_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "spill_bytes": self.bytes_d2h,
+            "restore_bytes": self.bytes_h2d,
+        }
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Full JSON-able view (/debug/attribution rows)."""
+        return {
+            "request_id": self.request_id,
+            "tenant": self.tenant or "default",
+            "flops": self.flops,
+            "flops_gemm": self.flops_gemm,
+            "flops_attn": self.flops_attn,
+            "hbm_bytes": self.hbm_bytes,
+            "bytes_weights": self.bytes_weights,
+            "bytes_kv_read": self.bytes_kv_read,
+            "bytes_kv_write": self.bytes_kv_write,
+            "ticks": self.ticks,
+            "finished": self.finished,
+            "finish_reason": self.finish_reason,
+            **self.cost_block(),
+        }
+
+
+class _Pending:
+    """One request's contributions to the CURRENT (uncommitted) tick.
+    Plain attribute arithmetic — runs beside the dispatch under the
+    engine step lock, so no lock of its own."""
+
+    __slots__ = ("flops_gemm", "flops_attn", "bytes_kv_read",
+                 "bytes_kv_write", "decode_tokens", "prefill_tokens",
+                 "pages", "d2h", "h2d")
+
+    def __init__(self):
+        self.flops_gemm = 0
+        self.flops_attn = 0
+        self.bytes_kv_read = 0
+        self.bytes_kv_write = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
+        self.pages = 0
+        self.d2h = 0
+        self.h2d = 0
+
+
+def _largest_remainder_split(total: int,
+                             weights: List[int]) -> List[int]:
+    """Split integer `total` proportional to `weights`, exactly:
+    floor shares first, then the remainder to the largest fractional
+    parts (ties broken by position — deterministic). Zero/empty
+    weights degrade to an equal split."""
+    n = len(weights)
+    if n == 0:
+        return []
+    wsum = sum(weights)
+    if wsum <= 0:
+        weights = [1] * n
+        wsum = n
+    shares = [total * w // wsum for w in weights]
+    rem = total - sum(shares)
+    if rem:
+        # remainder of total*w/wsum, largest first
+        order = sorted(range(n),
+                       key=lambda i: (-(total * weights[i] % wsum), i))
+        for i in order[:rem]:
+            shares[i] += 1
+    return shares
+
+
+class ReceiptLedger:
+    """Per-engine attribution state. The engine charges per-request
+    contributions beside each dispatch's perf hook (host arithmetic,
+    under the step lock), then commit() splits the tick's shared costs
+    and folds everything into the live receipts. Reads (summary,
+    receipt lookup, tenant rollups) come from scrape threads and take
+    the ledger lock; the tick-path charge entry points do not."""
+
+    def __init__(self, done_ring: int = _DONE_RING):
+        self._lock = threading.Lock()
+        self._pending: Dict[str, _Pending] = {}
+        self._pending_tenant: Dict[str, str] = {}
+        self._live: Dict[str, RequestReceipt] = {}
+        self._done: "collections.deque[RequestReceipt]" = \
+            collections.deque(maxlen=done_ring)
+        # rid -> retained finished receipt (O(1) late-charge folding:
+        # a request's FINAL tick is charged before its finish lands,
+        # but the ledger commits at step end — see commit())
+        self._done_index: Dict[str, RequestReceipt] = {}
+        # receipts displaced from the done ring fold here so totals()
+        # and tenants() stay conservation-exact forever
+        self._evicted_totals: Dict[str, int] = {}
+        self._tenants: Dict[str, Dict[str, float]] = {}
+        self.requests_total = 0
+        self.ticks_total = 0
+
+    # -- tick-path charges (step-lock serialized, no ledger lock) ------
+    def _pend(self, req: Any) -> _Pending:
+        rid = req.request_id
+        p = self._pending.get(rid)
+        if p is None:
+            p = self._pending[rid] = _Pending()
+            self._pending_tenant[rid] = getattr(req, "tenant", "") or ""
+        return p
+
+    def charge(self, req: Any, cost: Optional[Dict[str, float]] = None,
+               decode_tokens: int = 0, prefill_tokens: int = 0,
+               pages: int = 0) -> None:
+        """One request's share of one dispatch: the SAME closed-form
+        cost dict the engine merges into the tick's PerfSample, plus
+        the tokens it advances and the KV pages its slot holds.
+        All values are integer-valued by construction (see module
+        docstring) — stored as ints so receipt sums are exact."""
+        p = self._pend(req)
+        if cost:
+            p.flops_gemm += int(cost.get("flops_gemm", 0.0))
+            p.flops_attn += int(cost.get("flops_attn", 0.0))
+            p.bytes_kv_read += int(cost.get("bytes_kv_read", 0.0))
+            p.bytes_kv_write += int(cost.get("bytes_kv_write", 0.0))
+        p.decode_tokens += int(decode_tokens)
+        p.prefill_tokens += int(prefill_tokens)
+        # pages are a residency reading, not a flow: count each
+        # request's held pages once per tick, not once per dispatch
+        p.pages = max(p.pages, int(pages))
+
+    def charge_offload(self, req: Any, d2h: float = 0.0,
+                       h2d: float = 0.0) -> None:
+        """KV spill/restore (and session export/import) page traffic —
+        the engine knows the victim/restored request at each
+        note_offload site, so this traffic attributes exactly. Rides
+        the pending tick like the accountant's note_offload, so an
+        aborted tick drops both sides consistently."""
+        p = self._pend(req)
+        p.d2h += int(d2h)
+        p.h2d += int(h2d)
+
+    def note_queue(self, req: Any, wait_s: float) -> None:
+        """Admission queue wait (recorded once, at slot admission)."""
+        r = self._receipt_for(req)
+        r.queue_ms += max(float(wait_s), 0.0) * 1e3
+
+    def _receipt_for(self, req: Any) -> RequestReceipt:
+        rid = req.request_id
+        with self._lock:
+            r = self._live.get(rid)
+            if r is None:
+                r = self._live[rid] = RequestReceipt(
+                    rid, tenant=getattr(req, "tenant", "") or "")
+                self.requests_total += 1
+            return r
+
+    def abort_tick(self) -> None:
+        """Mid-tick crash: drop the pending charges with the aborted
+        PerfSample (the accountant drops its side too, so the two
+        stay conservation-consistent)."""
+        self._pending.clear()
+        self._pending_tenant.clear()
+
+    def commit(self, sample: Any, host_ms: float = 0.0,
+               device_ms: float = 0.0) -> None:
+        """Fold the tick's pending charges into the live receipts.
+        `sample` is the PerfSample the accountant just committed: its
+        bytes_weights (the batch-shared dispatch weight reads) split
+        across participants by FLOP share via largest-remainder
+        integer division, as do the measured wall/host/device times
+        (float, pro-rata)."""
+        pend, self._pending = self._pending, {}
+        tenants, self._pending_tenant = self._pending_tenant, {}
+        if not pend:
+            return
+        rids = list(pend)
+        flops = [pend[r].flops_gemm + pend[r].flops_attn
+                 for r in rids]
+        w_shares = _largest_remainder_split(
+            int(getattr(sample, "bytes_weights", 0.0)), flops)
+        wall_ms = float(getattr(sample, "wall_ms", 0.0))
+        fsum = sum(flops)
+        with self._lock:
+            self.ticks_total += 1
+            for i, rid in enumerate(rids):
+                p = pend[rid]
+                r = self._live.get(rid)
+                finished = None
+                if r is None:
+                    # the request finished INSIDE this tick (its last
+                    # token folded, then _finish ran, then the tick
+                    # committed): fold the final tick's charges into
+                    # the finished receipt, not a zombie live one
+                    finished = self._done_index.get(rid)
+                    r = finished
+                if r is None:
+                    r = self._live[rid] = RequestReceipt(
+                        rid, tenant=tenants.get(rid, ""))
+                    self.requests_total += 1
+                elif not r.tenant and tenants.get(rid):
+                    r.tenant = tenants[rid]
+                frac = (flops[i] / fsum) if fsum > 0 else 1.0 / len(rids)
+                r.flops_gemm += p.flops_gemm
+                r.flops_attn += p.flops_attn
+                r.bytes_kv_read += p.bytes_kv_read
+                r.bytes_kv_write += p.bytes_kv_write
+                r.bytes_weights += w_shares[i]
+                r.bytes_d2h += p.d2h
+                r.bytes_h2d += p.h2d
+                r.decode_tokens += p.decode_tokens
+                r.prefill_tokens += p.prefill_tokens
+                r.kv_page_ticks += p.pages
+                r.ticks += 1
+                r.wall_ms += wall_ms * frac
+                r.host_ms += float(host_ms) * frac
+                r.device_ms += float(device_ms) * frac
+                if finished is not None:
+                    # its tenant rollup was taken at finish time —
+                    # top up the late charges so the monotone tenant
+                    # counters match the receipt
+                    t = self._tenants.get(r.tenant or "default")
+                    if t is not None:
+                        t["flops"] += p.flops_gemm + p.flops_attn
+                        t["hbm_bytes"] += (p.bytes_kv_read
+                                           + p.bytes_kv_write
+                                           + w_shares[i])
+                        t["decode_tokens"] += p.decode_tokens
+                        t["prefill_tokens"] += p.prefill_tokens
+                        t["spill_bytes"] += p.d2h
+                        t["restore_bytes"] += p.h2d
+                        t["kv_page_ticks"] += p.pages
+                        t["wall_ms"] += wall_ms * frac
+
+    # -- finish / rollups ----------------------------------------------
+    def finish(self, req: Any,
+               reason: Optional[str] = None) -> Optional[RequestReceipt]:
+        """Close a request's receipt: move it to the finished ring and
+        fold it into the per-tenant rollup. Returns the receipt (None
+        when the request was never charged — e.g. shed from the
+        waiting queue before any dispatch)."""
+        rid = req.request_id
+        with self._lock:
+            r = self._live.pop(rid, None)
+            if r is None and rid in self._pending:
+                # finishing inside its FIRST charged tick, before any
+                # commit created a live receipt (an imported session —
+                # restarts >= 1 skips the queue-note — with a small
+                # remaining budget, or a one-tick request under
+                # multi-step decode): issue the receipt now; the
+                # tick's pending charges fold in at commit through the
+                # done index. Without this, finish() would lose the
+                # receipt AND commit() would leak a zombie live one.
+                r = RequestReceipt(
+                    rid, tenant=(self._pending_tenant.get(rid)
+                                 or getattr(req, "tenant", "") or ""))
+                self.requests_total += 1
+            if r is None:
+                return None
+            r.finished = True
+            r.finish_reason = (reason
+                               or getattr(req, "finish_reason", None))
+            if len(self._done) == self._done.maxlen:
+                old = self._done[0]
+                self._fold_evicted(old)
+                if self._done_index.get(old.request_id) is old:
+                    del self._done_index[old.request_id]
+            self._done.append(r)
+            self._done_index[rid] = r
+            self._roll_tenant(r)
+            return r
+
+    def _fold_evicted(self, r: RequestReceipt) -> None:
+        t = self._evicted_totals
+        for key, attr in CONSERVED_FIELDS:
+            t[key] = t.get(key, 0) + getattr(r, attr)
+        t["kv_page_ticks"] = t.get("kv_page_ticks", 0) + r.kv_page_ticks
+
+    def _roll_tenant(self, r: RequestReceipt) -> None:
+        key = r.tenant or "default"
+        t = self._tenants.setdefault(key, {
+            "requests": 0, "migrated": 0, "flops": 0, "hbm_bytes": 0,
+            "decode_tokens": 0, "prefill_tokens": 0,
+            "spill_bytes": 0, "restore_bytes": 0,
+            "kv_page_ticks": 0, "wall_ms": 0.0, "queue_ms": 0.0})
+        if r.finish_reason == "migrated":
+            # the request finishes FOR REAL on the importing engine
+            # (its rollup counts it there) — counting the export-side
+            # close too would double every disaggregated/migrated
+            # request in the fleet-summed demand curves
+            t["migrated"] += 1
+        else:
+            t["requests"] += 1
+        t["flops"] += r.flops
+        t["hbm_bytes"] += r.hbm_bytes
+        t["decode_tokens"] += r.decode_tokens
+        t["prefill_tokens"] += r.prefill_tokens
+        t["spill_bytes"] += r.bytes_d2h
+        t["restore_bytes"] += r.bytes_h2d
+        t["kv_page_ticks"] += r.kv_page_ticks
+        t["wall_ms"] += r.wall_ms
+        t["queue_ms"] += r.queue_ms
+
+    # -- scrape-time reads ---------------------------------------------
+    def receipt(self, request_id: str) -> Optional[RequestReceipt]:
+        """Live receipt, or the newest finished one for the id (the
+        server reads usage.cost AFTER the finish event lands)."""
+        with self._lock:
+            return (self._live.get(request_id)
+                    or self._done_index.get(request_id))
+
+    def totals(self) -> Dict[str, int]:
+        """Sum of EVERY receipt ever issued (live + finished +
+        ring-evicted) — the conservation check's left-hand side; the
+        right-hand side is PerfAccountant.totals()."""
+        with self._lock:
+            return self._totals_locked()
+
+    def _totals_locked(self) -> Dict[str, int]:
+        out = {k: self._evicted_totals.get(k, 0)
+               for k, _ in CONSERVED_FIELDS}
+        out["kv_page_ticks"] = self._evicted_totals.get(
+            "kv_page_ticks", 0)
+        for r in list(self._live.values()) + list(self._done):
+            for key, attr in CONSERVED_FIELDS:
+                out[key] += getattr(r, attr)
+            out["kv_page_ticks"] += r.kv_page_ticks
+        out["flops"] = out["flops_gemm"] + out["flops_attn"]
+        out["hbm_bytes"] = (out["bytes_weights"] + out["bytes_kv_read"]
+                            + out["bytes_kv_write"])
+        return out
+
+    def tenants(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant rollup of FINISHED receipts. Monotone by
+        construction (finishes only add), so the Prometheus tenant
+        counters advance by delta against these at scrape time; live
+        requests' running totals are deliberately excluded — a
+        counter must never regress when a live request migrates
+        off-engine mid-flight."""
+        with self._lock:
+            return {t: dict(v) for t, v in self._tenants.items()}
+
+    def top(self, k: int = _TOPK,
+            tenant: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Top-k receipts by FLOPs over live + retained finished."""
+        with self._lock:
+            return self._top_locked(k, tenant)
+
+    def _top_locked(self, k: int,
+                    tenant: Optional[str] = None
+                    ) -> List[Dict[str, Any]]:
+        # sort + snapshot UNDER the ledger lock: the old version
+        # snapshotted the row list under the lock but then read
+        # r.flops (sort key) and r.snapshot() off live receipt
+        # objects the tick path mutates under this same lock — a
+        # commit landing mid-sort could tear a receipt's fields
+        # across the row
+        rows = list(self._live.values()) + list(self._done)
+        if tenant:
+            rows = [r for r in rows
+                    if (r.tenant or "default") == tenant]
+        rows.sort(key=lambda r: (-r.flops, r.request_id))
+        return [r.snapshot() for r in rows[:k]]
+
+    def summary(self, top_k: int = _TOPK) -> Dict[str, Any]:
+        """stats()["attribution"] / GET /debug/attribution. One lock
+        acquisition for the whole block (the lock is non-reentrant,
+        hence the _locked helpers): the old version took it four
+        times — counts, top, tenants, totals — so a tick committing
+        between acquisitions produced a summary whose totals did not
+        add up to its rows."""
+        with self._lock:
+            return {
+                "enabled": True,
+                "live": len(self._live),
+                "finished_retained": len(self._done),
+                "requests_total": self.requests_total,
+                "ticks_total": self.ticks_total,
+                "top": self._top_locked(top_k),
+                "tenants": {t: dict(v)
+                            for t, v in self._tenants.items()},
+                "totals": self._totals_locked(),
+            }
+
+
+__all__ = ["RequestReceipt", "ReceiptLedger", "CONSERVED_FIELDS"]

@@ -42,9 +42,20 @@ host state (``export_session``/``import_session``,
 ``export_prefix``/``import_prefix``), serialized by
 ``serve/llm/kv_transport.py`` in frames the JAX package reads too.
 
-Not here yet: telemetry, perf accounting, attribution, anomaly
-detection, black-box dumps, LoRA, speculative and multi-step decode,
-pp/tp, the legacy two-dispatch step, graphs for mixed ticks.
+Observability, as in the JAX engine and with its names: request
+telemetry (``telemetry.py``: SLO histograms, counters, gauges read at
+scrape time, Chrome-trace lifecycles, the flight recorder), the
+analytic cost model with MFU/MBU against a hardware envelope
+(``perfmodel.py``; ``h100`` on the card), per-request cost receipts
+(``attribution.py``), a tick-anomaly detector (``anomaly.py``),
+black-box bundles (``blackbox.py``) and on-demand device profiles
+(``profile_next_ticks``). All of it is host arithmetic on the host
+mirrors the engine keeps: no device sync, no upload, no extra launch.
+Every mutating entry point takes ``_step_lock``, since the server
+calls the engine from executor threads.
+
+Not here yet: LoRA, speculative and multi-step decode, pp/tp, the
+legacy two-dispatch step, graphs for mixed ticks.
 """
 
 from __future__ import annotations
@@ -54,6 +65,9 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import json
+import tempfile
+import threading
 import time
 from typing import Any, ContextManager, Dict, List, Optional, Tuple
 
@@ -66,10 +80,17 @@ from ...models.llama_infer import decode_step, ragged_forward
 from ...models.weights import params_from_numpy
 from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
+from ...util import metrics as metrics_api
+from ...util import profiling
+from .anomaly import AnomalyConfig, TickAnomalyDetector
+from .attribution import ReceiptLedger
+from .blackbox import BlackboxSpool, default_spool_dir
 from .decode_graph import DecodeGraph
 from .kv_cache import PageAllocator
 from .kv_offload import (HostKVTier, ParkedSequence, host_array, host_dtype,
                          host_tensor, pick_victim)
+from .perfmodel import CostModel, PerfAccountant, detect_envelope
+from .telemetry import EngineTelemetry
 
 
 @dataclasses.dataclass
@@ -121,6 +142,40 @@ class EngineConfig:
     # decoding slot's pages as it goes, preempting under pressure.
     # Requires enable_kv_offload.
     kv_watermark_tokens: Optional[int] = None
+    # -- observability: the JAX engine's fields and defaults. All of it
+    # is host arithmetic on host mirrors (no sync, no upload, no extra
+    # launch); the off switches exist for overhead A/B runs.
+    # Request-lifecycle telemetry: SLO histograms (TTFT, inter-token
+    # latency, queue wait, e2e), token and finish counters, gauges set
+    # at scrape time, Chrome-trace timelines, the flight recorder.
+    enable_metrics: bool = True
+    # Prometheus "model" and "replica" tags of this engine's samples
+    # (None: "default", and no replica label)
+    metrics_model_id: Optional[str] = None
+    metrics_replica_id: Optional[str] = None
+    # per-request SLO targets in seconds {"ttft", "queue_wait", "e2e"}
+    # (None: telemetry.DEFAULT_SLO_TARGETS)
+    slo_targets: Optional[Dict[str, float]] = None
+    # the analytic cost model beside each dispatch: stats()["perf"]
+    # reports goodput and MFU/MBU against the hardware envelope
+    enable_perf_accounting: bool = True
+    # a perfmodel.ENVELOPES key ("h100", "cpu", "tpu-v5e", ...); None:
+    # the card's name on a CUDA device (a card outside the table
+    # raises), "cpu" on the CPU
+    perf_envelope: Optional[str] = None
+    # per-request cost receipts; requires enable_perf_accounting
+    enable_attribution: bool = True
+    # tick-anomaly detector (tick wall against the roofline prediction,
+    # classified flags, evidence capture); requires
+    # enable_perf_accounting
+    enable_anomaly_detection: bool = True
+    # AnomalyConfig field overrides, e.g. {"warmup_ticks": 16}
+    anomaly: Optional[Dict[str, Any]] = None
+    # postmortem bundles: on a guard violation, a KV exhaustion, a
+    # mid-tick crash, a flagged tick, or on demand
+    enable_blackbox: bool = True
+    blackbox_dir: Optional[str] = None      # None -> per-engine tempdir
+    blackbox_capacity: int = 16             # bundles retained
 
     def resolve_model(self) -> LlamaConfig:
         return llama.config(self.model)
@@ -202,6 +257,11 @@ _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(_BITS[t.element_size()])
+
+
+def _merge_cost(tot: Dict[str, float], c: Dict[str, float]) -> None:
+    for k, v in c.items():
+        tot[k] = tot.get(k, 0.0) + v
 
 
 def derive_seed(request_id: str) -> int:
@@ -297,6 +357,10 @@ class InferenceEngine:
                 "finish_reason=\"error\" failures that a worst-case "
                 "reservation would just queue through")
         self.max_seq = ec.max_seq_len or cfg.max_seq
+        # the cost model's envelope first: an unknown card raises before
+        # any weights are allocated
+        envelope = (detect_envelope(self.device, name=ec.perf_envelope)
+                    if ec.enable_perf_accounting else None)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(ec.seed)
@@ -406,6 +470,57 @@ class InferenceEngine:
         self._tick_times = collections.deque(maxlen=512)
         self._tick_host_s = 0.0
         self._tick_dev_s = 0.0
+        # compile events, the counterpart of the JAX engine's jit-cache
+        # builds (the anomaly detector's "recompile" evidence): CUDA
+        # graph captures, the first ragged tick of each (token bucket,
+        # context bucket, all_greedy), and kernel library builds at
+        # first use in this process
+        self.compiles = 0
+        self._ragged_buckets: set = set()
+        self._kernel_builds = _kernels.build_count()
+        # observability (the JAX engine's, see its fields above)
+        self.telemetry = EngineTelemetry(
+            model=ec.metrics_model_id or "default",
+            enabled=bool(ec.enable_metrics),
+            replica=ec.metrics_replica_id or "",
+            slo_targets=ec.slo_targets)
+        self.blackbox = BlackboxSpool(
+            ec.blackbox_dir or default_spool_dir(
+                ec.metrics_model_id or "default",
+                ec.metrics_replica_id or ""),
+            capacity=ec.blackbox_capacity)
+        if ec.enable_blackbox:
+            self.telemetry.recorder.alert_hook = self._on_alert_event
+        # monotonic stamp of the last completed tick (liveness)
+        self.last_step_at: Optional[float] = None
+        # an armed profile: {"remaining", "dir", "cm"}
+        self._profile: Optional[Dict[str, Any]] = None
+        # one card: the per-chip divisor of MFU/MBU
+        self.n_chips = 1
+        self.perf: Optional[PerfAccountant] = None
+        if envelope is not None:
+            # the JAX closed form over this engine's model, with weights
+            # at the dtype they are stored in: the JAX engine stores
+            # them in param_dtype, this one in the compute dtype
+            # (models/weights.py); where the two agree (every float32
+            # config) the receipts are the JAX engine's bit for bit
+            self.perf = PerfAccountant(
+                CostModel(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                          ec.page_size, kv_dtype=self.kv_kind),
+                envelope, n_chips=self.n_chips)
+        self.attrib: Optional[ReceiptLedger] = (
+            ReceiptLedger() if (self.perf is not None
+                                and ec.enable_attribution) else None)
+        self.anomaly: Optional[TickAnomalyDetector] = None
+        if self.perf is not None and ec.enable_anomaly_detection:
+            self.anomaly = TickAnomalyDetector(
+                AnomalyConfig(**(ec.anomaly or {})))
+        # serializes the mutating entry points: the server steps on an
+        # executor thread while aborts, imports and stats arrive from
+        # others
+        self._step_lock = threading.Lock()
+        with self._step_lock:
+            self._publish_counters_locked()
 
     def _kv_args(self) -> Dict[str, Any]:
         """The pools' kind and scale pools for the forwards (updated in
@@ -514,7 +629,10 @@ class InferenceEngine:
         if rec is not None:
             self._inflight = None
             self._drains += 1
+            self.telemetry.on_drain("device_state_rebuild")
             self._fold_inflight(rec, self._pending_touched)
+        self.telemetry.recorder.record(
+            "device_state_rebuild", active=self.num_active())
         self._refresh_seen()
         if self._d_tables_version != self._tables_version:
             self._fill(self._d_tables, self._page_tables, "page tables")
@@ -597,6 +715,14 @@ class InferenceEngine:
 
     # -- public entry points --------------------------------------------------
     def add_request(self, request: Request) -> None:
+        """Queue a request for admission (which happens inside step()).
+        Takes the step lock: step() rebinds the waiting list mid-tick,
+        and an unlocked append could land on the discarded one."""
+        with self._step_lock:
+            self._add_request_locked(request)
+            self._publish_counters_locked()
+
+    def _add_request_locked(self, request: Request) -> None:
         if request.lora is not None:
             raise ValueError(
                 f"unknown LoRA adapter {request.lora!r}: this engine "
@@ -611,6 +737,7 @@ class InferenceEngine:
                 f"prompt+max_tokens needs "
                 f"{self.allocator.pages_needed(worst_case)} KV pages but "
                 f"the pool only has {self.allocator.num_usable}")
+        self.telemetry.on_queued(request)
         self.waiting.append(request)
 
     def has_work(self) -> bool:
@@ -635,21 +762,78 @@ class InferenceEngine:
         arrive with the next step (a step may return [] while they are
         in flight); every step still dispatches once. A MemoryError out
         of an allocation no check covered finishes a victim with
-        finish_reason "error" and the engine goes on."""
-        touched: List[Request] = self._pending_touched
-        self._pending_touched = []
-        self.ticks += 1
-        t0 = time.perf_counter()
-        try:
-            self._step_tick(touched)
-        except MemoryError as exc:
-            self._handle_memory_error(exc, touched)
+        finish_reason "error" and the engine goes on.
+
+        The tick's cost sample, its receipts and its anomaly check are
+        committed here with the tick's wall: host time between entry
+        and return, as in the JAX engine (with async_readback the
+        device is still working on the tick when it returns)."""
+        with self._step_lock:
+            self._profile_tick_begin()
+            # tokens folded outside step() (abort) ride this tick's
+            # return, also on the MemoryError path
+            touched: List[Request] = self._pending_touched
+            self._pending_touched = []
+            self.ticks += 1
+            t0 = time.perf_counter()
+            try:
+                self._step_tick(touched)
+                wall = time.perf_counter() - t0
+                self._tick_times.append((wall * 1e3,
+                                         self._tick_host_s * 1e3,
+                                         self._tick_dev_s * 1e3))
+                self._commit_tick(wall * 1e3)
+                # reset after the append: readback and fold time of an
+                # out-of-step drain lands in the next tick's record
+                self._tick_host_s = self._tick_dev_s = 0.0
+                self.last_step_at = time.monotonic()
+            except MemoryError as exc:
+                self._abort_tick()
+                self._handle_memory_error(exc, touched)
+                self.last_step_at = time.monotonic()
+            except BaseException as exc:
+                # a mid-tick raise must not leave a profile running, nor
+                # a half-built cost sample pending; black-box the
+                # engine's last moments (lock-free: the lock is held)
+                self._abort_tick()
+                self.dump_blackbox("engine_crash", error=repr(exc))
+                raise
+            self._publish_counters_locked()
+            self._profile_tick_end()
             return touched
-        self._tick_times.append(((time.perf_counter() - t0) * 1e3,
-                                 self._tick_host_s * 1e3,
-                                 self._tick_dev_s * 1e3))
-        self._tick_host_s = self._tick_dev_s = 0.0
-        return touched
+
+    def _commit_tick(self, wall_ms: float) -> None:
+        """Fold the tick's pending cost sample into the perf window,
+        split it across the tick's receipts, and let the anomaly
+        detector judge the tick's wall against its roofline."""
+        builds = _kernels.build_count()
+        self.compiles += builds - self._kernel_builds
+        self._kernel_builds = builds
+        if self.perf is None:
+            return
+        sample = self.perf.commit(wall_ms)
+        if sample is None:
+            return
+        host_ms, dev_ms = self._tick_host_s * 1e3, self._tick_dev_s * 1e3
+        if self.attrib is not None:
+            self.attrib.commit(sample, host_ms=host_ms, device_ms=dev_ms)
+        if self.anomaly is not None:
+            env = self.perf.envelope
+            ev = self.anomaly.observe(
+                sample, wall_ms, host_ms, dev_ms, self.compiles,
+                env.peak_flops * self.n_chips,
+                env.peak_bytes_per_s * self.n_chips)
+            if ev is not None:
+                self._on_tick_anomaly(ev)
+
+    def _abort_tick(self) -> None:
+        """A tick that raised: stop an armed profile and drop the
+        tick's pending cost sample and charges."""
+        self._profile_abort()
+        if self.perf is not None:
+            self.perf.abort_tick()
+        if self.attrib is not None:
+            self.attrib.abort_tick()
 
     def _step_tick(self, touched: List[Request]) -> None:
         self._finalize_spills()
@@ -688,16 +872,30 @@ class InferenceEngine:
         """Stop a request: drop it from the queue, free its slot and KV
         pages (an in-flight tick is folded first; its token for this
         request is discarded, the others reach the next step's return),
-        or drop its parked host KV."""
+        or drop its parked host KV. Serialized against step(): the server
+        aborts from another thread while the pump steps."""
+        with self._step_lock:
+            hit = self._abort_locked(request_id)
+            if hit:
+                self._publish_counters_locked()
+            return hit
+
+    def _abort_locked(self, request_id: str) -> bool:
         for i, req in enumerate(self.waiting):
             if req.request_id == request_id:
                 del self.waiting[i]
                 req.finished = True
                 req.finish_reason = "abort"
+                self.telemetry.recorder.record(
+                    "abort", request_id=request_id, where="waiting")
+                self.telemetry.on_finished(
+                    req, "abort", cost=self._attrib_finish(req, "abort"))
                 return True
         for slot in self.slots:
             if slot.request is not None \
                     and slot.request.request_id == request_id:
+                self.telemetry.recorder.record(
+                    "abort", request_id=request_id, where="running")
                 self._finish(slot, "abort")
                 self._drain(self._pending_touched)
                 return True
@@ -706,18 +904,83 @@ class InferenceEngine:
             # restore
             parked = self.host_tier.drop(request_id)
             self._forget_spill(parked)
-            parked.request.finished = True
-            parked.request.finish_reason = "abort"
+            req = parked.request
+            req.finished = True
+            req.finish_reason = "abort"
+            self.telemetry.recorder.record(
+                "abort", request_id=request_id, where="parked")
+            self.telemetry.on_finished(
+                req, "abort", cost=self._attrib_finish(req, "abort"))
             return True
         return False
 
     def release_graphs(self) -> None:
         """Drop the captured decode graphs and their memory pool (the
         next decode tick captures again)."""
-        self._decode_graphs.clear()
-        self._graph_pool = None
+        with self._step_lock:
+            self._decode_graphs.clear()
+            self._graph_pool = None
+
+    def _lane_counts_locked(self) -> Dict[str, int]:
+        """Batch-lane occupancy: queued, active and parked priority-0
+        bulk requests, and the device pages batch slots hold."""
+        return {
+            "waiting_batch": sum(1 for r in self.waiting
+                                 if r.lane == "batch"),
+            "active_batch": sum(1 for s in self.slots
+                                if s.request is not None
+                                and s.request.lane == "batch"),
+            "parked_batch": sum(1 for p in self.parked
+                                if p.request.lane == "batch"),
+            "batch_kv_pages": sum(len(s.pages) for s in self.slots
+                                  if s.request is not None
+                                  and s.request.lane == "batch"),
+        }
+
+    def _publish_counters_locked(self) -> None:
+        """Rebuild the published counter snapshot (the lock held): at
+        the end of every mutating entry point. Replaced whole, never
+        mutated, so a lock-free reader sees one consistent snapshot."""
+        self._fleet_counters = {
+            "active": self.num_active(),
+            "waiting": len(self.waiting),
+            "parked_sessions": len(self.parked),
+            "preemptions_total": sum(self.preempt_counts.values()),
+            "page_pressure": round(self.page_pressure(), 4),
+            "lanes": self._lane_counts_locked(),
+        }
+
+    def fleet_counters(self) -> Dict[str, Any]:
+        """The last published counter snapshot, read without the lock
+        (a router's health poll must never wait behind a tick). Callers
+        must not mutate it."""
+        return self._fleet_counters
 
     def stats(self) -> Dict[str, Any]:
+        """The engine's counters and, beside them, the observability
+        blocks: "requests" (telemetry), "perf" (goodput, MFU/MBU, the
+        binding roof), "attribution", "anomaly" and "blackbox". One lock
+        hold over the mutable state; the blocks with locks of their own
+        are read after it."""
+        with self._step_lock:
+            snap = self._stats_locked()
+        return {
+            **snap,
+            "perf": (self.perf.summary() if self.perf is not None
+                     else {"enabled": False}),
+            "attribution": (self.attrib.summary()
+                            if self.attrib is not None
+                            else {"enabled": False}),
+            "anomaly": (self.anomaly.stats()
+                        if self.anomaly is not None
+                        else {"enabled": False}),
+            "requests": self.telemetry.summary(),
+            "blackbox": {"enabled": bool(self.config.enable_blackbox),
+                         "dir": self.blackbox.root,
+                         "bundles": len(self.blackbox.list())},
+        }
+
+    def _stats_locked(self) -> Dict[str, Any]:
         return {
             "device": str(self.device),
             "decode_impl": self.impl,
@@ -748,6 +1011,9 @@ class InferenceEngine:
             "lagged_ticks": self._lagged_ticks,
             "drains": self._drains,
             "graph_captures": self.graph_captures,
+            "compiles": self.compiles,
+            "chips": self.n_chips,
+            "lanes": self._lane_counts_locked(),
             "tick_times": self._tick_times_summary(),
         }
 
@@ -768,6 +1034,222 @@ class InferenceEngine:
         out["overlap_ratio"] = (max(0.0, 1.0 - sums[2] / sums[0])
                                 if sums[0] > 0 else 0.0)
         return out
+
+    # -- observability --------------------------------------------------
+    def profile_next_ticks(self, ticks: int = 8,
+                           log_dir: Optional[str] = None) -> str:
+        """Arm a device profile of the next `ticks` ticks
+        (util/profiling.trace: torch.profiler, one session a tick, merged
+        into one Chrome trace JSON in the returned directory). It starts
+        at the next step() and ends after `ticks` ticks; one capture at
+        a time (re-arming while one is pending raises)."""
+        if int(ticks) < 1:
+            raise ValueError("ticks must be >= 1")
+        with self._step_lock:
+            if self._profile is not None:
+                raise RuntimeError(
+                    "a profile capture is already armed/active "
+                    f"({self._profile['remaining']} tick(s) left, "
+                    f"dir {self._profile['dir']})")
+            if log_dir is None:
+                log_dir = tempfile.mkdtemp(prefix="ray_tpu_torch_prof_")
+            self._profile = {"remaining": int(ticks), "dir": log_dir,
+                             "cm": None, "parts": []}
+        self.telemetry.recorder.record(
+            "profile_armed", ticks=int(ticks), log_dir=log_dir)
+        return log_dir
+
+    def _profile_tick_begin(self) -> None:
+        """Start this tick's profile session when a capture is armed
+        (tick entry, the lock held; its synchronise is sanctioned). Each
+        profiled tick is its own session, started and stopped inside one
+        step() call: torch.profiler must stop on the thread that started
+        it, and the server steps the engine from executor threads."""
+        ps = self._profile
+        if ps is None:
+            return
+        cm = profiling.trace(ps["dir"])
+        try:
+            with self._sync_allowed():
+                cm.__enter__()
+        except Exception as e:   # profiler unavailable
+            self._profile = None
+            self.telemetry.recorder.record("profile_error", error=repr(e))
+            return
+        ps["cm"] = cm
+
+    def _profile_session_end(self, ps: Dict[str, Any]) -> bool:
+        """Stop the tick's session and keep its trace file; False (an
+        error recorded, the capture disarmed) when stopping failed."""
+        cm, ps["cm"] = ps["cm"], None
+        try:
+            with self._sync_allowed():
+                cm.__exit__(None, None, None)
+        except Exception as e:
+            self._profile = None
+            self.telemetry.recorder.record("profile_error", error=repr(e))
+            return False
+        ps["parts"].append(profiling.trace_files(ps["dir"])[-1])
+        return True
+
+    def _profile_tick_end(self) -> None:
+        ps = self._profile
+        if ps is None or ps["cm"] is None \
+                or not self._profile_session_end(ps):
+            return
+        ps["remaining"] -= 1
+        if ps["remaining"] > 0:
+            return
+        self._profile = None
+        profiling.merge_traces(ps["parts"])
+        self.telemetry.recorder.record("profile_done", log_dir=ps["dir"])
+
+    def _profile_abort(self) -> None:
+        """Stop a running capture after a mid-tick exception (keep what
+        was recorded) and disarm, so the next profile_next_ticks() is
+        not wedged behind a phantom capture."""
+        ps = self._profile
+        self._profile = None
+        if ps is None or ps["cm"] is None \
+                or not self._profile_session_end(ps):
+            return
+        profiling.merge_traces(ps["parts"])
+        self.telemetry.recorder.record("profile_aborted",
+                                       log_dir=ps["dir"])
+
+    def _arm_profile_locked(self, ticks: int,
+                            trigger: str = "tick_anomaly"
+                            ) -> Optional[str]:
+        """profile_next_ticks without the lock (the anomaly path runs
+        inside step()); None instead of raising when a capture is
+        already armed."""
+        if self._profile is not None:
+            return None
+        log_dir = tempfile.mkdtemp(prefix="ray_tpu_torch_prof_")
+        self._profile = {"remaining": int(ticks), "dir": log_dir,
+                         "cm": None, "parts": []}
+        self.telemetry.recorder.record(
+            "profile_armed", ticks=int(ticks), log_dir=log_dir,
+            trigger=trigger)
+        return log_dir
+
+    def _on_tick_anomaly(self, ev: Dict[str, Any]) -> None:
+        """Act on a flagged tick (the detector made every decision,
+        rate limits included): a flight event with the batch
+        composition, an armed profile of the next ticks, a black-box
+        bundle."""
+        # "kind" would collide with the recorder's event kind
+        fields = {("anomaly_kind" if k == "kind" else k): v
+                  for k, v in ev.items()
+                  if k not in ("arm_profile", "dump")}
+        self.telemetry.recorder.record("tick_anomaly", **fields)
+        if ev.get("arm_profile") and self.anomaly is not None:
+            self._arm_profile_locked(self.anomaly.config.profile_ticks)
+        if ev.get("dump"):
+            self.dump_blackbox("tick_anomaly",
+                               extra={"anomaly_event": ev})
+
+    def _on_alert_event(self, kind: str, event: Dict[str, Any]) -> None:
+        """FlightRecorder alert hook: a guard violation or a KV
+        exhaustion black-boxes a bundle."""
+        self.dump_blackbox(kind, extra={"alert_event": event})
+
+    def dump_blackbox(self, cause: str, error: Optional[str] = None,
+                      extra: Optional[Dict[str, Any]] = None
+                      ) -> Optional[str]:
+        """Snapshot a postmortem bundle to the spool: flight recorder,
+        recent tick times, metric exposition, engine config, in-flight
+        requests, slots, allocator, perf, attribution, anomaly and
+        parked requests. Returns the bundle id (None when disabled or
+        the write failed). Lock-free by contract: the crash path calls
+        it with the step lock held."""
+        if not self.config.enable_blackbox:
+            return None
+        try:
+            ticks: List[Any] = []
+            for _ in range(4):
+                try:
+                    ticks = list(self._tick_times)[-64:]  # racelint: disable=RL004 -- lock-free by contract: the crash path holds _step_lock; a bounded retry absorbs a concurrent append
+                    break
+                except RuntimeError:      # a concurrent append
+                    continue
+            try:
+                cfg = json.loads(json.dumps(
+                    dataclasses.asdict(self.config), default=repr))
+            except Exception:
+                cfg = {"repr": repr(self.config)}
+            try:
+                self.telemetry.update_gauges(self)
+                exposition = metrics_api.export_prometheus()
+            except Exception as e:
+                exposition = f"# exposition failed: {e!r}"
+            bundle = {
+                "error": error,
+                "engine_config": cfg,
+                "counters": {
+                    "ticks": self.ticks,
+                    "dispatches": self.dispatches,
+                    "compiled_programs": self.compiles,
+                    "active": self.num_active(),
+                    "waiting": len(self.waiting),
+                },
+                "tick_times_ms": [list(t) for t in ticks],
+                "flight_recorder": self.telemetry.recorder.events(),
+                "in_flight_requests": self.telemetry.live_snapshot(),
+                "waiting_requests": [r.request_id for r in self.waiting],  # racelint: disable=RL004 -- lock-free by contract: reads the list reference step() publishes
+                # one read of s.request a slot: a manual dump races the
+                # pump's retirements
+                "slots": [
+                    {"index": s.index,
+                     "request_id": req.request_id,
+                     "position": s.position,
+                     "prefill_pos": s.prefill_pos,
+                     "ready": s.ready}
+                    for s in self.slots
+                    for req in (s.request,) if req is not None],
+                "allocator": self.allocator.stats(),
+                "perf": (self.perf.summary()
+                         if self.perf is not None else None),
+                "attribution": (self.attrib.summary(top_k=4)
+                                if self.attrib is not None else None),
+                "anomaly": (self.anomaly.stats()
+                            if self.anomaly is not None else None),
+                "parked_requests": [
+                    {"request_id": p.request.request_id,
+                     "position": p.position, "pages": p.n_pages,
+                     "reason": p.reason,
+                     "parked_s": round(p.idle_s(), 3)}
+                    for p in self.parked],
+                "preemptions": dict(self.preempt_counts),  # racelint: disable=RL004 -- lock-free by contract: a torn read beats a wedged crash path
+                "metrics_exposition": exposition,
+                **(extra or {}),
+            }
+            bid = self.blackbox.dump(cause, bundle)
+            if bid is not None:
+                self.telemetry.recorder.record(
+                    "blackbox_dump", cause=cause, bundle_id=bid)
+            return bid
+        except Exception:
+            return None      # never turn a failure into a new failure
+
+    def prometheus_metrics(self) -> str:
+        """Prometheus text exposition of this package's registry with
+        this engine's gauges refreshed (gauges are read at scrape time
+        only; ticks pay nothing for them)."""
+        self.telemetry.update_gauges(self)
+        return metrics_api.export_prometheus()
+
+    def attribution_summary(self, top_k: int = 8) -> Dict[str, Any]:
+        """Top-K receipts by FLOPs, tenant rollups and conservation
+        totals (the ledger's own lock, never the step lock)."""
+        if self.attrib is None:
+            return {"enabled": False}
+        return self.attrib.summary(top_k=top_k)
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """Per-request lifecycle timelines as Chrome-trace JSON, merged
+        with the process tracing ring and the perf counter tracks."""
+        return self.telemetry.chrome_trace(perf=self.perf)
 
     # -- KV memory hierarchy ------------------------------------------------
     # Every method here runs at structural time (after a drain, outside
@@ -892,6 +1374,7 @@ class InferenceEngine:
             self.waiting.insert(0, req)
             self.preempt_counts[reason] = \
                 self.preempt_counts.get(reason, 0) + 1
+            self.telemetry.on_preempted(req, reason, mode="requeue")
             return True
         tier = self.host_tier
         if tier is None:
@@ -901,6 +1384,7 @@ class InferenceEngine:
             return False
         hosts, done = self._copy_to_host(
             self._gather_pages(victim.pages[:n_pages]))
+        self._note_offload(req, d2h=n_pages)
         quant = len(hosts) == 4
         parked = ParkedSequence(
             request=req, seed=victim.seed, position=victim.position,
@@ -913,7 +1397,22 @@ class InferenceEngine:
         self.allocator.free(victim.pages)
         self._clear_slot(victim)
         self.preempt_counts[reason] = self.preempt_counts.get(reason, 0) + 1
+        self.telemetry.on_preempted(req, reason, mode="spill",
+                                    pages=n_pages,
+                                    position=victim.position)
         return True
+
+    def _note_offload(self, req: Optional[Request], d2h: int = 0,
+                      h2d: int = 0) -> None:
+        """Page traffic between the pools and the host (pages moved:
+        the port pads no page ids, so exactly these) into the tick's
+        cost sample and, for a request, its receipt."""
+        if self.perf is None:
+            return
+        pb = self.perf.model.page_bytes
+        self.perf.note_offload(d2h=d2h * pb, h2d=h2d * pb)
+        if req is not None and self.attrib is not None:
+            self.attrib.charge_offload(req, d2h=d2h * pb, h2d=h2d * pb)
 
     def _alloc_or_preempt(self, n: int, protect,
                           reason: str) -> Optional[List[int]]:
@@ -993,7 +1492,7 @@ class InferenceEngine:
             finally:
                 self._alloc_ctx = None
             if got is None:
-                self._kv_exhausted(s, touched)
+                self._kv_exhausted(s, touched, where="growth")
                 continue
             s.pages.extend(got)
             self._page_tables[s.index][:len(s.pages)] = s.pages
@@ -1046,6 +1545,7 @@ class InferenceEngine:
             if hi > lo:
                 self._scatter_pages(pages[lo:hi], [
                     a[:, lo:hi] for a in self._host_pages(parked)])
+                self._note_offload(req, h2d=hi - lo)
             slot.request = req
             slot.pages = pages
             slot.prefill_pos = len(req.prompt_tokens)
@@ -1061,6 +1561,9 @@ class InferenceEngine:
                 pages[:len(req.prompt_tokens) // self.allocator.page_size])
             self._set_table(slot)
             req.restarts += 1
+            self.telemetry.on_restored(req, pages=parked.n_pages,
+                                       parked_s=parked.idle_s(),
+                                       shared_pages=len(shared))
 
     def _restore_possible(self) -> bool:
         """_restore_parked's feasibility check for the first parked
@@ -1084,11 +1587,18 @@ class InferenceEngine:
         return need <= self.allocator.free_pages
 
     def _kv_exhausted(self, slot: Optional[_Slot],
-                      touched: List[Request]) -> None:
-        """True page exhaustion: the victim finishes with "error" and the
-        engine goes on serving."""
-        if slot is not None and slot.request is not None:
-            req = slot.request
+                      touched: List[Request], where: str,
+                      error: Optional[str] = None) -> None:
+        """True page exhaustion: a flight-recorder event (alert-hooked:
+        it black-boxes a bundle), and the victim finishes with "error"
+        while the engine goes on serving."""
+        req = slot.request if slot is not None else None
+        self.telemetry.recorder.record(
+            "kv_exhausted", where=where, error=error,
+            request_id=req.request_id if req else None,
+            free_pages=self.allocator.free_pages,
+            parked=len(self.parked), waiting=len(self.waiting))
+        if req is not None:
             self._finish(slot, "error")
             touched.append(req)
 
@@ -1105,7 +1615,8 @@ class InferenceEngine:
         self._alloc_ctx = None
         if victim is None:
             victim = pick_victim(self.slots, ())
-        self._kv_exhausted(victim, touched)
+        self._kv_exhausted(victim, touched, where="engine_boundary",
+                           error=repr(exc))
         self._refresh_device_state()
 
     def page_pressure(self) -> float:
@@ -1122,6 +1633,13 @@ class InferenceEngine:
         decoding, requeues when prefilling, and restores when pages
         allow. False if it is not in a slot, or cannot park (no host
         tier, or a full one, for a decoding request)."""
+        with self._step_lock:
+            hit = self._preempt_locked(request_id, reason)
+            if hit:
+                self._publish_counters_locked()
+            return hit
+
+    def _preempt_locked(self, request_id: str, reason: str) -> bool:
         for slot in self.slots:
             req = slot.request
             if req is None or req.request_id != request_id:
@@ -1138,6 +1656,10 @@ class InferenceEngine:
     # -- session and prefix transport -----------------------------------
     def session_ids(self) -> List[str]:
         """Request ids resident on this engine: slots, waiting, parked."""
+        with self._step_lock:
+            return self._session_ids_locked()
+
+    def _session_ids_locked(self) -> List[str]:
         out = [s.request.request_id for s in self.slots
                if s.request is not None]
         out += [r.request_id for r in self.waiting]
@@ -1153,17 +1675,25 @@ class InferenceEngine:
         emitted nothing). None when the request is not here, finished,
         or cannot be captured (a decoding request with no host tier, or
         a full one). The request leaves with finish_reason "migrated"."""
+        with self._step_lock:
+            state = self._export_session_locked(request_id, reason)
+            if state is not None:
+                self._publish_counters_locked()
+            return state
+
+    def _export_session_locked(self, request_id: str, reason: str
+                               ) -> Optional[Dict[str, Any]]:
         tier = self.host_tier
         if tier is not None and request_id in tier:
             parked = tier.export(request_id)
             self._forget_spill(parked)
             with self._sync_allowed():
                 parked.materialize()
-            return self._session_state(parked.request, parked)
+            return self._session_state(parked.request, parked, reason)
         for i, req in enumerate(self.waiting):
             if req.request_id == request_id:
                 del self.waiting[i]
-                return self._session_state(req, None)
+                return self._session_state(req, None, reason)
         slot = next((s for s in self.slots if s.request is not None
                      and s.request.request_id == request_id), None)
         if slot is None:
@@ -1182,20 +1712,28 @@ class InferenceEngine:
             for i, r in enumerate(self.waiting):
                 if r.request_id == request_id:
                     del self.waiting[i]
-                    return self._session_state(r, None)
+                    return self._session_state(r, None, reason)
             return None
         parked = tier.export(request_id)
         self._forget_spill(parked)
         with self._sync_allowed():
             parked.materialize()
-        return self._session_state(parked.request, parked)
+        return self._session_state(parked.request, parked, reason)
 
     def _session_state(self, req: Request,
-                       parked: Optional[ParkedSequence]) -> Dict[str, Any]:
+                       parked: Optional[ParkedSequence],
+                       reason: str) -> Dict[str, Any]:
         """The exported session: the JAX engine's keys, so either package
-        imports it. Marks the request finished with "migrated"."""
+        imports it. Marks the request finished with "migrated" and
+        closes its receipt (its remaining cost accrues on the importing
+        engine)."""
         req.finished = True
         req.finish_reason = "migrated"
+        self._attrib_finish(req, "migrated")
+        self.telemetry.recorder.record(
+            "session_exported", request_id=req.request_id,
+            reason=reason, pages=0 if parked is None else parked.n_pages,
+            generated=len(req.output_tokens))
         ddl = None
         if req.deadline is not None:
             # a monotonic deadline does not survive a process hop: the
@@ -1236,6 +1774,12 @@ class InferenceEngine:
         (nothing emitted) just queues. Returns the live Request. Raises
         ValueError on an id collision or pages this engine cannot take,
         MemoryError when the host tier cannot hold them."""
+        with self._step_lock:
+            req = self._import_session_locked(state)
+            self._publish_counters_locked()
+            return req
+
+    def _import_session_locked(self, state: Dict[str, Any]) -> Request:
         if state.get("lora") is not None:
             raise ValueError(
                 f"session names LoRA adapter {state['lora']!r}: this "
@@ -1261,7 +1805,7 @@ class InferenceEngine:
                 float(state["deadline_epoch"]) - time.time())
         n_pages = int(state.get("n_pages") or 0)
         rid = req.request_id
-        if rid in self.session_ids():
+        if rid in self._session_ids_locked():
             raise ValueError(f"request {rid!r} is already live on this "
                              f"engine")
         if n_pages == 0:
@@ -1269,7 +1813,9 @@ class InferenceEngine:
                 raise ValueError(
                     "cold session carries emitted tokens; replay it "
                     "through the continuation path instead")
-            self.add_request(req)
+            self._add_request_locked(req)
+            self.telemetry.recorder.record(
+                "session_imported", request_id=rid, pages=0)
             return req
         tier = self.host_tier
         if tier is None:
@@ -1305,6 +1851,9 @@ class InferenceEngine:
             reason="import", k_host=k, v_host=v, kv_kind=src_kind,
             k_scales_host=ksc, v_scales_host=vsc)
         tier.park(parked, count_spill=False)  # MemoryError when full
+        self.telemetry.recorder.record(
+            "session_imported", request_id=rid, pages=n_pages,
+            generated=len(req.output_tokens))
         return req
 
     @staticmethod
@@ -1329,6 +1878,11 @@ class InferenceEngine:
         """The cached full prompt pages of this token chain, gathered to
         host arrays ({tokens, k, v, kv_dtype}, and the scales of
         quantized pages). None when nothing is cached."""
+        with self._step_lock:
+            return self._export_prefix_locked(prompt_tokens)
+
+    def _export_prefix_locked(self, prompt_tokens: List[int]
+                              ) -> Optional[Dict[str, Any]]:
         if not self.allocator.enable_prefix_caching:
             return None
         pages = self.allocator.cached_prefix_pages(prompt_tokens)
@@ -1336,6 +1890,9 @@ class InferenceEngine:
             return None
         self._drain(self._pending_touched)
         bufs = self._gather_pages(pages)
+        # prefix traffic is the fleet's, not a request's: the tick's
+        # totals only
+        self._note_offload(None, d2h=len(pages))
         with self._sync_allowed():
             hosts = [host_array(b.cpu()) for b in bufs]
         out = {"k": hosts[0], "v": hosts[1]}
@@ -1344,6 +1901,8 @@ class InferenceEngine:
         out["tokens"] = [int(t) for t in
                          prompt_tokens[:len(pages) * self.allocator.page_size]]
         out["kv_dtype"] = self.kv_kind
+        self.telemetry.recorder.record(
+            "prefix_exported", pages=len(pages), tokens=len(out["tokens"]))
         return out
 
     def import_prefix(self, tokens: List[int], k_host, v_host,
@@ -1354,6 +1913,12 @@ class InferenceEngine:
         under the keys a local prefill would have used, so the next
         admission of the prompt matches it. Returns the pages newly
         seeded (0: already cached, no room, or nothing to import)."""
+        with self._step_lock:
+            return self._import_prefix_locked(tokens, k_host, v_host,
+                                              k_scales, v_scales, kv_dtype)
+
+    def _import_prefix_locked(self, tokens, k_host, v_host, k_scales,
+                              v_scales, kv_dtype) -> int:
         if not self.allocator.enable_prefix_caching:
             return 0
         if str(kv_dtype or "f32") != self.kv_kind:
@@ -1384,11 +1949,15 @@ class InferenceEngine:
         self._drain(self._pending_touched)
         fresh = self.allocator.allocate_pages(need)
         self._scatter_pages(fresh, [a[:, len(have):n] for a in arrays])
+        self._note_offload(None, h2d=need)
         self.allocator.register_prefix(toks, have + fresh)
         # registration took the cache's reference on the fresh pages:
         # release the allocation's, so they are cache-owned (evictable
         # under pressure, like a local prefill's)
         self.allocator.free(fresh)
+        self.telemetry.recorder.record(
+            "prefix_imported", pages=need, cached=len(have),
+            tokens=len(toks))
         return need
 
     # -- internals ------------------------------------------------------------
@@ -1529,6 +2098,14 @@ class InferenceEngine:
             if req.restarts == 0:
                 # a requeued victim counts once
                 self.allocator.record_match(matched, len(req.prompt_tokens))
+                self.telemetry.on_admitted(req, cached_tokens=matched)
+                if self.attrib is not None:
+                    self.attrib.note_queue(
+                        req, time.monotonic() - req.submitted_at)
+            else:
+                self.telemetry.recorder.record(
+                    "readmission", request_id=req.request_id,
+                    restarts=req.restarts, cached_tokens=matched)
             slot.request = req
             self._alloc_ctx = slot.index
             try:
@@ -1574,6 +2151,12 @@ class InferenceEngine:
                 self._forget_spill(parked)
                 req.finished = True
                 req.finish_reason = "deadline"
+                self.telemetry.recorder.record(
+                    "deadline_abort", request_id=req.request_id,
+                    where="parked", generated=len(req.output_tokens))
+                self.telemetry.on_finished(
+                    req, "deadline",
+                    cost=self._attrib_finish(req, "deadline"))
                 touched.append(req)
         if has_slot:
             expired = [s for s in self.slots
@@ -1586,6 +2169,9 @@ class InferenceEngine:
                     req = s.request
                     if req is None or req.finished:
                         continue       # finished in the drain's fold
+                    self.telemetry.recorder.record(
+                        "deadline_abort", request_id=req.request_id,
+                        where="running", generated=len(req.output_tokens))
                     self._finish(s, "deadline")
                     touched.append(req)
         if has_wait:
@@ -1594,10 +2180,69 @@ class InferenceEngine:
                 if req.deadline is not None and now >= req.deadline:
                     req.finished = True
                     req.finish_reason = "deadline"
+                    self.telemetry.recorder.record(
+                        "deadline_abort", request_id=req.request_id,
+                        where="waiting")
+                    self.telemetry.on_finished(
+                        req, "deadline",
+                        cost=self._attrib_finish(req, "deadline"))
                     touched.append(req)
                 else:
                     keep.append(req)
             self.waiting = keep
+
+    # -- per-dispatch cost accounting -----------------------------------
+    # Beside each dispatch, on the host: the JAX engine's closed forms
+    # over the batch the engine just packed fold into the tick's pending
+    # sample and the requests' receipts. Plain int arithmetic on host
+    # slot state: no upload, no sync, no launch.
+    def _account_ragged(self, plan) -> None:
+        """One unified tick: each decoding slot advances one token at
+        its context, each prefill chunk runs against its cached start."""
+        if self.perf is None:
+            return
+        cm = self.perf.model
+        tot: Dict[str, float] = {}
+        ndec = npre = 0
+        for s, n, is_pref in plan:
+            if is_pref:
+                c = cm.chunk_cost(s.prefill_pos, n)
+                npre += n
+            else:
+                c = cm.decode_cost(s.position + 1)
+                ndec += 1
+            _merge_cost(tot, c)
+            if self.attrib is not None:
+                # the same closed-form dict on both sides: the receipts
+                # sum to the tick total exactly
+                self.attrib.charge(s.request, c,
+                                   decode_tokens=0 if is_pref else 1,
+                                   prefill_tokens=n if is_pref else 0,
+                                   pages=len(s.pages))
+        self.perf.add("ragged", tot, decode_tokens=ndec,
+                      prefill_tokens=npre)
+
+    def _account_decode_batch(self, kind: str = "decode") -> None:
+        """One whole-batch decode dispatch: every active slot advances
+        one token at its host position (with async_readback one tick
+        behind the device, as in the JAX engine)."""
+        if self.perf is None:
+            return
+        cm = self.perf.model
+        tot: Dict[str, float] = {}
+        ndec = 0
+        for s in self.slots:
+            if s.request is None or not s.ready \
+                    or not self._host_active[s.index]:
+                continue
+            c = cm.decode_cost(s.position + 1)
+            _merge_cost(tot, c)
+            if self.attrib is not None:
+                self.attrib.charge(s.request, c, decode_tokens=1,
+                                   pages=len(s.pages))
+            ndec += 1
+        if ndec:
+            self.perf.add(kind, tot, decode_tokens=ndec)
 
     def _ragged_step(self, touched: List[Request]) -> None:
         """One unified tick: pack, run the ragged forward, sample, fold
@@ -1642,6 +2287,13 @@ class InferenceEngine:
         valid = tm[3] != 0
         start, last_idx, emit = sm[0], sm[1], sm[2] != 0
         ctx = self._ctx_bucket(max_start)
+        bucket = (T, ctx, self._all_greedy)
+        if bucket not in self._ragged_buckets:
+            # the JAX engine builds one program per bucket; here the
+            # first tick of a bucket sets up the kernel's launch
+            # attributes and plans
+            self._ragged_buckets.add(bucket)
+            self.compiles += 1
         # no slot segment outgrows the chunk cap
         max_seg = min(T, max(self.config.max_prefill_tokens, 1))
         self.dispatches += 1
@@ -1667,11 +2319,18 @@ class InferenceEngine:
                            self._d_top_ks, self._d_rep_pens, seen,
                            gumbel=noise)
             seen[self._d_rows, toks.long()] |= emit
-        toks_host = self._read_tokens(*self._start_readback(toks))
+        readback = self._start_readback(toks)
+        # the tick's budget use and cost, from the host slot state the
+        # fold below moves: under the device's work, not ahead of it
+        self.telemetry.on_tick_budget(total, self._tick_token_budget())
+        self._account_ragged(plan)
+        toks_host = self._read_tokens(*readback)
         t_h = time.perf_counter()
         for s, n, is_pref in plan:
             tok = int(toks_host[s.index])
             if is_pref:
+                self.telemetry.on_prefill_chunk(s.request, n,
+                                                s.prefill_pos)
                 s.prefill_pos += n
                 if s.prefill_pos >= len(s.request.prompt_tokens):
                     self._finish_prefill(s, tok, touched)
@@ -1712,7 +2371,10 @@ class InferenceEngine:
 
     @contextlib.contextmanager
     def _capturing(self):
+        """Around a decode graph's capture, inside step() (the lock
+        held): counted, reported to an armed guard, syncs allowed."""
         self.graph_captures += 1
+        self.compiles += 1  # racelint: disable=RL001 -- DecodeGraph enters this inside step(), under _step_lock
         if self._guard is not None:
             self._guard.capture(f"decode graph {len(self._decode_graphs)}")
         with self._sync_allowed():
@@ -1742,6 +2404,10 @@ class InferenceEngine:
         toks = self._decode_graph()()
         rec = _InflightTick(*self._start_readback(toks),
                             self._host_active.copy())
+        # the tick's cost, from the host slot state the fold below moves:
+        # after the launch, so the host's arithmetic runs under the
+        # device's work instead of ahead of it
+        self._account_decode_batch()
         if not self.config.async_readback:
             self._fold_inflight(rec, touched, lagged=False)
             return
@@ -1752,6 +2418,7 @@ class InferenceEngine:
             # over-generation, discarded by the fold's active check)
             rec, self._inflight = self._inflight, None
             self._drains += 1
+            self.telemetry.on_drain("retirement")
             self._fold_inflight(rec, touched, lagged=False)
 
     def _drain(self, touched: List[Request]) -> None:
@@ -1763,6 +2430,7 @@ class InferenceEngine:
             return
         self._inflight = None
         self._drains += 1
+        self.telemetry.on_drain("structural")
         self._fold_inflight(rec, touched)
 
     def _fold_inflight(self, rec: _InflightTick, touched: List[Request],
@@ -1813,6 +2481,7 @@ class InferenceEngine:
                       touched: List[Request]) -> None:
         req = slot.request
         req.output_tokens.append(tok)
+        self.telemetry.on_token(req)
         touched.append(req)
         p = req.params
         if tok in p.stop_token_ids:
@@ -1820,9 +2489,20 @@ class InferenceEngine:
         elif len(req.output_tokens) >= p.max_tokens:
             self._finish(slot, "length")
 
+    def _attrib_finish(self, req: Request, reason: Optional[str] = None
+                       ) -> Optional[Dict[str, Any]]:
+        """Close the request's cost receipt; its usage.cost brief for
+        the finish event (None when it was never charged)."""
+        if self.attrib is None:
+            return None
+        rec = self.attrib.finish(req, reason)
+        return None if rec is None else rec.cost_block()
+
     def _finish(self, slot: _Slot, reason: str) -> None:
         slot.request.finished = True
         slot.request.finish_reason = reason
+        cost = self._attrib_finish(slot.request, reason)
+        self.telemetry.on_finished(slot.request, reason, cost=cost)
         self.allocator.free(slot.pages)
         self._clear_slot(slot)
 

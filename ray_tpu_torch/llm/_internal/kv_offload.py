@@ -121,6 +121,11 @@ class ParkedSequence:                     # hold arrays
     v_scales_pending: Optional[torch.Tensor] = None
     done: Optional[Any] = None          # torch.cuda.Event after the copies
 
+    def idle_s(self, now: Optional[float] = None) -> float:
+        """Seconds since the request parked."""
+        now = time.monotonic() if now is None else now
+        return max(now - self.parked_at, 0.0)
+
     def materialize(self) -> None:
         """Finish the migration: wait for the copies (the engine lets
         this sync through an armed dispatch guard) and keep the host

@@ -1,0 +1,466 @@
+"""Per-dispatch performance accounting: analytic FLOP/byte cost model.
+
+A copy of ``ray_tpu/llm/_internal/perfmodel.py``: an analytic cost
+model over LlamaConfig plus each tick's ragged batch composition
+(decode tokens, prefill-chunk tokens, context lengths — metadata the
+engine already packs host-side), yielding FLOPs (GEMM vs attention
+split), HBM bytes (weight reads per dispatch, KV page reads/writes,
+spill/restore d2h/h2d traffic), and roofline ratios against a hardware
+envelope table: model-FLOPs utilization (MFU), HBM-bandwidth
+utilization (MBU), and which roof binds. The closed forms are the JAX
+package's, bit for bit, so receipts of the two engines agree; they
+count what the JAX model stores (``param_dtype`` for every weight),
+not what this package's engine holds on the card (layer weights in the
+compute dtype, the head in float32). The envelope table adds an
+``h100`` row; on a CUDA device the card's name picks it.
+
+Contract (the telemetry zero-sync discipline): everything here is
+host-side Python arithmetic over plain ints/floats. Recording a
+PerfSample adds no device sync, no upload and no launch to a tick —
+the dispatch-guard suite runs with accounting enabled.
+
+Conventions (documented so the numbers mean one thing):
+- FLOPs are USEFUL model FLOPs for the tokens actually advanced — the
+  standard MFU numerator. Padding rows in a bucketed program and the
+  dense-gather CPU fallback's max-context reads are implementation
+  overheads the ratio is supposed to expose, not hide.
+- A matmul (m, k) @ (k, n) counts 2*m*n*k FLOPs; attention counts the
+  QK^T and PV pair products (4 * n_heads * head_dim per
+  (query token, context token) pair per layer); elementwise work
+  (norms, rope, softmax, sampling) is noise against the GEMMs and is
+  not counted.
+- HBM bytes: weights are read ONCE per forward dispatch (param storage
+  dtype); KV context reads are page-granular (the paged kernel streams
+  whole pages); KV writes are one row per valid token. Activations are
+  not counted (they are on-chip/cache-resident at serving batch sizes).
+- MFU/MBU are computed over ENGINE-BUSY time (the sum of tick walls):
+  they measure how well the ticks that ran used the hardware. Token
+  goodput is computed over the window SPAN (first to last sample), so
+  it reflects real delivered throughput including idle gaps.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from ...models.llama import LlamaConfig
+
+# Rolling window of per-tick samples (matches the engine's _tick_times
+# window so /stats reads one coherent recent-history length).
+_WINDOW = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareEnvelope:
+    """Per-chip peak envelope: dense-matmul FLOP/s and HBM bytes/s.
+
+    TPU and GPU numbers are the published per-chip peaks (bf16 dense
+    matmul, HBM bandwidth). The CPU envelope is the JAX package's
+    calibration (a generous single-socket ceiling, not a datasheet),
+    so the CPU tier reports roofline RATIOS instead of dividing by an
+    accelerator's peak it can never approach."""
+    name: str
+    peak_flops: float            # FLOP/s per chip
+    peak_bytes_per_s: float      # HBM bytes/s per chip
+    source: str = ""
+
+
+# Peak dense bf16 FLOP/s and HBM bytes/s per chip. The TPU rows and
+# the CPU row are the JAX package's table; "h100" is the NVIDIA H100
+# SXM5 at its full 700 W power limit, the roofs PERF.md divides by.
+ENVELOPES: Dict[str, HardwareEnvelope] = {
+    "tpu-v4": HardwareEnvelope("tpu-v4", 275e12, 1228e9,
+                               "TPU v4 datasheet"),
+    "tpu-v5e": HardwareEnvelope("tpu-v5e", 197e12, 819e9,
+                                "TPU v5e datasheet"),
+    "tpu-v5p": HardwareEnvelope("tpu-v5p", 459e12, 2765e9,
+                                "TPU v5p datasheet"),
+    "tpu-v6e": HardwareEnvelope("tpu-v6e", 918e12, 1638e9,
+                                "TPU v6e datasheet"),
+    "h100": HardwareEnvelope("h100", 989e12, 3.35e12,
+                             "NVIDIA H100 SXM5 datasheet"),
+    "cpu": HardwareEnvelope("cpu", 5e10, 25e9,
+                            "BENCH_CORE.md CPU-tier calibration"),
+}
+
+# CUDA device name substring -> envelope key
+_CUDA_MAP = (("h100", "h100"),)
+
+
+def detect_envelope(device: Any = None,
+                    name: Optional[str] = None) -> HardwareEnvelope:
+    """Resolve the hardware envelope for `device` (a torch device or
+    its name; default: CUDA device 0 when there is one, else the CPU).
+    `name` overrides detection (EngineConfig.perf_envelope — tests pin
+    "cpu" explicitly); unknown names raise so a typo cannot silently
+    report MFU against the wrong peak. A CUDA card outside the table
+    raises too, rather than dividing by another chip's peak."""
+    if name is not None:
+        try:
+            return ENVELOPES[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown perf envelope {name!r}; known: "
+                f"{sorted(ENVELOPES)}") from None
+    import torch
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ENVELOPES["cpu"]
+    if device.type != "cuda":
+        raise ValueError(f"no perf envelope for device {device}; pass "
+                         f"perf_envelope (known: {sorted(ENVELOPES)})")
+    return envelope_for_card(torch.cuda.get_device_name(device))
+
+
+def envelope_for_card(card: str) -> HardwareEnvelope:
+    """The envelope of a CUDA card by its name (as
+    torch.cuda.get_device_name gives it, e.g. "NVIDIA H100 80GB
+    HBM3"); raises for a card outside the table."""
+    kind = card.lower()
+    for sub, key in _CUDA_MAP:
+        if sub in kind:
+            return ENVELOPES[key]
+    raise ValueError(
+        f"no perf envelope for CUDA card {card!r}; pass "
+        f"EngineConfig(perf_envelope=...) (known: {sorted(ENVELOPES)})")
+
+
+def _dtype_bytes(dt: Any) -> int:
+    """Bytes of one element of a torch or numpy dtype."""
+    itemsize = getattr(dt, "itemsize", None)
+    if isinstance(itemsize, int):       # torch.dtype, numpy dtype
+        return itemsize
+    import numpy as np
+    return int(np.dtype(dt).itemsize)
+
+
+class CostModel:
+    """Closed-form serving costs for one LlamaConfig.
+
+    All per-token / per-pair constants precompute at construction so
+    the per-tick accounting is a handful of int multiplies."""
+
+    def __init__(self, cfg: LlamaConfig, page_size: int,
+                 kv_dtype: str = "f32"):
+        from ...ops import kv_quant
+        self.cfg = cfg
+        self.page_size = int(page_size)
+        self.kv_dtype = kv_quant.validate_kind(kv_dtype)
+        h, L = cfg.hidden, cfg.n_layers
+        # -- GEMM FLOPs per token through the layer stack (no head) --
+        qkvo = 2 * h * (cfg.q_dim + 2 * cfg.kv_dim) + 2 * cfg.q_dim * h
+        if cfg.n_experts:
+            # router + top_k active expert FFNs (inactive experts cost
+            # nothing per token — same active-param convention as
+            # llama.flops_per_token)
+            mlp = (2 * h * cfg.n_experts
+                   + cfg.moe_top_k * 3 * 2 * h * cfg.ffn)
+        else:
+            mlp = 3 * 2 * h * cfg.ffn
+        self.gemm_flops_per_token = float(L * (qkvo + mlp))
+        # lm_head, counted once per SAMPLED logits row (every decode
+        # token; one per prefill chunk — the chunk's last-token logits)
+        self.head_flops = float(2 * h * cfg.vocab_size)
+        # attention FLOPs per (query token, context token) pair:
+        # QK^T + PV, each 2 * n_heads * head_dim, per layer
+        self.attn_flops_per_pair = float(4 * L * cfg.n_heads
+                                         * cfg.head_dim)
+        # -- HBM bytes --
+        self.weight_bytes = float(cfg.num_params()
+                                  * _dtype_bytes(cfg.param_dtype))
+        if cfg.n_experts:
+            # active-weight read per dispatch (top_k experts' FFNs);
+            # matches the FLOP convention above
+            inactive = (3 * h * cfg.ffn * L
+                        * max(cfg.n_experts - cfg.moe_top_k, 0))
+            self.weight_bytes -= inactive * _dtype_bytes(cfg.param_dtype)
+        # one token's K+V rows across the stack. f32 pools store the
+        # activation dtype; quantized pools store 1-byte
+        # values plus a per-(row, head) f32 scale — the scale overhead
+        # is real HBM traffic the kernel streams, so it is counted
+        if self.kv_dtype == "f32":
+            self.kv_bytes_per_token = float(
+                2 * L * cfg.n_kv_heads * cfg.head_dim
+                * _dtype_bytes(cfg.dtype))
+        else:
+            self.kv_bytes_per_token = float(
+                2 * L * kv_quant.token_row_bytes(
+                    self.kv_dtype, cfg.n_kv_heads, cfg.head_dim))
+        self.page_bytes = self.kv_bytes_per_token * self.page_size
+
+    # -- primitives ----------------------------------------------------
+    def _ctx_read_tokens(self, ctx: int) -> int:
+        """Context tokens READ for one query token at context length
+        `ctx`: page-granular (the kernel streams whole pages; a
+        partially filled last page still moves end to end)."""
+        if ctx <= 0:
+            return 0
+        pages = -(-ctx // self.page_size)
+        return pages * self.page_size
+
+    def decode_cost(self, ctx: int) -> Dict[str, float]:
+        """One decode token whose attention context is `ctx` tokens
+        (cached + itself)."""
+        return {
+            "flops_gemm": self.gemm_flops_per_token + self.head_flops,
+            "flops_attn": self.attn_flops_per_pair * ctx,
+            "bytes_kv_read": (self.kv_bytes_per_token
+                              * self._ctx_read_tokens(ctx - 1)),
+            "bytes_kv_write": self.kv_bytes_per_token,
+        }
+
+    def chunk_cost(self, start: int, n: int) -> Dict[str, float]:
+        """A prefill chunk of `n` tokens against `start` cached context
+        tokens (causal: token i attends to start + i + 1 keys). The
+        chunk's own K/V stay on-chip; only the cached context is read
+        from the pool."""
+        pairs = n * start + n * (n + 1) // 2
+        return {
+            "flops_gemm": n * self.gemm_flops_per_token
+            + self.head_flops,
+            "flops_attn": self.attn_flops_per_pair * pairs,
+            "bytes_kv_read": (self.kv_bytes_per_token
+                              * self._ctx_read_tokens(start)),
+            "bytes_kv_write": n * self.kv_bytes_per_token,
+        }
+
+    def forward_flops(self, batch: int, seq: int) -> float:
+        """Full-causal forward FLOPs for a dense (batch, seq) prefill
+        with logits for every position — the shape the JAX package's
+        cross-check compares with XLA's cost analysis."""
+        per_seq = (seq * (self.gemm_flops_per_token + self.head_flops)
+                   + self.attn_flops_per_pair * seq * (seq + 1) // 2)
+        return float(batch * per_seq)
+
+
+@dataclasses.dataclass
+class PerfSample:
+    """One engine tick's analytic cost, recorded beside _tick_times.
+    kinds: ragged | decode | multi_decode | prefill | spec (one tick
+    may merge several legacy dispatches, e.g. prefill+decode)."""
+    kind: str = ""
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    dispatches: int = 0
+    flops_gemm: float = 0.0
+    flops_attn: float = 0.0
+    bytes_weights: float = 0.0
+    bytes_kv_read: float = 0.0
+    bytes_kv_write: float = 0.0
+    bytes_d2h: float = 0.0          # KV spill traffic
+    bytes_h2d: float = 0.0          # KV restore traffic
+    wall_ms: float = 0.0            # stamped at commit (step() wall)
+    mono_ts: float = 0.0            # monotonic commit stamp
+
+    @property
+    def flops(self) -> float:
+        return self.flops_gemm + self.flops_attn
+
+    @property
+    def hbm_bytes(self) -> float:
+        """Device-HBM traffic the roofline divides by (spill/restore
+        is PCIe/host traffic — tracked, but not HBM bandwidth)."""
+        return (self.bytes_weights + self.bytes_kv_read
+                + self.bytes_kv_write)
+
+
+class PerfAccountant:
+    """Per-engine rolling perf accounting. The engine accumulates cost
+    contributions into a pending sample as each dispatch path runs
+    (host arithmetic only), then commit() stamps the tick's wall time
+    and folds it into the window + cumulative totals. summary() is a
+    scrape-time read (GET /stats, /metrics), never on the tick path."""
+
+    def __init__(self, model: CostModel, envelope: HardwareEnvelope,
+                 n_chips: int = 1):
+        self.model = model
+        self.envelope = envelope
+        self.n_chips = max(int(n_chips), 1)
+        self._lock = threading.Lock()
+        self._window: "collections.deque[PerfSample]" = \
+            collections.deque(maxlen=_WINDOW)
+        self._pending: Optional[PerfSample] = None
+        # cumulative totals (monotone — the Prometheus counter source)
+        self.flops_total = 0.0
+        self.flops_gemm_total = 0.0
+        self.flops_attn_total = 0.0
+        self.bytes_total = {"weights": 0.0, "kv_read": 0.0,
+                            "kv_write": 0.0, "d2h": 0.0, "h2d": 0.0}
+        self.decode_tokens_total = 0
+        self.prefill_tokens_total = 0
+        self.samples_total = 0
+
+    # -- tick-path accumulation (host-only, no locks needed: the step
+    # lock already serializes every caller) --------------------------
+    def _pend(self) -> PerfSample:
+        if self._pending is None:
+            self._pending = PerfSample()
+        return self._pending
+
+    def add(self, kind: str, cost: Dict[str, float],
+            decode_tokens: int = 0, prefill_tokens: int = 0,
+            weight_bytes: Optional[float] = None,
+            weight_reads: int = 1) -> None:
+        """Fold one dispatch's cost into the pending tick sample.
+        Weight-read bytes are per FORWARD PASS, not per dispatch: a
+        legacy prefill+decode tick reads the weights twice (two add
+        calls), and a multi-step/speculative dispatch whose scanned
+        body runs K forwards streams them K times — callers pass
+        weight_reads=K there, or MBU understates the weight term Kx.
+        weight_bytes overrides the default full-model read — the
+        speculative path charges draft dispatches the DRAFT model's
+        weights, not the target's."""
+        p = self._pend()
+        if not p.kind:
+            p.kind = kind
+        elif not p.kind.endswith(kind):
+            p.kind = f"{p.kind}+{kind}"
+        p.dispatches += 1
+        p.decode_tokens += decode_tokens
+        p.prefill_tokens += prefill_tokens
+        p.flops_gemm += cost.get("flops_gemm", 0.0)
+        p.flops_attn += cost.get("flops_attn", 0.0)
+        p.bytes_weights += max(int(weight_reads), 1) * (
+            self.model.weight_bytes
+            if weight_bytes is None else weight_bytes)
+        p.bytes_kv_read += cost.get("bytes_kv_read", 0.0)
+        p.bytes_kv_write += cost.get("bytes_kv_write", 0.0)
+
+    def note_tokens(self, decode_tokens: int = 0,
+                    prefill_tokens: int = 0) -> None:
+        """Attribute emitted tokens to the pending tick without a
+        dispatch (the speculative path knows its accepted count only
+        after the host acceptance loop)."""
+        p = self._pend()
+        p.decode_tokens += decode_tokens
+        p.prefill_tokens += prefill_tokens
+
+    def abort_tick(self) -> None:
+        """Drop the pending sample (mid-tick crash path): a tick that
+        never completed must not fold its projected cost into the
+        window with a bogus wall time."""
+        self._pending = None
+
+    def note_offload(self, d2h: float = 0.0, h2d: float = 0.0) -> None:
+        """KV spill/restore traffic (page migration) — rides
+        the pending tick (structural events happen inside a step)."""
+        p = self._pend()
+        p.bytes_d2h += d2h
+        p.bytes_h2d += h2d
+
+    def commit(self, wall_ms: float) -> Optional[PerfSample]:
+        """Stamp the tick's wall time and fold the pending sample into
+        the window + cumulative totals. A tick that dispatched nothing
+        (admission-only) and moved no offload bytes records nothing.
+        Returns the committed sample (None for an empty tick) so the
+        attribution ledger and anomaly detector can consume
+        the same record the window keeps."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return None
+        p.wall_ms = float(wall_ms)
+        p.mono_ts = time.monotonic()
+        with self._lock:
+            self._window.append(p)
+            self.samples_total += 1
+            self.flops_gemm_total += p.flops_gemm
+            self.flops_attn_total += p.flops_attn
+            self.flops_total += p.flops
+            self.bytes_total["weights"] += p.bytes_weights
+            self.bytes_total["kv_read"] += p.bytes_kv_read
+            self.bytes_total["kv_write"] += p.bytes_kv_write
+            self.bytes_total["d2h"] += p.bytes_d2h
+            self.bytes_total["h2d"] += p.bytes_h2d
+            self.decode_tokens_total += p.decode_tokens
+            self.prefill_tokens_total += p.prefill_tokens
+        return p
+
+    # -- scrape-time reads ---------------------------------------------
+    def window(self) -> tuple:
+        with self._lock:
+            return tuple(self._window)
+
+    def totals(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "flops": self.flops_total,
+                "flops_gemm": self.flops_gemm_total,
+                "flops_attn": self.flops_attn_total,
+                "decode_tokens": float(self.decode_tokens_total),
+                "prefill_tokens": float(self.prefill_tokens_total),
+                "samples": float(self.samples_total),
+                **{f"bytes_{k}": v for k, v in
+                   self.bytes_total.items()},
+            }
+
+    def summary(self) -> Dict[str, Any]:
+        """stats()["perf"]: recent-window goodput, MFU/MBU against the
+        envelope, and which roof binds. MFU/MBU divide by engine-BUSY
+        time (sum of tick walls: how well the ticks that ran used the
+        chip); tokens/s divides by the window SPAN (delivered
+        throughput, idle included)."""
+        ticks = self.window()
+        peak_f = self.envelope.peak_flops * self.n_chips
+        peak_b = self.envelope.peak_bytes_per_s * self.n_chips
+        busy_s = sum(t.wall_ms for t in ticks) * 1e-3
+        # mono_ts stamps the END of a tick, so the span runs from the
+        # START of the first tick (its commit stamp minus its wall) to
+        # the end of the last — busy_s can never exceed it
+        span_s = ((ticks[-1].mono_ts - ticks[0].mono_ts
+                   + ticks[0].wall_ms * 1e-3)
+                  if len(ticks) > 1 else busy_s)
+        flops = sum(t.flops for t in ticks)
+        hbm = sum(t.hbm_bytes for t in ticks)
+        mfu = flops / (busy_s * peak_f) if busy_s > 0 else 0.0
+        mbu = hbm / (busy_s * peak_b) if busy_s > 0 else 0.0
+        if not ticks:
+            roof = "idle"
+        else:
+            roof = "compute" if mfu >= mbu else "memory"
+        dec = sum(t.decode_tokens for t in ticks)
+        pre = sum(t.prefill_tokens for t in ticks)
+        return {
+            "enabled": True,
+            "envelope": self.envelope.name,
+            "n_chips": self.n_chips,
+            "peak_flops": peak_f,
+            "peak_hbm_bytes_per_s": peak_b,
+            "window": len(ticks),
+            "busy_s": round(busy_s, 6),
+            "span_s": round(span_s, 6),
+            "decode_tokens_per_s": round(dec / span_s, 3)
+            if span_s > 0 else 0.0,
+            "prefill_tokens_per_s": round(pre / span_s, 3)
+            if span_s > 0 else 0.0,
+            "achieved_flops_per_s": round(flops / busy_s, 3)
+            if busy_s > 0 else 0.0,
+            "achieved_hbm_bytes_per_s": round(hbm / busy_s, 3)
+            if busy_s > 0 else 0.0,
+            "mfu": round(mfu, 6),
+            "mbu": round(mbu, 6),
+            "roof": roof,
+            # arithmetic intensity of the recent mix vs the machine
+            # balance point — the classic roofline coordinates
+            "flops_per_byte": round(flops / hbm, 3) if hbm else 0.0,
+            "ridge_flops_per_byte": round(peak_f / peak_b, 3),
+            "totals": self.totals(),
+        }
+
+    def brief(self) -> Dict[str, Any]:
+        """The fleet-plane subset (fleet_stats -> ReplicaSnapshot ->
+        /fleet rows): small enough to ride every router refresh."""
+        s = self.summary()
+        return {k: s[k] for k in
+                ("mfu", "mbu", "roof", "decode_tokens_per_s",
+                 "prefill_tokens_per_s", "envelope")}
+
+
+__all__ = ["HardwareEnvelope", "ENVELOPES", "detect_envelope",
+           "envelope_for_card",
+           "CostModel", "PerfSample", "PerfAccountant"]

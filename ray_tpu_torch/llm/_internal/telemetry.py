@@ -1,0 +1,895 @@
+"""Serving observability: SLO metrics, lifecycle traces, flight recorder.
+
+A copy of ``ray_tpu/llm/_internal/telemetry.py``: the metric family
+names, label sets and histogram buckets are the JAX package's, so a
+dashboard or the fleet watchdog reads either exposition. The metrics
+live in this package's own registry (``ray_tpu_torch.util.metrics``),
+trace events render through ``ray_tpu_torch.util.tracing``'s
+Chrome-trace schema, and on-demand profiling rides
+``util/profiling.trace`` (``torch.profiler``, a Chrome trace).
+
+Hard constraint (``tests/test_torch_dispatch_guard.py`` runs with every
+switch on): recording adds no device sync, no upload and no extra
+launch. Every timestamp here comes from host-side events the engine
+already has — admission bookkeeping and the (possibly lagged) fold — so
+TTFT/ITL are HOST-VISIBLE latencies: with async_readback a token's
+timestamp is when its fold landed, one tick after dispatch, which is
+exactly when a streaming client could first see it.
+
+Three pieces:
+- EngineTelemetry — per-request lifecycle timelines (queued → admitted
+  → prefill chunk(s) → first token → decode → finished{stop|length|
+  abort}) feeding the SLO histograms (TTFT, inter-token latency,
+  queue wait, e2e), token/finish counters, and scrape-time gauges
+  (running/waiting, KV page occupancy, prefix-cache hit rate,
+  token-budget utilization).
+- chrome_trace() — the timelines as Chrome-trace "traceEvents" JSON
+  (one tid per request), merged with the process tracing ring; served
+  at GET /debug/trace.
+- FlightRecorder — a fixed-size ring of structured engine events
+  (admission, retirement, drain, lora_registration, abort,
+  device_state_rebuild, guard_violation, profile_*); GET /debug/events.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import threading
+import time
+import zlib
+from typing import Any, Dict, List, Optional
+
+from ...util import metrics as metrics_api
+from ...util import tracing
+
+# SLO histogram boundaries (seconds). Decode-token gaps sit well under
+# a second on real hardware; TTFT/e2e stretch into tens of seconds
+# under queueing — one shared layout keeps the exposition compact and
+# lets dashboards overlay the three latency families.
+LATENCY_BOUNDARIES = [0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                      0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0]
+
+# Default per-request SLO targets (seconds): a request whose latency
+# exceeds its target counts as "bad" in slo_totals(), which is what
+# the fleet burn-rate watchdog (serve/llm/watchdog.py) differences.
+DEFAULT_SLO_TARGETS = {"ttft": 2.0, "queue_wait": 0.5, "e2e": 30.0}
+
+_FLIGHT_RING = 1024          # flight-recorder capacity (events)
+_TRACE_RING = 512            # finished-request timelines retained
+_MAX_CHUNK_MARKS = 128       # prefill-chunk marks kept per request
+
+# All recording uses the MONOTONIC clock (an NTP step in time.time()
+# would otherwise skew TTFT/ITL/queue-wait histograms and misorder
+# trace events); rendering converts through the per-process wall
+# anchor so cross-process traces still align on epoch timestamps.
+_now = time.monotonic
+_wall = tracing.mono_to_epoch
+
+
+def _build_metrics() -> Dict[str, Any]:
+    """The shared metric family set, constructed idempotently (the
+    registry returns the existing instance on re-registration, so
+    every engine in a process holds the SAME objects and samples
+    split per engine by the `model` + `replica` tags). `replica` is
+    the fleet dimension: engines outside a fleet leave it ""
+    and the exposition omits empty labels, so single-replica scrapes
+    are byte-identical to the pre-fleet format."""
+    H, C, G = (metrics_api.Histogram, metrics_api.Counter,
+               metrics_api.Gauge)
+    keys = ("model", "replica")
+    lat = dict(boundaries=LATENCY_BOUNDARIES, tag_keys=keys)
+    return {
+        "ttft": H("ray_tpu_llm_ttft_seconds",
+                  "queued -> first host-visible token", **lat),
+        "itl": H("ray_tpu_llm_itl_seconds",
+                 "host-visible gap between consecutive decode tokens",
+                 **lat),
+        "queue_wait": H("ray_tpu_llm_queue_wait_seconds",
+                        "queued -> admitted to a decode slot", **lat),
+        "e2e": H("ray_tpu_llm_e2e_latency_seconds",
+                 "queued -> finished", **lat),
+        "prompt_tokens": C("ray_tpu_llm_prompt_tokens_total",
+                           "prompt tokens admitted", keys),
+        "generated_tokens": C("ray_tpu_llm_generated_tokens_total",
+                              "tokens emitted to requests", keys),
+        "finished": C("ray_tpu_llm_finished_total",
+                      "finished requests by reason",
+                      ("model", "replica", "reason")),
+        "aborts": C("ray_tpu_llm_aborts_total",
+                    "requests aborted (client gone)", keys),
+        "drains": C("ray_tpu_llm_drains_total",
+                    "tick-pipeline structural-event barriers",
+                    keys),
+        "running": G("ray_tpu_llm_running_requests",
+                     "requests holding a decode slot", keys),
+        "waiting": G("ray_tpu_llm_waiting_requests",
+                     "requests queued for admission", keys),
+        "kv_used": G("ray_tpu_llm_kv_pages_used",
+                     "KV pages referenced by live sequences",
+                     keys),
+        "kv_free": G("ray_tpu_llm_kv_pages_free",
+                     "KV pages allocatable now (free + evictable "
+                     "cache)", keys),
+        "kv_occupancy": G("ray_tpu_llm_kv_page_occupancy",
+                          "referenced fraction of the usable KV pool",
+                          keys),
+        "prefix_hit_rate": G("ray_tpu_llm_prefix_cache_hit_rate",
+                             "prefix-cache hit tokens / queried "
+                             "tokens, cumulative", keys),
+        "budget_util": G("ray_tpu_llm_token_budget_utilization",
+                         "packed tokens / token budget, recent "
+                         "unified ticks", keys),
+        # KV memory hierarchy: host-offload tier +
+        # preemption spill/restore
+        "kv_host_used": G("ray_tpu_llm_kv_host_pages_used",
+                          "KV pages parked in the host-RAM tier",
+                          keys),
+        # host-tier BYTE occupancy beside the
+        # page count — migration / prefix-store byte pressure is
+        # visible before page counts saturate
+        "kv_host_bytes": G("ray_tpu_llm_kv_host_bytes_used",
+                           "host-RAM bytes pinned by parked KV "
+                           "payloads", keys),
+        # device-pool byte occupancy at the
+        # CONFIGURED page dtype (int8/fp8 pages + scale sidecar, not
+        # an assumed-f32 itemsize)
+        "kv_device_bytes": G("ray_tpu_llm_kv_device_bytes_used",
+                             "device-HBM bytes held by allocated KV "
+                             "pages at the configured kv_dtype",
+                             keys),
+        "parked": G("ray_tpu_llm_parked_sessions",
+                    "preempted sequences parked in the host tier",
+                    keys),
+        "page_pressure": G("ray_tpu_llm_kv_page_pressure",
+                           "(device pages used + parked host pages) "
+                           "/ usable pages; > 1 = oversubscribed",
+                           keys),
+        "spills": C("ray_tpu_llm_kv_spills_total",
+                    "victim sequences spilled device -> host", keys),
+        "restores": C("ray_tpu_llm_kv_restores_total",
+                      "parked sequences restored host -> device",
+                      keys),
+        "preemptions": C("ray_tpu_llm_preemptions_total",
+                         "slot preemptions by reason",
+                         ("model", "replica", "reason")),
+        # Per-dispatch perf accounting: analytic cost-model
+        # counters/gauges (perfmodel.py). Counters advance at SCRAPE
+        # time by the delta against the accountant's cumulative totals
+        # (update_gauges), so the tick path never touches a metric.
+        "flops": C("ray_tpu_llm_flops_total",
+                   "analytic model FLOPs executed (GEMM + attention)",
+                   keys),
+        "hbm_bytes": C("ray_tpu_llm_hbm_bytes_total",
+                       "analytic bytes moved, by kind (weights | "
+                       "kv_read | kv_write = device HBM; d2h | h2d = "
+                       "KV spill/restore host traffic)",
+                       ("model", "replica", "kind")),
+        "mfu": G("ray_tpu_llm_mfu",
+                 "model-FLOPs utilization vs the hardware envelope, "
+                 "recent window, engine-busy time", keys),
+        "mbu": G("ray_tpu_llm_mbu",
+                 "HBM-bandwidth utilization vs the hardware envelope, "
+                 "recent window, engine-busy time", keys),
+        "tokens_per_s": G("ray_tpu_llm_tokens_per_s",
+                          "token goodput over the recent window span, "
+                          "by phase", ("model", "replica", "phase")),
+        # Per-request cost attribution + tick anomalies.
+        # Counters advance at SCRAPE time by delta against the
+        # ledger/detector's host totals (update_gauges) — the tick
+        # path never touches a metric. The `tenant` label is "" for
+        # the default tenant and the exposition omits empty labels,
+        # so single-tenant scrapes stay byte-identical (the
+        # `replica` convention).
+        "tenant_flops": C("ray_tpu_llm_tenant_flops_total",
+                          "analytic model FLOPs attributed to "
+                          "finished requests, per tenant",
+                          ("model", "replica", "tenant")),
+        "tenant_hbm": C("ray_tpu_llm_tenant_hbm_bytes_total",
+                        "analytic device-HBM bytes attributed to "
+                        "finished requests, per tenant",
+                        ("model", "replica", "tenant")),
+        "tenant_tokens": C("ray_tpu_llm_tenant_tokens_total",
+                           "tokens attributed to finished requests, "
+                           "per tenant and phase",
+                           ("model", "replica", "tenant", "phase")),
+        "anomalies": C("ray_tpu_llm_tick_anomalies_total",
+                       "classified tick anomalies by kind "
+                       "(recompile | h2d_transfer | gc_pause | "
+                       "host_fold_stall | device_straggler | unknown)",
+                       ("model", "replica", "kind")),
+        "anomaly_rate": G("ray_tpu_llm_tick_anomaly_rate",
+                          "anomalous fraction of the recent tick "
+                          "window", keys),
+        # batch lane: the preemptible bulk-inference
+        # tier's own token/finish accounting — these requests are
+        # EXCLUDED from the SLO histograms and slo_totals() above
+        # (their latencies are harvested idle time, not user
+        # experience), so the recovered throughput needs its own
+        # monotone series
+        "batch_tokens": C("ray_tpu_llm_batch_lane_tokens_total",
+                          "tokens emitted to batch-lane requests",
+                          keys),
+        "batch_finished": C("ray_tpu_llm_batch_lane_finished_total",
+                            "batch-lane requests finished, by reason",
+                            ("model", "replica", "reason")),
+    }
+
+
+class FlightRecorder:
+    """Bounded ring of structured engine events. Recording is a dict
+    append under a lock — safe from the pump's executor thread and
+    the server event loop alike, and cheap enough for per-structural-
+    event use (it never runs per token).
+
+    `alert_hook(kind, event)` fires OUTSIDE the lock for kinds in
+    `alert_kinds` — the black-box hook: a guard violation or SLO page
+    landing in the ring also snapshots a postmortem bundle. The hook
+    must never raise into the recording caller and is swallowed."""
+
+    def __init__(self, capacity: int = _FLIGHT_RING,
+                 enabled: bool = True):
+        self.enabled = enabled
+        self.dropped = 0            # events displaced by the ring cap
+        self.alert_hook = None      # callable(kind, event) | None
+        # kinds that also fire the black-box hook: guard violations
+        # and true KV-page exhaustion (the postmortem wants the
+        # allocator/parked state AT the exhaustion, not after)
+        self.alert_kinds = frozenset({"guard_violation",
+                                      "kv_exhausted"})
+        self._ring: "collections.deque" = collections.deque(
+            maxlen=capacity)
+        self._seq = 0
+        self._lock = threading.Lock()
+
+    def record(self, kind: str, **fields: Any) -> None:
+        if not self.enabled:
+            # metrics off must not disarm the black box: alert kinds
+            # (guard violations) still reach the hook — nothing is
+            # retained in the ring, but the postmortem bundle writes
+            hook = self.alert_hook
+            if hook is not None and kind in self.alert_kinds:
+                try:
+                    hook(kind, {"event": kind, **fields})
+                except Exception:
+                    pass
+            return
+        with self._lock:
+            self._seq += 1
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+            ev = {"seq": self._seq, "ts": _wall(_now()), "event": kind,
+                  **fields}
+            self._ring.append(ev)
+        hook = self.alert_hook
+        if hook is not None and kind in self.alert_kinds:
+            try:
+                hook(kind, dict(ev))
+            except Exception:
+                pass    # postmortem capture must never break recording
+
+    def events(self, since: Optional[int] = None
+               ) -> List[Dict[str, Any]]:
+        """Ring contents, oldest first. `since`
+        is an incremental-poll cursor over the monotone seq: only
+        events with seq > since return. A cursor that fell off the
+        ring (wraparound evicted the events after it) simply returns
+        everything still resident — the poller's `high_water` (=
+        stats()["total"]) tells it how many it missed."""
+        with self._lock:
+            evs = list(self._ring)
+        if since is None:
+            return evs
+        try:
+            cursor = int(since)
+        except (TypeError, ValueError):
+            return evs
+        return [e for e in evs if e["seq"] > cursor]
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"events": len(self._ring), "total": self._seq,
+                    "dropped": self.dropped}
+
+
+class _Timeline:
+    """Host-side lifecycle record for ONE request (monotonic seconds;
+    rendered as epoch through the process wall anchor)."""
+
+    __slots__ = ("rid", "tid", "queued", "admitted", "first_token",
+                 "last_token", "finished", "reason", "prompt_len",
+                 "cached_tokens", "n_tokens", "chunks", "lora",
+                 "trace", "batch")
+
+    def __init__(self, rid: str, tid: int, queued: float,
+                 prompt_len: int, lora: Optional[str],
+                 trace: Optional[Dict[str, str]] = None,
+                 batch: bool = False):
+        self.rid = rid
+        self.tid = tid
+        self.queued = queued
+        self.admitted: Optional[float] = None
+        self.first_token: Optional[float] = None
+        self.last_token: Optional[float] = None
+        self.finished: Optional[float] = None
+        self.reason: Optional[str] = None
+        self.prompt_len = prompt_len
+        self.cached_tokens = 0
+        self.n_tokens = 0
+        self.chunks: List[tuple] = []     # (ts, n_tokens, start_pos)
+        self.lora = lora
+        # distributed trace context minted at the fleet ingress
+        # ({"trace_id", "span_id", "flow_id"}): lifecycle spans carry
+        # the trace id and the flow-finish binds the router's arrow
+        self.trace = trace
+        # batch lane: timeline kept (traces/black boxes
+        # still show the lifecycle) but SLO accounting skipped
+        self.batch = batch
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able view (epoch timestamps) — black-box bundles."""
+        return {
+            "request_id": self.rid,
+            "queued": _wall(self.queued),
+            "admitted": None if self.admitted is None
+            else _wall(self.admitted),
+            "first_token": None if self.first_token is None
+            else _wall(self.first_token),
+            "finished": None if self.finished is None
+            else _wall(self.finished),
+            "reason": self.reason,
+            "prompt_tokens": self.prompt_len,
+            "cached_tokens": self.cached_tokens,
+            "generated_tokens": self.n_tokens,
+            "lora": self.lora,
+            **({"trace_id": self.trace.get("trace_id")}
+               if self.trace else {}),
+        }
+
+
+class EngineTelemetry:
+    """One engine's recording surface. All entry points are host-only
+    Python (no device tensors): calling them can never add an upload,
+    a sync, or a launch to the tick."""
+
+    def __init__(self, model: str = "default", enabled: bool = True,
+                 replica: str = "",
+                 slo_targets: Optional[Dict[str, float]] = None):
+        self.enabled = enabled
+        self.model = model
+        self.replica = replica
+        # per-request SLO targets (seconds): observations over target
+        # feed the *_bad counters in slo_totals(), the fleet burn-rate
+        # watchdog's error signal
+        self.slo_targets = dict(DEFAULT_SLO_TARGETS)
+        self.slo_targets.update(slo_targets or {})
+        self.recorder = FlightRecorder(enabled=enabled)
+        self._lock = threading.Lock()
+        self._live: Dict[str, _Timeline] = {}
+        self._done: "collections.deque" = collections.deque(
+            maxlen=_TRACE_RING)
+        # per-instance tid base: in-process fleet replicas share one
+        # pid, so counters all starting at 1 would overlay unrelated
+        # requests on one Perfetto track in the merged fleet trace
+        # (and request_id-filtered docs would keep the wrong
+        # thread_name rows) — namespace each engine's request rows by
+        # its identity instead
+        base = (zlib.crc32(f"{model}\x00{replica}".encode())
+                % 997 + 1) * 100_000
+        self._tid = itertools.count(base + 1)
+        self._budget_used = 0
+        self._budget_total = 0
+        self._budget_last = 0.0
+        # per-engine aggregates (the Prometheus samples are shared
+        # per-process and split by tag; these stay exact per engine
+        # for stats() regardless of tag collisions)
+        self._finished: Dict[str, int] = {}
+        self._aborted = 0
+        self._prompt_tokens = 0
+        self._generated_tokens = 0
+        self._sums = {"ttft": 0.0, "itl": 0.0, "queue": 0.0,
+                      "e2e": 0.0}
+        self._counts = {"ttft": 0, "itl": 0, "queue": 0, "e2e": 0}
+        self._bad = {"ttft": 0, "queue": 0, "e2e": 0}
+        # batch lane: the preemptible bulk tier's own
+        # token/finish aggregates — its requests never touch the SLO
+        # sums/bad counts above (the watchdog's burn and the
+        # autoscaler's windowed means must read interactive traffic
+        # only), so the recovered throughput is counted here
+        self._batch_tokens = 0
+        self._batch_prompt_tokens = 0
+        self._batch_finished: Dict[str, int] = {}
+        # perf-counter export watermarks: cumulative totals
+        # already inc'd into the Prometheus counters at a prior scrape
+        self._perf_exported: Dict[str, float] = {}
+        if enabled:
+            self._m = _build_metrics()
+            self._tags = {"model": model, "replica": replica}
+        else:
+            self._m = None
+            self._tags = {}
+
+    # -- lifecycle entry points (called by the engine, host side) ------
+    def on_queued(self, req) -> None:
+        if not self.enabled:
+            return
+        t = _Timeline(req.request_id, next(self._tid),
+                      getattr(req, "submitted_at", None) or _now(),
+                      len(req.prompt_tokens), req.lora,
+                      trace=getattr(req, "trace", None),
+                      batch=getattr(req, "lane", "") == "batch")
+        with self._lock:
+            self._live[req.request_id] = t
+
+    def on_admitted(self, req, cached_tokens: int = 0) -> None:
+        if not self.enabled:
+            return
+        now = _now()
+        with self._lock:
+            t = self._live.get(req.request_id)
+            if t is None:
+                return
+            t.admitted = now
+            t.cached_tokens = cached_tokens
+            wait = max(now - t.queued, 0.0)
+            if t.batch:
+                # batch lane: a bulk job deliberately
+                # queued through a busy hour must not count as an
+                # SLO violation — its wait is the lane working
+                self._batch_prompt_tokens += t.prompt_len
+            else:
+                self._sums["queue"] += wait
+                self._counts["queue"] += 1
+                if wait > self.slo_targets["queue_wait"]:
+                    self._bad["queue"] += 1
+                self._prompt_tokens += t.prompt_len
+        if not t.batch:
+            self._m["queue_wait"].observe(wait, self._tags)
+        self._m["prompt_tokens"].inc(t.prompt_len, self._tags)
+        self.recorder.record("admission", request_id=req.request_id,
+                             prompt_tokens=t.prompt_len,
+                             cached_tokens=cached_tokens,
+                             lora=req.lora,
+                             **({"lane": "batch"} if t.batch else {}))
+
+    def on_prefill_chunk(self, req, n_tokens: int,
+                         start_pos: int) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            t = self._live.get(req.request_id)
+            if t is not None and len(t.chunks) < _MAX_CHUNK_MARKS:
+                t.chunks.append((_now(), n_tokens, start_pos))
+
+    def on_token(self, req) -> None:
+        """One host-visible output token (runs per token per fold —
+        the hottest entry point; keep it a few dict ops)."""
+        if not self.enabled:
+            return
+        now = _now()
+        first = gap = None
+        batch = False
+        with self._lock:
+            t = self._live.get(req.request_id)
+            if t is None:
+                return
+            batch = t.batch
+            t.n_tokens += 1
+            if batch:
+                # batch lane: tokens count (that IS the
+                # recovered throughput) but never the TTFT/ITL
+                # latency families — a token held back by a
+                # preemption window is the lane yielding, not an SLO
+                # event
+                t.first_token = t.first_token or now
+                self._batch_tokens += 1
+            elif t.first_token is None:
+                t.first_token = now
+                first = max(now - t.queued, 0.0)
+                self._sums["ttft"] += first
+                self._counts["ttft"] += 1
+                if first > self.slo_targets["ttft"]:
+                    self._bad["ttft"] += 1
+            else:
+                gap = max(now - t.last_token, 0.0)
+                self._sums["itl"] += gap
+                self._counts["itl"] += 1
+            t.last_token = now
+            self._generated_tokens += 1
+        if first is not None:
+            self._m["ttft"].observe(first, self._tags)
+        if gap is not None:
+            self._m["itl"].observe(gap, self._tags)
+        self._m["generated_tokens"].inc(1, self._tags)
+        if batch:
+            self._m["batch_tokens"].inc(1, self._tags)
+
+    def on_finished(self, req, reason: str,
+                    cost: Optional[Dict[str, Any]] = None) -> None:
+        """`cost` is the request's closed attribution receipt brief
+        — it rides the retirement flight-recorder event so
+        the finish evidence names what the request consumed."""
+        if not self.enabled:
+            return
+        now = _now()
+        batch = False
+        with self._lock:
+            t = self._live.pop(req.request_id, None)
+            if t is not None:
+                t.finished = now
+                t.reason = reason
+            batch = t.batch if t is not None \
+                else getattr(req, "lane", "") == "batch"
+            if t is not None:
+                self._done.append(t)
+            self._finished[reason] = self._finished.get(reason, 0) + 1
+            if reason == "abort":
+                self._aborted += 1
+            e2e = max(now - (t.queued if t else now), 0.0)
+            if batch:
+                self._batch_finished[reason] = \
+                    self._batch_finished.get(reason, 0) + 1
+            else:
+                self._sums["e2e"] += e2e
+                self._counts["e2e"] += 1
+                if e2e > self.slo_targets["e2e"]:
+                    self._bad["e2e"] += 1
+        self._m["finished"].inc(1, {**self._tags, "reason": reason})
+        if batch:
+            self._m["batch_finished"].inc(
+                1, {**self._tags, "reason": reason})
+        else:
+            self._m["e2e"].observe(e2e, self._tags)
+        if reason == "abort":
+            self._m["aborts"].inc(1, self._tags)
+        self.recorder.record(
+            "retirement", request_id=req.request_id, reason=reason,
+            generated_tokens=len(req.output_tokens),
+            **({"lane": "batch"} if batch else {}),
+            **({"cost": cost} if cost else {}))
+
+    def on_drain(self, cause: str) -> None:
+        if not self.enabled:
+            return
+        self._m["drains"].inc(1, self._tags)
+        self.recorder.record("drain", cause=cause)
+
+    def on_preempted(self, req, reason: str, mode: str = "spill",
+                     pages: int = 0, position: int = 0) -> None:
+        """One slot preemption: mode "spill" parked the
+        sequence's KV in the host tier, "requeue" sent a still-
+        prefilling victim back to the waiting queue. Host-side
+        bookkeeping only, at structural (drained) time."""
+        if not self.enabled:
+            return
+        self._m["preemptions"].inc(1, {**self._tags, "reason": reason})
+        if mode == "spill":
+            self._m["spills"].inc(1, self._tags)
+        self.recorder.record(
+            "preemption", request_id=req.request_id, reason=reason,
+            mode=mode, pages=pages, position=position,
+            generated=len(req.output_tokens))
+
+    def on_restored(self, req, pages: int = 0, parked_s: float = 0.0,
+                    shared_pages: int = 0) -> None:
+        """A parked sequence re-admitted with its KV pages restored
+        token-exact (shared_pages of them straight from the prefix
+        cache, the rest uploaded from the host tier)."""
+        if not self.enabled:
+            return
+        self._m["restores"].inc(1, self._tags)
+        self.recorder.record(
+            "restore", request_id=req.request_id, pages=pages,
+            shared_pages=shared_pages, parked_s=round(parked_s, 3),
+            generated=len(req.output_tokens))
+
+    def on_tick_budget(self, used: int, budget: int) -> None:
+        """Token-budget utilization of one unified ragged tick
+        (plain-int accumulators; the gauge is set at scrape time)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._budget_used += used
+            self._budget_total += budget
+            self._budget_last = used / budget if budget else 0.0
+
+    # -- scrape-time surfaces ------------------------------------------
+    def update_gauges(self, engine) -> None:
+        """Refresh this engine's gauges from live state — called at
+        scrape (GET /metrics, /stats), never per tick."""
+        if not self.enabled:
+            return
+        alloc = engine.allocator
+        used = alloc.used_pages
+        self._m["running"].set(engine.num_active(), self._tags)
+        self._m["waiting"].set(len(engine.waiting), self._tags)
+        self._m["kv_used"].set(used, self._tags)
+        self._m["kv_free"].set(alloc.free_pages, self._tags)
+        self._m["kv_occupancy"].set(
+            used / alloc.num_usable if alloc.num_usable else 0.0,
+            self._tags)
+        self._m["prefix_hit_rate"].set(alloc.cache_hit_rate,
+                                       self._tags)
+        # KV memory hierarchy gauges — scrape-time reads
+        # of plain host counters, like everything else here
+        tier = getattr(engine, "host_tier", None)
+        self._m["kv_host_used"].set(
+            tier.used_pages if tier is not None else 0, self._tags)
+        self._m["kv_host_bytes"].set(
+            tier.used_bytes if tier is not None else 0, self._tags)
+        self._m["kv_device_bytes"].set(
+            used * getattr(engine, "kv_page_bytes", 0), self._tags)
+        self._m["parked"].set(
+            len(tier) if tier is not None else 0, self._tags)
+        pressure = getattr(engine, "page_pressure", None)
+        if callable(pressure):
+            self._m["page_pressure"].set(round(pressure(), 4),
+                                         self._tags)
+        with self._lock:
+            util = (self._budget_used / self._budget_total
+                    if self._budget_total else 0.0)
+        self._m["budget_util"].set(util, self._tags)
+        # perf accounting: gauges from the rolling summary;
+        # counters advance by the delta vs the last scrape so the
+        # monotone Prometheus totals track the accountant's cumulative
+        # host counters without any tick-path metric call
+        perf = getattr(engine, "perf", None)
+        if perf is not None:
+            s = perf.summary()
+            self._m["mfu"].set(s["mfu"], self._tags)
+            self._m["mbu"].set(s["mbu"], self._tags)
+            self._m["tokens_per_s"].set(
+                s["decode_tokens_per_s"],
+                {**self._tags, "phase": "decode"})
+            self._m["tokens_per_s"].set(
+                s["prefill_tokens_per_s"],
+                {**self._tags, "phase": "prefill"})
+            tot = s["totals"]
+            # watermark read-inc-update under the telemetry lock: two
+            # concurrent scrapes (fleet probe + operator Prometheus,
+            # or a crash dump mid-scrape) must not both export the
+            # same delta into the monotone counters. Metric.inc takes
+            # its own (leaf) lock — no ordering hazard.
+            with self._lock:
+                d = (tot["flops"]
+                     - self._perf_exported.get("flops", 0.0))
+                if d > 0:
+                    self._m["flops"].inc(d, self._tags)
+                    self._perf_exported["flops"] = tot["flops"]
+                for kind in ("weights", "kv_read", "kv_write",
+                             "d2h", "h2d"):
+                    cur = tot[f"bytes_{kind}"]
+                    d = cur - self._perf_exported.get(kind, 0.0)
+                    if d > 0:
+                        self._m["hbm_bytes"].inc(
+                            d, {**self._tags, "kind": kind})
+                        self._perf_exported[kind] = cur
+        # per-tenant attribution counters: same scrape-time
+        # delta pattern against the ledger's monotone finished-receipt
+        # rollups; the default tenant exports with tenant="" (label
+        # omitted) so single-tenant scrapes keep their series identity
+        attrib = getattr(engine, "attrib", None)
+        if attrib is not None:
+            rows = attrib.tenants()
+            with self._lock:
+                for tenant, t in rows.items():
+                    lbl = "" if tenant == "default" else tenant
+                    base = {**self._tags, "tenant": lbl}
+                    for wk, metric, tags, cur in (
+                            (f"tnf:{tenant}", "tenant_flops", base,
+                             float(t["flops"])),
+                            (f"tnh:{tenant}", "tenant_hbm", base,
+                             float(t["hbm_bytes"])),
+                            (f"tnd:{tenant}", "tenant_tokens",
+                             {**base, "phase": "decode"},
+                             float(t["decode_tokens"])),
+                            (f"tnp:{tenant}", "tenant_tokens",
+                             {**base, "phase": "prefill"},
+                             float(t["prefill_tokens"]))):
+                        d = cur - self._perf_exported.get(wk, 0.0)
+                        if d > 0:
+                            self._m[metric].inc(d, tags)
+                            self._perf_exported[wk] = cur
+        # tick-anomaly counters/rate
+        anomaly = getattr(engine, "anomaly", None)
+        if anomaly is not None:
+            st = anomaly.stats()
+            self._m["anomaly_rate"].set(st["rate"], self._tags)
+            with self._lock:
+                for kind, cur in st["by_kind"].items():
+                    wk = f"anom:{kind}"
+                    d = float(cur) - self._perf_exported.get(wk, 0.0)
+                    if d > 0:
+                        self._m["anomalies"].inc(
+                            d, {**self._tags, "kind": kind})
+                        self._perf_exported[wk] = float(cur)
+
+    def slo_totals(self) -> Dict[str, float]:
+        """Cumulative SLO sums/counts (seconds / observations).
+
+        The fleet autoscaler (serve/llm) differences consecutive
+        snapshots of these to get RECENT-window TTFT / queue-wait
+        means — lifetime averages would never recover after one bad
+        minute, so the control loop needs monotone totals it can
+        delta, not the averages summary() reports."""
+        with self._lock:
+            return {
+                "ttft_s": self._sums["ttft"],
+                "ttft_n": float(self._counts["ttft"]),
+                "itl_s": self._sums["itl"],
+                "itl_n": float(self._counts["itl"]),
+                "queue_s": self._sums["queue"],
+                "queue_n": float(self._counts["queue"]),
+                "e2e_s": self._sums["e2e"],
+                "e2e_n": float(self._counts["e2e"]),
+                # SLO-violation counts (observation over its target in
+                # slo_targets): the burn-rate watchdog's numerators
+                "ttft_bad": float(self._bad["ttft"]),
+                "queue_bad": float(self._bad["queue"]),
+                "e2e_bad": float(self._bad["e2e"]),
+            }
+
+    def live_snapshot(self) -> List[Dict[str, Any]]:
+        """JSON-able in-flight request states (black-box bundles):
+        every live timeline plus the most recent finished ones."""
+        with self._lock:
+            live = [t.snapshot() for t in self._live.values()]
+            done = [t.snapshot() for t in list(self._done)[-16:]]
+        return live + done
+
+    def summary(self) -> Dict[str, Any]:
+        """Per-engine SLO aggregates for stats() (exact for THIS
+        engine even when several engines share Prometheus tags)."""
+        if not self.enabled:
+            return {"enabled": False}
+
+        def avg_ms(k):
+            n = self._counts[k]
+            return round(self._sums[k] / n * 1e3, 3) if n else 0.0
+
+        with self._lock:
+            return {
+                "enabled": True,
+                "live": len(self._live),
+                "finished": dict(self._finished),
+                "aborted": self._aborted,
+                "prompt_tokens": self._prompt_tokens,
+                "generated_tokens": self._generated_tokens,
+                "ttft_ms_avg": avg_ms("ttft"),
+                "itl_ms_avg": avg_ms("itl"),
+                "queue_wait_ms_avg": avg_ms("queue"),
+                "e2e_ms_avg": avg_ms("e2e"),
+                "budget_utilization": round(
+                    self._budget_used / self._budget_total, 3)
+                    if self._budget_total else 0.0,
+                # batch lane: the preemptible tier's own
+                # totals — EXCLUDED from every latency family above
+                "batch": {
+                    "generated_tokens": self._batch_tokens,
+                    "prompt_tokens": self._batch_prompt_tokens,
+                    "finished": dict(self._batch_finished),
+                },
+                "flight_recorder": self.recorder.stats(),
+            }
+
+    def _perf_counter_events(self, perf,
+                             pid: int) -> List[Dict[str, Any]]:
+        """Perfetto counter tracks (ph "C") from the perf accountant's
+        rolling window: per-tick instantaneous MFU / MBU
+        and the tick's token mix, timestamped at each tick's end.
+        Bounded by the accountant's window (512 samples)."""
+        events: List[Dict[str, Any]] = []
+        peak_f = perf.envelope.peak_flops * perf.n_chips
+        peak_b = perf.envelope.peak_bytes_per_s * perf.n_chips
+        # Perfetto keys a counter track by (pid, name): in-process
+        # fleet replicas share the pid, so the replica id rides the
+        # NAME (the per-telemetry tid namespacing that separates
+        # request rows cannot disambiguate counters). Single-replica
+        # engines keep the bare names.
+        sfx = f" {self.replica}" if self.replica else ""
+        for t in perf.window():
+            if t.mono_ts <= 0.0:
+                continue
+            ts = _wall(t.mono_ts) * 1e6
+            busy = t.wall_ms * 1e-3
+            mfu = t.flops / (busy * peak_f) if busy > 0 else 0.0
+            mbu = t.hbm_bytes / (busy * peak_b) if busy > 0 else 0.0
+            events.append({"name": "perf:utilization" + sfx,
+                           "ph": "C", "pid": pid, "tid": 0, "ts": ts,
+                           "args": {"mfu": round(mfu, 6),
+                                    "mbu": round(mbu, 6)}})
+            events.append({"name": "perf:tokens_per_tick" + sfx,
+                           "ph": "C", "pid": pid, "tid": 0, "ts": ts,
+                           "args": {"decode": t.decode_tokens,
+                                    "prefill": t.prefill_tokens}})
+        return events
+
+    def chrome_trace(self, perf=None) -> Dict[str, Any]:
+        """Request timelines as Chrome-trace JSON (one tid per
+        request, spans via tracing.complete_event so the fields match
+        live tracing spans), merged with this process's tracing ring
+        (populated when RAY_TPU_TRACE / tracing.enable() is on).
+        `perf` (a perfmodel.PerfAccountant) additionally renders the
+        MFU/MBU/token counter tracks beside the request rows.
+
+        Requests carrying a fleet trace context tag every
+        lifecycle event with the trace id and emit the Perfetto
+        flow-finish ("f") bound to the ingress router's flow-start —
+        the arrow from the routing decision to this replica's
+        prefill/decode spans. The `metadata` block carries the
+        process wall anchor (trace alignment) and the tracing ring's
+        drop counter so a truncated ring reads as truncated."""
+        events: List[Dict[str, Any]] = []
+        pid = os.getpid()
+        now = _now()
+        with self._lock:
+            timelines = list(self._done) + list(self._live.values())
+        for t in timelines:
+            rid = t.rid
+            trace_args = ({"trace_id": t.trace["trace_id"]}
+                          if t.trace and t.trace.get("trace_id")
+                          else {})
+            events.append({"ph": "M", "name": "thread_name",
+                           "pid": pid, "tid": t.tid,
+                           "args": {"name": f"request {rid}"}})
+            if t.trace and t.trace.get("flow_id"):
+                # flow-finish inside the queued span: binds the arrow
+                # the ingress started at its routing-decision span
+                events.append({
+                    "name": "route", "cat": "flow", "ph": "f",
+                    "bp": "e", "id": t.trace["flow_id"],
+                    "ts": _wall(t.admitted or t.queued) * 1e6,
+                    "pid": pid, "tid": t.tid,
+                    "args": {"request_id": rid, **trace_args}})
+            end_q = t.admitted or t.finished or now
+            events.append(tracing.complete_event(
+                "queued", "request", _wall(t.queued), end_q - t.queued,
+                pid=pid, tid=t.tid,
+                args={"request_id": rid, **trace_args}))
+            if t.admitted is not None:
+                end_p = t.first_token or t.finished or now
+                events.append(tracing.complete_event(
+                    "prefill", "request", _wall(t.admitted),
+                    end_p - t.admitted, pid=pid, tid=t.tid,
+                    args={"request_id": rid,
+                          "prompt_tokens": t.prompt_len,
+                          "cached_tokens": t.cached_tokens,
+                          **({"lora": t.lora} if t.lora else {}),
+                          **trace_args}))
+            for ts, n, pos in t.chunks:
+                events.append(tracing.instant_event(
+                    "prefill_chunk", "request", _wall(ts), pid=pid,
+                    tid=t.tid, args={"request_id": rid, "tokens": n,
+                                     "start_pos": pos, **trace_args}))
+            if t.first_token is not None:
+                events.append(tracing.instant_event(
+                    "first_token", "request", _wall(t.first_token),
+                    pid=pid, tid=t.tid,
+                    args={"request_id": rid, **trace_args}))
+                end_d = t.finished or now
+                events.append(tracing.complete_event(
+                    "decode", "request", _wall(t.first_token),
+                    end_d - t.first_token, pid=pid, tid=t.tid,
+                    args={"request_id": rid,
+                          "generated_tokens": t.n_tokens,
+                          **trace_args}))
+            if t.finished is not None:
+                events.append(tracing.instant_event(
+                    f"finished:{t.reason}", "request",
+                    _wall(t.finished), pid=pid, tid=t.tid,
+                    args={"request_id": rid, **trace_args}))
+        if perf is not None:
+            events.extend(self._perf_counter_events(perf, pid))
+        events.extend(tracing.get_events())
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "metadata": {
+                    "pid": pid,
+                    "replica": self.replica,
+                    "wall_anchor_s": tracing.wall_anchor(),
+                    "tracing_ring": tracing.ring_stats(),
+                }}
+
+
+__all__ = ["EngineTelemetry", "FlightRecorder", "LATENCY_BOUNDARIES",
+           "DEFAULT_SLO_TARGETS"]

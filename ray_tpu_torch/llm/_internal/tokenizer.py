@@ -1,12 +1,15 @@
-"""Byte-level tokenizer for the LLM stack.
+"""Tokenizers for the LLM stack.
 
-A copy of ``ray_tpu/llm/_internal/tokenizer.py``'s ``ByteTokenizer``:
-self-contained, every byte is an id offset past the special tokens.
+A copy of ``ray_tpu/llm/_internal/tokenizer.py``: ``ByteTokenizer``
+(self-contained, every byte is an id offset past the special tokens)
+and ``load_tokenizer`` (a local HF ``tokenizer.json`` through the
+native BPE of ``bpe.py``, other HF formats through transformers,
+imported only then; the byte tokenizer without a source).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 
 class ByteTokenizer:
@@ -40,3 +43,29 @@ class ByteTokenizer:
                          f"{m.get('content', '')}\n")
         parts.append("<|assistant|>\n")
         return "".join(parts)
+
+
+def load_tokenizer(source: Optional[str] = None, vocab_size: int = 259):
+    """source: local path to a HF tokenizer dir (or tokenizer.json file),
+    else byte-level. A ``tokenizer.json`` loads through the NATIVE BPE
+    implementation (bpe.py — no transformers on the serving path);
+    other HF formats fall back to transformers."""
+    if source:
+        import os
+        tj = (source if source.endswith("tokenizer.json")
+              else os.path.join(source, "tokenizer.json"))
+        from . import bpe
+        # Only byte-level BPE goes native — sentencepiece-style
+        # tokenizer.json (Llama-2/Mistral: byte_fallback + ▁
+        # vocab) would tokenize silently wrong here; transformers
+        # handles those.
+        if os.path.exists(tj) and bpe.is_byte_level_spec(tj):
+            return bpe.load(tj)
+        from transformers import AutoTokenizer
+        # AutoTokenizer wants the DIRECTORY even when the caller handed
+        # us a direct tokenizer.json path
+        hf_source = (os.path.dirname(source) or "."
+                     if source.endswith("tokenizer.json") else source)
+        return AutoTokenizer.from_pretrained(
+            hf_source, local_files_only=True)
+    return ByteTokenizer(vocab_size)

@@ -104,6 +104,9 @@ KERNELS: List[Kernel] = [*PAGED_DECODE_BY_KIND, *RAGGED_PAGED_BY_KIND,
 
 _lock = threading.Lock()
 _build_info: Dict[str, object] = {}
+# builds in this process that compiled or loaded the libraries (the
+# engine's compile events: a first use stalls the tick it lands in)
+_builds = 0
 
 
 def _lib(source: str) -> str:
@@ -136,6 +139,7 @@ def build(verbose: bool = False) -> Dict[str, object]:
     {"dir", "seconds", "compiled": [sources], "ptxas": {source: text}}.
     nvcc's output (ptxas -v) is kept beside each library, so a reused
     build reports it too."""
+    global _builds
     with _lock:
         if all(k._fn is not None for k in KERNELS):
             return _build_info
@@ -179,10 +183,17 @@ def build(verbose: bool = False) -> Dict[str, object]:
             k._fn = fn
         _build_info.update(dir=out_dir, seconds=time.perf_counter() - t0,
                            compiled=sorted(procs), ptxas=ptxas)
+        _builds += 1
         if verbose:
             for name in procs:
                 print(f"[nvcc {name}]\n{ptxas[name]}")
         return _build_info
+
+
+def build_count() -> int:
+    """Builds (compile or load of the libraries) so far in this
+    process: 0 before the first kernel use, 1 after."""
+    return _builds
 
 
 def check(rc: int, name: str) -> None:

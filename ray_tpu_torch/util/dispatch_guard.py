@@ -25,7 +25,9 @@ Armed on an engine for the block:
   own line.
 
 ``raise_on_violation=False`` collects the report without raising (sync
-debug mode "warn").
+debug mode "warn"). A capture budget exceeded lands in the engine's
+flight recorder as a "guard_violation" event (which black-boxes a
+bundle), in either mode, as the JAX guard records its compile budget.
 """
 
 from __future__ import annotations
@@ -106,6 +108,13 @@ def dispatch_guard(max_captures: int = 0, *, engine,
         engine._guard = None
         if cuda:
             torch.cuda.set_sync_debug_mode(prev)
+    if len(report.captures) > max_captures:
+        recorder = getattr(getattr(engine, "telemetry", None), "recorder",
+                           None)
+        if recorder is not None:
+            recorder.record("guard_violation", cause="capture",
+                            n_captures=len(report.captures),
+                            budget=max_captures, first=report.captures[0])
     if raise_on_violation and len(report.captures) > max_captures:
         raise GuardViolation(
             f"{len(report.captures)} CUDA graph capture(s) inside a "

@@ -8,8 +8,13 @@
   graph capture budgeted in the warm-up, is in test_torch_cuda_kernels);
 - an admission inside the section is an upload, and raises;
 - the guard itself: a seeded upload raises at its site, captures over
-  the budget raise when the block exits, a budget admits warm-up, and
-  report-only mode collects without raising.
+  the budget raise when the block exits (and land in the flight
+  recorder as a guard_violation, black-boxed), a budget admits warm-up,
+  and report-only mode collects without raising.
+
+Every engine here runs with every observability switch on (the
+defaults: telemetry, the cost model, attribution, the anomaly detector,
+the black box): the steady window holds with all of it recording.
 """
 
 import numpy as np
@@ -60,7 +65,12 @@ def _warmed_engine(async_readback=True, impl="gather", **sp_over):
 def test_steady_decode_no_uploads_no_captures_one_readback(sp, async_rb,
                                                            impl):
     eng = _warmed_engine(async_rb, impl, **sp)
+    assert eng.telemetry.enabled and eng.perf is not None \
+        and eng.attrib is not None and eng.anomaly is not None \
+        and eng.config.enable_blackbox
     ticks = eng.decode_ticks
+    samples = eng.perf.totals()["samples"]
+    tokens = eng.telemetry.summary()["generated_tokens"]
     with dispatch_guard(engine=eng) as report:
         for _ in range(32):
             eng.step()
@@ -68,6 +78,10 @@ def test_steady_decode_no_uploads_no_captures_one_readback(sp, async_rb,
     assert report.readbacks == 32
     assert eng.decode_ticks == ticks + 32
     assert all(s.request is not None for s in eng.slots)
+    # the observability recorded every guarded tick
+    assert eng.perf.totals()["samples"] == samples + 32
+    assert eng.telemetry.summary()["generated_tokens"] == tokens + 3 * 32
+    assert eng.anomaly.stats()["ticks"] >= 32
 
 
 def test_guard_raises_on_seeded_upload():
@@ -90,8 +104,8 @@ def test_guard_raises_on_a_structural_upload_in_the_section():
                 eng.step()
 
 
-def test_guard_capture_budget_admits_warmup():
-    eng = _engine()
+def test_guard_capture_budget_admits_warmup(tmp_path):
+    eng = _engine(blackbox_dir=str(tmp_path))
     with dispatch_guard(max_captures=1, engine=eng) as report:
         with eng._capturing():
             pass
@@ -101,6 +115,11 @@ def test_guard_capture_budget_admits_warmup():
             with eng._capturing():
                 pass
     assert eng.graph_captures == 2
+    ev = [e for e in eng.telemetry.recorder.events()
+          if e["event"] == "guard_violation"]
+    assert len(ev) == 1 and ev[0]["cause"] == "capture" \
+        and ev[0]["n_captures"] == 1 and ev[0]["budget"] == 0
+    assert [b["cause"] for b in eng.blackbox.list()] == ["guard_violation"]
 
 
 def test_guard_report_only_mode_collects_without_raising():
