@@ -99,6 +99,34 @@ Phases (any failure raises and exits non-zero):
      decode launches as the counters moved; the exposition parses with
      the JAX family names; a session moved from one server to a second
      through the RTKV wire, token-exact;
+  5f. multi-LoRA serving and multi-step decode: on the `8b` preset at
+     full width and depth (the bf16 phase's weights, B 8, pages of 16,
+     1025 pages): lora_delta against lora_delta_plain at 8b widths (T
+     512 and B 8, bf16); the steady decode tick and the mixed tick
+     base-only with no stacks, then 3 rank-16 adapters on
+     wq/wk/wv/wo (seeded numpy: strong, mild, zero) registered (compiles
+     +1, graph captures +0; a later registration of the same ranks +0,
+     +0, and no capture after it); 8 requests at once (2 base, 2 on each
+     adapter, prompts of 14-1535 tokens, 64 tokens), greedy and sampled,
+     on bf16, int8 and fp8 pages: the default engine against
+     cuda_graph=False, async_readback=False token-exact, against the
+     gather engine within phase 5's near tie (greedy) or phase 5d's
+     pickable rule (sampled), with each request's adapter in the
+     teacher-forced logits; the zero adapter bit-equal to base, the
+     strong one's greedy tokens different; launch counters layers x
+     ticks, all decode launches pipelined; the steady decode and mixed
+     ticks with 3 adapters active, LoRA launches a tick, the stacks'
+     bytes; 16 guarded LoRA decode ticks; a base request after an
+     adapter request on one 40-token prompt equal to a fresh engine's
+     (the prefix-cache bypass); decode_steps_per_call=4 against K=1 on
+     the 8 requests all base and under the adapters, greedy and
+     sampled, 62 tokens and a stop token: step-exact; the K=4 graphs'
+     capture time and reserve, ms a token at K=1 and K=4, 8 guarded
+     rounds (no upload, no capture, one readback and one
+     cudaGraphLaunch a round); LLMServerImpl with `lora_adapters` serving
+     4 adapter and 2 base completions at once (tokens equal a directly
+     driven engine's, or differ at a near tie), a live register_lora,
+     an unknown model refused; every flagged tick's first-use evidence;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -824,9 +852,10 @@ def drive(eng, prompts, max_tokens, tag, **sp):
     return [r.output_tokens for r in reqs], tick_ms
 
 
-def teacher_logits(eng, tokens):
+def teacher_logits(eng, tokens, lora=None):
     """Next-token logits after `tokens`, one fresh single-slot forward
-    with the engine's weights and attention impl."""
+    with the engine's weights and attention impl (and the adapter `lora`,
+    its stacks and slot, when given)."""
     from ray_tpu_torch.models.llama_infer import ragged_forward
     cfg = eng.model_cfg
     dev = eng.device
@@ -841,6 +870,9 @@ def teacher_logits(eng, tokens):
         scales = dict(k_scales=torch.zeros(kv[:-1], device=dev),
                       v_scales=torch.zeros(kv[:-1], device=dev))
     i32 = dict(dtype=torch.int32, device=dev)
+    if lora is not None:
+        scales.update(lora=eng._lora_stacks, lora_idx=torch.full(
+            (n,), eng._lora_names[lora], **i32))
     logits = ragged_forward(
         cfg, eng.params, torch.tensor(tokens, **i32),
         torch.zeros(n, **i32), torch.arange(n, **i32),
@@ -1070,13 +1102,15 @@ def run_quant_engine(dev, kind, params, out_bf16):
 
 
 def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
-                    margin=NEAR_TIE, names=("kernel", "gather")):
+                    margin=NEAR_TIE, names=("kernel", "gather"),
+                    loras=None):
     """Greedy streams of two engines (by default the kernel and gather
     engines; `names` says which) must be identical, or first differ
     where the two candidates' logits lie within the near-tie margin
     (the teacher-forced logits at the divergence point are printed for
     both engines; every divergence is printed before a failure is
-    raised). Returns whether all were identical."""
+    raised; `loras`: each request's adapter, for those logits). Returns
+    whether all were identical."""
     nk, ng = names
     exact = out_k == out_g
     log(f"[engine {label}] {nk} vs {ng} greedy streams identical: {exact}")
@@ -1086,8 +1120,9 @@ def compare_streams(eng_k, eng_g, prompts, out_k, out_g, label,
             continue
         j = next(j for j in range(len(a)) if a[j] != b[j])
         ctx = prompts[i] + a[:j]
-        lk = teacher_logits(eng_k, ctx)
-        lg = teacher_logits(eng_g, ctx)
+        lora = loras[i] if loras else None
+        lk = teacher_logits(eng_k, ctx, lora)
+        lg = teacher_logits(eng_g, ctx, lora)
         top = lg.topk(2)
         gap = abs(lg[a[j]].item() - lg[b[j]].item())
         log(f"[engine {label}] request {i} diverges at output {j}: {nk} "
@@ -1427,13 +1462,16 @@ def steady_decode(eng, label, guard):
     return out
 
 
-def guarded_window(eng, label, dispatch_guard):
+def guarded_window(eng, label, dispatch_guard, n=GUARD_TICKS):
+    """n steady steps (decode ticks, or multi-step rounds) under
+    dispatch_guard inside a profile: no upload, no capture, one readback,
+    one cudaGraphLaunch and no Memcpy HtoD a step."""
     captures = eng.graph_captures
     reports = []
 
     def window():
         with dispatch_guard(engine=eng) as report:
-            for _ in range(GUARD_TICKS):
+            for _ in range(n):
                 eng.step()
         reports.append(report)
     prof, _ = profiled(window, f"ticks {label} guard", host=True)
@@ -1441,13 +1479,13 @@ def guarded_window(eng, label, dispatch_guard):
     rows = prof.key_averages()
     htod = sum(e.count for e in rows if "Memcpy HtoD" in e.key)
     launches = sum(e.count for e in rows if "cudaGraphLaunch" in e.key)
-    log(f"[ticks {label}] {GUARD_TICKS} ticks under dispatch_guard: "
+    log(f"[ticks {label}] {n} steps under dispatch_guard: "
         f"uploads {len(report.uploads)}, captures {len(report.captures)}, "
         f"readbacks {report.readbacks}; profiler: Memcpy HtoD {htod}, "
         f"cudaGraphLaunch {launches}")
     if any(r.uploads or r.captures for r in reports) or htod \
-            or report.readbacks != GUARD_TICKS \
-            or launches != GUARD_TICKS or eng.graph_captures != captures:
+            or report.readbacks != n \
+            or launches != n or eng.graph_captures != captures:
         raise AssertionError(f"{label}: a steady decode tick is not one "
                              f"graph launch with no upload")
     return dict(uploads=len(report.uploads), captures=len(report.captures),
@@ -1681,7 +1719,8 @@ def compare_sampled(eng_o, eng_a, reqs_o, reqs_a, label, margin):
         n_div += 1
         j = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
         p = ra.params
-        lg = teacher_logits(eng_a, ra.prompt_tokens + b[:j]).float()
+        lg = teacher_logits(eng_a, ra.prompt_tokens + b[:j],
+                            ra.lora).float()
         g = row_gumbel(torch.tensor([p.seed], **i32),
                        torch.tensor([len(ra.prompt_tokens) + j], **i32),
                        lg.numel())[0]
@@ -2457,7 +2496,7 @@ def cold_ticks(eng, ticks, since):
         log(f"[server] flagged tick: {e['anomaly_kind']}, wall "
             f"{e['wall_ms']} ms against {e['predicted_ms']} ms predicted, "
             f"z {e['z']}, compile events {e['compile_delta']}, composition "
-            f"{e['composition']}")
+            f"{e['composition']}; {first_use(e)}")
     st = det.stats()
     bundles = sum(1 for b in eng.blackbox.list()
                   if b["cause"] == "tick_anomaly")
@@ -2645,6 +2684,684 @@ def run_server():
                 overhead=ab,
                 guard=guard, anomaly=anomaly,
                 profile=prof, session=moved, bundle=dump["bundle"])
+
+
+# ------------------------------------------- multi-LoRA and multi-step (5f)
+
+LORA_RANK = 16
+LORA_TOKENS = 64
+MULTI_K = 4
+MULTI_TOKENS = 62        # output tokens in the multi-step drives: not a
+#                          multiple of MULTI_K, so budgets clamp mid-round
+MULTI_GUARD_ROUNDS = 8
+# the 8 requests: (PROMPT_TEXTS index, adapter). 0 and 1 are a base /
+# zero-adapter pair on one prompt with one seed (their tokens must be
+# bit-equal), 2 and 3 a base / strong pair (their greedy tokens must
+# differ); prompts of 14-1535 tokens
+LORA_MIX = [(4, None), (4, "zero"), (5, None), (5, "strong"), (0, "strong"),
+            (1, "mild"), (2, "mild"), (3, "zero")]
+BASE_MIX = [(i, None) for i, _ in LORA_MIX]
+# a steady batch with every adapter active
+STEADY_MIX = [None, "strong", "mild", "zero"] * 2
+# the phase's engines: the anomaly detector judges and records every
+# tick, but arms no profile and writes no bundle (either would stall a
+# timed tick; phase 5e holds those paths)
+LORA_KW = dict(ENGINE_KW, anomaly={"auto_profile": False,
+                                   "auto_dump": False})
+
+
+def lora_adapters(cfg):
+    """Three rank-16 adapters on wq/wk/wv/wo from a seeded numpy
+    generator (A ~ N(0, 1/in), so y @ A has unit scale): "strong" (B at
+    0.05: its greedy tokens leave the base model's), "mild" (B at
+    0.005) and "zero" (all zeros: a no-op, bit for bit)."""
+    import numpy as np
+    rng = np.random.default_rng(1111)
+    L, r = cfg.n_layers, LORA_RANK
+    dims = {"wq": (cfg.hidden, cfg.q_dim), "wk": (cfg.hidden, cfg.kv_dim),
+            "wv": (cfg.hidden, cfg.kv_dim), "wo": (cfg.q_dim, cfg.hidden)}
+
+    def adapter(b_std):
+        return {p: (rng.standard_normal((L, i, r), np.float32)
+                    / math.sqrt(i),
+                    rng.standard_normal((L, r, o), np.float32) * b_std)
+                for p, (i, o) in dims.items()}
+    zero = {p: (np.zeros((L, i, r), np.float32),
+                np.zeros((L, r, o), np.float32))
+            for p, (i, o) in dims.items()}
+    return {"strong": adapter(0.05), "mild": adapter(0.005), "zero": zero}
+
+
+def check_lora_delta(dev, cfg):
+    """lora_delta (the concatenated stacks, a slot mask) against
+    lora_delta_plain (the reference's gather form) at 8b widths (wq:
+    4096 -> 4096, r 16, 9 slots) on bf16, at T 512 (a mixed tick) and B
+    8 (a decode tick): the max abs error (each side rounds its float32
+    sums to bf16 twice: within 2 bf16 ulps of the largest value), and
+    both times."""
+    from ray_tpu_torch.models.llama_infer import lora_delta, lora_delta_plain
+    gen = torch.Generator(device=dev).manual_seed(16)
+    S, r, h, o = 9, LORA_RANK, cfg.hidden, cfg.q_dim
+    bf = torch.bfloat16
+    a = (torch.randn(S, h, r, generator=gen, device=dev) / 64).to(bf)
+    b = (torch.randn(S, r, o, generator=gen, device=dev) * 0.05).to(bf)
+    a[0] = 0
+    b[0] = 0
+    # the concatenated layout: slot s owns columns / rows s*r .. s*r+r-1
+    stack = {"a": a.permute(1, 0, 2).reshape(h, S * r),
+             "b": b.reshape(S * r, o), "r": r}
+    out = {}
+    for n in (512, 8):
+        y = torch.randn(n, h, generator=gen, device=dev).to(bf)
+        idx = torch.randint(0, S, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = lora_delta(y, stack, idx)
+        want = lora_delta_plain(y, a, b, idx)
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        ms = time_ms(lambda: lora_delta(y, stack, idx))
+        plain_ms = time_ms(lambda: lora_delta_plain(y, a, b, idx))
+        log(f"[lora] lora_delta vs lora_delta_plain, T={n}, wq at 8b "
+            f"widths, r {r}, {S} slots, bf16: max abs err {err:.3e} (max "
+            f"|delta| {top:.3f}); {ms:.4f} ms against the plain "
+            f"{plain_ms:.4f} ms")
+        if not err <= 2 * 2.0 ** -8 * top:
+            raise AssertionError(f"lora_delta T={n}: error {err}")
+        out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def lora_requests(tag, mix, sp, max_tokens=LORA_TOKENS, stops=None):
+    from ray_tpu_torch import ByteTokenizer, Request, SamplingParams
+    tok = ByteTokenizer(128256)
+    prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+    stops = stops or {}
+    # the pairs share a seed: only the adapter tells them apart
+    return [Request(f"{tag}{i}", list(prompts[pi]), SamplingParams(
+        max_tokens=max_tokens, seed=600 + i // 2,
+        stop_token_ids=tuple(stops.get(i, ())), **sp), lora=lo)
+        for i, (pi, lo) in enumerate(mix)]
+
+
+def drive_lora(eng, reqs):
+    """The prefix cache cleared, the first two requests (the base / zero
+    pair) alone for one tick,
+    so both prefill in one tick at one token bucket, then the other six;
+    step() to the end. Returns (mixed ticks, decode ticks, rounds,
+    launch counts)."""
+    from ray_tpu_torch.ops import _kernels
+    # every drive starts cold: a prefix hit would chunk the prompts at
+    # other offsets than an engine that never saw them
+    eng.allocator.clear_cache()
+    _kernels.reset_launch_counts()
+    r0, d0, m0 = eng.ragged_ticks, eng.decode_ticks, eng.multi_rounds
+    for r in reqs[:2]:
+        eng.add_request(r)
+    eng.step()
+    for r in reqs[2:]:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    for r in reqs:
+        if not r.output_tokens or not all(0 <= t < 128256
+                                          for t in r.output_tokens):
+            raise AssertionError(f"{r.request_id}: bad output stream")
+    return (eng.ragged_ticks - r0, eng.decode_ticks - d0,
+            eng.multi_rounds - m0, _kernels.launch_counts())
+
+
+def check_lora_counts(eng, kind, label, nr, nd, rounds, counts):
+    """The kind's serving counters equal layers x ticks (a round counts
+    K decode launches a layer), every other serving counter 0, and every
+    decode launch on the pipelined route."""
+    from ray_tpu_torch.ops import _kernels
+    suffix = "" if kind == "f32" else f"_{kind}"
+    L, K = eng.model_cfg.n_layers, eng.config.decode_steps_per_call
+    want = {f"ragged_paged{suffix}": L * nr,
+            f"paged_decode{suffix}": L * (nd + K * rounds)}
+    for name, n in counts.items():
+        if name != "row_gumbel" and n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    if min(want.values()) <= 0:
+        raise AssertionError(f"{label}: a serving kernel never ran")
+    check_decode_route(_kernels, f"paged_decode{suffix}",
+                       want[f"paged_decode{suffix}"])
+    log(f"[lora {label}] {nr} mixed ticks, {nd} decode ticks, {rounds} "
+        f"rounds of {K}: launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+
+
+# this phase's launches of each kernel on its main path (the default
+# engines' drives, K=1 and K=4), for the kernels line
+LORA_LAUNCHES: dict = {}
+
+
+def lora_streams(eng, kind, label, sp_mode, mix=LORA_MIX,
+                 max_tokens=LORA_TOKENS, stops=None, check=True):
+    """The requests of `mix` through drive_lora, greedy or SAMPLED; with
+    `check`, the launch counters as check_lora_counts says, added to
+    LORA_LAUNCHES."""
+    sp = {} if sp_mode == "greedy" else SAMPLED
+    reqs = lora_requests(f"{label}-{sp_mode}-", mix, sp, max_tokens, stops)
+    nr, nd, rounds, counts = drive_lora(eng, reqs)
+    if check:
+        check_lora_counts(eng, kind, f"{label} {sp_mode}", nr, nd, rounds,
+                          counts)
+        if eng.config.cuda_graph:
+            for k, n in counts.items():
+                LORA_LAUNCHES[k] = LORA_LAUNCHES.get(k, 0) + n
+    return reqs
+
+
+def compare_lora(eng_a, eng_b, ra, rb, label, margin, mode,
+                 names=("kernel", "gather")):
+    """Two engines' streams of the same requests: greedy through
+    compare_streams, sampled through compare_sampled, each with the
+    requests' adapters in the teacher-forced logits."""
+    if mode == "greedy":
+        return compare_streams(eng_a, eng_b, [r.prompt_tokens for r in ra],
+                               [r.output_tokens for r in ra],
+                               [r.output_tokens for r in rb], label, margin,
+                               names=names, loras=[r.lora for r in ra])
+    return compare_sampled(eng_a, eng_b, ra, rb, label, margin)
+
+
+def first_use(e):
+    """A flagged tick's first-use evidence (the engine's tick_anomaly
+    event): allocator reserve and segment deltas over the tick (eager
+    ticks; a graph replay allocates nothing), whether its products ran
+    at shapes new to the process, and whether allocator growth alone
+    gave it its compile event."""
+    return (f"allocator reserve {e.get('reserved_delta', 'not read')} B, "
+            f"segments {e.get('segment_delta', 'not read')}, new product "
+            f"shapes {e.get('new_gemm_shapes', 'not read')}, compile event "
+            f"from allocator growth alone {e.get('growth_compile', False)}")
+
+
+def log_flagged(eng, label):
+    flagged = [e for e in eng.telemetry.recorder.events()
+               if e["event"] == "tick_anomaly"]
+    for e in flagged:
+        log(f"[lora {label}] flagged tick: {e['anomaly_kind']}, wall "
+            f"{e['wall_ms']} ms against {e['predicted_ms']} ms predicted, "
+            f"compile events {e['compile_delta']}; {first_use(e)}")
+    return [dict(kind=e["anomaly_kind"], wall_ms=e["wall_ms"],
+                 compile_delta=e["compile_delta"],
+                 reserved_delta=e.get("reserved_delta"),
+                 segment_delta=e.get("segment_delta"),
+                 new_gemm_shapes=e.get("new_gemm_shapes"),
+                 growth_compile=e.get("growth_compile", False))
+            for e in flagged]
+
+
+def settle_engine(eng):
+    for s in eng.slots:
+        if s.request is not None:
+            eng.abort(s.request.request_id)
+    while eng.has_work():
+        eng.step()
+
+
+def steady_lora(eng, loras, label, guard=False):
+    """8 greedy requests under `loras` in steady decode: the unprofiled
+    step median over STEADY_TICKS (a decode tick, or a round of K), the
+    kernels busy and launched a step over PROFILED_TICKS profiled steps,
+    then (guard) a guarded window: GUARD_TICKS ticks, or
+    MULTI_GUARD_ROUNDS rounds."""
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    K = eng.config.decode_steps_per_call
+    gen = torch.Generator().manual_seed(78)
+    n_tok = (STEADY_TICKS + PROFILED_TICKS * PROFILE_ATTEMPTS
+             + GUARD_TICKS + 3) * K + 24
+    for i, lo in enumerate(loras):
+        eng.add_request(Request(
+            f"steady-{label}-{i}", torch.randint(
+                1000, 100000, (40 + 61 * i,), generator=gen).tolist(),
+            SamplingParams(max_tokens=n_tok), lora=lo))
+    while eng.waiting or any(s.request is not None and not s.ready
+                             for s in eng.slots):
+        eng.step()
+    for _ in range(3):                 # first steps: captures
+        eng.step()
+    walls = []
+    for _ in range(STEADY_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof, _ = profiled(lambda: repeat(eng.step, PROFILED_TICKS),
+                       f"lora {label} profile")
+    evs = device_events(prof)
+    busy = sum(dev_us(e) for e in evs) / 1e3 / PROFILED_TICKS
+    launches = sum(e.count for e in evs) / PROFILED_TICKS
+    wall = statistics.median(walls)
+    res = dict(step_ms=wall, steps_ms=walls, busy_ms=busy,
+               launches=launches, idle_share=max(0.0, 1 - busy / wall),
+               ms_a_token=wall / K, steps_per_call=K)
+    log(f"[lora {label}] steady {'round' if K > 1 else 'decode tick'} "
+        f"median {wall:.3f} ms over {STEADY_TICKS} ({wall / K:.3f} ms a "
+        f"token a slot); kernels busy {busy:.3f} ms and {launches:.1f} "
+        f"launches a step over {PROFILED_TICKS} profiled: idle "
+        f"{100 * res['idle_share']:.1f}%")
+    if guard:
+        res["guard"] = guarded_window(
+            eng, f"lora {label}", dispatch_guard,
+            n=GUARD_TICKS if K == 1 else MULTI_GUARD_ROUNDS)
+    settle_engine(eng)
+    return res
+
+
+def mixed_lora(eng, loras, label):
+    """Mixed ticks at the engine's budget: 7 short requests decoding
+    under loras[:7], then a 1535-token prompt under loras[7] whose three
+    chunks ride beside them (~520 tokens a tick): the unprofiled mixed
+    ticks' median wall (each to a synchronise), then kernels busy a tick
+    over a profile of the next prompt's three."""
+    from ray_tpu_torch import ByteTokenizer, Request, SamplingParams
+    tok = ByteTokenizer(128256)
+    long_p = tok.encode(PROMPT_TEXTS[0])
+    gen = torch.Generator().manual_seed(79)
+    for i, lo in enumerate(loras[:7]):
+        eng.add_request(Request(f"mix-{label}-{i}", torch.randint(
+            1000, 100000, (30 + 7 * i,), generator=gen).tolist(),
+            SamplingParams(max_tokens=200), lora=lo))
+    while eng.waiting or any(s.request is not None and not s.ready
+                             for s in eng.slots):
+        eng.step()
+    n = [0]
+
+    def long_prefill(walls=None):
+        n[0] += 1
+        eng.add_request(Request(f"mix-{label}-long{n[0]}",
+                                [300 + n[0]] + long_p[1:],
+                                SamplingParams(max_tokens=1),
+                                lora=loras[7]))
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        while eng.waiting or any(s.request is not None and not s.ready
+                                 for s in eng.slots):
+            eng.step()
+    long_prefill()                      # the buckets' first use
+    walls = []
+    long_prefill(walls)
+    prof, _ = profiled(long_prefill, f"lora {label} mixed profile")
+    evs = device_events(prof)
+    r0 = eng.ragged_ticks
+    busy = sum(dev_us(e) for e in evs) / 1e3 / 3
+    wall = statistics.median(walls)
+    log(f"[lora {label}] mixed tick (~520 tokens) median {wall:.2f} ms "
+        f"(all {[round(x, 2) for x in walls]}); kernels busy {busy:.2f} ms "
+        f"a tick over a profile of 3 (ragged ticks so far {r0})")
+    settle_engine(eng)
+    return dict(tick_ms=wall, ticks_ms=walls, busy_ms=busy)
+
+
+def registration_counts(eng, ads, label, first):
+    """compiles and graph_captures across a registration: +1 and +0 at
+    the first (the stacks' allocation; the graphs are released), +0 and
+    +0 at a later one of the same ranks (written in place)."""
+    c0, g0 = eng.compiles, eng.graph_captures
+    t0 = time.perf_counter()
+    eng.register_loras(ads)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dc, dg = eng.compiles - c0, eng.graph_captures - g0
+    log(f"[lora {label}] {'first' if first else 'repeat'} registration of "
+        f"{sorted(ads)} in {ms:.1f} ms: compiles +{dc}, graph captures "
+        f"+{dg}; stacks {eng.stats()['lora_stack_bytes'] / 1e6:.1f} MB")
+    if (dc, dg) != ((1, 0) if first else (0, 0)):
+        raise AssertionError(f"{label}: registration moved compiles by {dc} "
+                             f"and graph captures by {dg}")
+    return dict(ms=ms, compiles=dc, graph_captures=dg)
+
+
+def lora_kind(kind, params, ads):
+    """One kind of pages: the default engine (graphs, lagged readback),
+    the eager synchronous one and the gather one, adapters registered on
+    each; greedy and sampled streams of the 8 requests: default against
+    eager token-exact, against gather within the near-tie rules; the
+    base / zero pair bit-equal; the base / strong pair different (greedy,
+    bf16). Returns (the default engine, numbers)."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    kw = dict(LORA_KW, kv_dtype=kind)
+    margin = NEAR_TIE_FP8 if kind == "fp8" else NEAR_TIE
+    name = kind_label(kind)
+    eng = InferenceEngine(EngineConfig(decode_impl="kernel", **kw),
+                          params=params)
+    res = {}
+    if kind == "f32":
+        # base only first, with no stacks: today's graph
+        res["base_steady"] = steady_lora(eng, [None] * 8, f"{name} base")
+        res["base_mixed"] = mixed_lora(eng, [None] * 8, f"{name} base")
+        if eng._lora_stacks is not None or any(
+                key[1] for key in eng._decode_graphs):
+            raise AssertionError("an engine with no adapters ran LoRA work")
+    res["registration"] = registration_counts(eng, ads, name, True)
+    out = {}
+    for mode in ("greedy", "sampled"):
+        out["default", mode] = lora_streams(eng, kind, f"{name} default",
+                                            mode)
+    for which, extra in (("eager", dict(cuda_graph=False,
+                                        async_readback=False)),
+                         ("gather", dict(decode_impl="gather"))):
+        other = InferenceEngine(EngineConfig(**dict(kw, **extra)),
+                                params=params)
+        other.register_loras(ads)
+        for mode in ("greedy", "sampled"):
+            out[which, mode] = lora_streams(
+                other, kind, f"{name} {which}", mode,
+                check=which == "eager")
+        if which == "eager" and other.graph_captures:
+            raise AssertionError(f"{name}: the eager engine captured")
+        for mode in ("greedy", "sampled"):
+            a, b = out["default", mode], out[which, mode]
+            if which == "eager":
+                if [r.output_tokens for r in a] != \
+                        [r.output_tokens for r in b]:
+                    raise AssertionError(f"{name} {mode}: default and "
+                                         f"eager engines differ")
+                log(f"[lora {name}] default vs eager, {mode}: token-exact")
+            else:
+                res[f"gather_{mode}_exact"] = compare_lora(
+                    eng, other, a, b, f"lora {name} {mode}", margin, mode)
+        other.release_graphs()
+        del other
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mode in ("greedy", "sampled"):
+        a = out["default", mode]
+        if a[0].output_tokens != a[1].output_tokens:
+            raise AssertionError(f"{name} {mode}: the zero adapter's tokens "
+                                 f"differ from the base request's")
+        if mode == "greedy" and a[2].output_tokens == a[3].output_tokens:
+            raise AssertionError(f"{name}: the strong adapter's greedy "
+                                 f"tokens equal the base model's")
+    greedy = out["default", "greedy"]
+    first = agreement([greedy[3].output_tokens],
+                      [greedy[2].output_tokens])[1][0]
+    log(f"[lora {name}] zero adapter bit-equal to base (greedy and sampled);"
+        f" strong adapter's greedy tokens differ from base: first "
+        f"divergence at output {first}")
+    return eng, res
+
+
+def prefix_bypass(eng):
+    """Two requests with one 40-token prompt (2 full pages), the first on
+    the strong adapter, the second on the base model, on a warm engine
+    with the prefix cache on: the base request's tokens equal the same
+    request's on a fresh engine (an adapter's pages are never shared)."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request, \
+        SamplingParams
+    gen = torch.Generator().manual_seed(4040)
+    prompt = torch.randint(1000, 100000, (40,), generator=gen).tolist()
+    sp = SamplingParams(max_tokens=16)
+    eng.allocator.clear_cache()
+    hits0 = eng.allocator.cache_hit_tokens
+    first = eng.generate([list(prompt)], sp, loras=["strong"])[0]
+    base = eng.generate([list(prompt)], sp)[0]
+    fresh = InferenceEngine(EngineConfig(decode_impl="kernel", **LORA_KW),
+                            params=eng.params)
+    want = fresh.generate([list(prompt)], sp)[0]
+    hits = eng.allocator.cache_hit_tokens - hits0
+    log(f"[lora bf16] prefix bypass: adapter request then base request on "
+        f"one 40-token prompt; base tokens equal a fresh engine's "
+        f"{base.output_tokens == want.output_tokens}; cache hit tokens "
+        f"{hits}; adapter tokens differ from base "
+        f"{first.output_tokens != base.output_tokens}")
+    if base.output_tokens != want.output_tokens or hits:
+        raise AssertionError("a base request reused an adapter's KV pages")
+    fresh.release_graphs()
+    return dict(equal=True, hit_tokens=hits)
+
+
+def multistep(params, ads, eng1, steady_k1):
+    """decode_steps_per_call=4 on bf16 pages against `eng1` (K=1, the
+    default bf16 engine, adapters registered): the 8 requests all base,
+    then under LORA_MIX, greedy and sampled, MULTI_TOKENS tokens each
+    and one stop token that cuts request 4 mid-round: step-exact. The
+    first round of each K=4 graph (one a sampling mode, in the base
+    drives) counts one capture and the others none; its capture time,
+    its wall and its peak memory; steady rounds against K=1 ticks (ms a
+    token, against `steady_k1`, eng1's ticks), and a guarded window of
+    rounds."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    eng4 = InferenceEngine(EngineConfig(decode_impl="kernel",
+                                        decode_steps_per_call=MULTI_K,
+                                        **LORA_KW), params=params)
+    eng4.register_loras(ads)
+    first = first_round_probe(eng4)
+    res = dict(exact={})
+    for mix_name, mix in (("base", BASE_MIX), ("lora", LORA_MIX)):
+        for mode in ("greedy", "sampled"):
+            ref = lora_streams(eng1, "f32", f"bf16 K=1 {mix_name}", mode,
+                               mix, MULTI_TOKENS)
+            # a stop token from request 4's stream at output 9: a round
+            # boundary is every 4 outputs after the first (prefill's)
+            stops = {4: (ref[4].output_tokens[9],)}
+            ref = lora_streams(eng1, "f32", f"bf16 K=1 {mix_name} stop",
+                               mode, mix, MULTI_TOKENS, stops)
+            g0 = eng4.graph_captures
+            got = lora_streams(eng4, "f32", f"bf16 K=4 {mix_name}", mode,
+                               mix, MULTI_TOKENS, stops)
+            if [r.output_tokens for r in got] != \
+                    [r.output_tokens for r in ref]:
+                raise AssertionError(f"K=4 {mix_name} {mode}: not step-exact "
+                                     f"against K=1")
+            cut = got[4]
+            if cut.finish_reason != "stop" or len(cut.output_tokens) > 10:
+                raise AssertionError(f"K=4: request 4 did not stop mid-round "
+                                     f"({cut.finish_reason}, "
+                                     f"{len(cut.output_tokens)} tokens)")
+            lens = sorted({len(r.output_tokens) for r in got})
+            captures = eng4.graph_captures - g0
+            log(f"[lora multistep] K=4 vs K=1, {mix_name} {mode}: step-exact;"
+                f" output lengths {lens}, request 4 stopped after "
+                f"{len(cut.output_tokens)}; graph captures +{captures}")
+            if captures != (mix_name == "base"):
+                raise AssertionError(f"K=4 {mix_name} {mode}: {captures} "
+                                     f"graph captures")
+            res["exact"][f"{mix_name}_{mode}"] = True
+    del eng4._multi_decode             # the probe's synchronises end here
+    graphs = {k: g for k, g in eng4._decode_graphs.items() if k[2] == MULTI_K}
+    res["captures"] = {}
+    for k, g in graphs.items():
+        rnd = first[k[0]]
+        res["captures"][str(k)] = dict(capture_ms=g.capture_s * 1e3, **rnd)
+        log(f"[lora multistep] K=4 graph {k} (all_greedy, stacks, K): "
+            f"capture {g.capture_s * 1e3:.1f} ms; its first round (K steps "
+            f"eagerly, then the capture) {rnd['round_ms']:.1f} ms, peak "
+            f"{rnd['peak_bytes'] / 2**20:.1f} MiB above the memory held "
+            f"before it")
+    if len(graphs) != 2 or eng4.graph_captures != len(eng4._decode_graphs):
+        raise AssertionError(f"K=4 graphs {sorted(eng4._decode_graphs)}, "
+                             f"captures {eng4.graph_captures}")
+    res["steady_k1"] = steady_k1
+    res["steady_k4"] = steady_lora(eng4, STEADY_MIX, "bf16 K=4 adapters",
+                                   guard=True)
+    k1, k4 = (res[k]["ms_a_token"] for k in ("steady_k1", "steady_k4"))
+    log(f"[lora multistep] ms a token a slot: K=1 {k1:.3f}, K=4 {k4:.3f} "
+        f"({k4 / k1:.3f}x)")
+    res["flagged"] = log_flagged(eng4, "bf16 K=4")
+    eng4.release_graphs()
+    return res
+
+
+def first_round_probe(eng):
+    """Wrap eng._multi_decode: a round that captures a graph is timed to
+    a synchronise, and its peak device memory above what was allocated
+    before it is read. Returns {all_greedy: {round_ms, peak_bytes}},
+    filled as rounds capture (delete the wrapper to end it)."""
+    seen = {}
+    own = eng._multi_decode
+
+    def probe(touched):
+        g0 = eng.graph_captures
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        own(touched)
+        torch.cuda.synchronize()
+        if eng.graph_captures > g0:
+            seen[eng._all_greedy] = dict(
+                round_ms=(time.perf_counter() - t0) * 1e3,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+    eng._multi_decode = probe
+    return seen
+
+
+def lora_server(ads):
+    """LLMServerImpl with `lora_adapters` in its config (strong, mild):
+    4 completions on them by `model` and 2 base ones at once; their
+    tokens equal those of an engine driven directly (or differ at a near
+    tie, as in phase 5); a live register_lora of "zero" then serves; an
+    unknown model is an error."""
+    import asyncio
+    from ray_tpu_torch import (EngineConfig, InferenceEngine, LLMServerImpl,
+                               Request, SamplingParams)
+    srv = LLMServerImpl(dict(
+        model_id="8b", model_source=SERVER_MODEL, engine_kwargs=SERVER_KW,
+        lora_adapters={k: ads[k] for k in ("strong", "mild")}))
+    eng = srv.engine
+    submitted = []
+    add = eng.add_request
+
+    def recording(req):
+        submitted.append(req)
+        return add(req)
+    eng.add_request = recording
+    t = PROMPT_TEXTS
+    bodies = [dict(prompt=t[1], model="strong"), dict(prompt=t[2],
+                                                      model="strong"),
+              dict(prompt=t[3], model="mild"), dict(prompt=t[5],
+                                                    model="mild"),
+              dict(prompt=t[3]), dict(prompt=t[5], model="8b")]
+    for b in bodies:
+        b.update(max_tokens=32, temperature=0.0)
+
+    async def serve():
+        outs = await asyncio.gather(*[srv.completions(dict(b))
+                                      for b in bodies])
+        names = await srv.register_lora("zero", ads["zero"])
+        live = await srv.completions(dict(prompt=t[4], model="zero",
+                                          max_tokens=32))
+        info = await srv.model_info()
+        return outs, names, live, info
+    t0 = time.perf_counter()
+    outs, names, live, info = asyncio.run(serve())
+    wall = time.perf_counter() - t0
+    del eng.add_request
+    try:
+        asyncio.run(srv.completions(dict(prompt="x", model="nope")))
+        raise AssertionError("an unknown model was served")
+    except ValueError as e:
+        unknown = str(e)
+    if names != ["mild", "strong", "zero"] or info["adapters"] != names:
+        raise AssertionError(f"adapters {names}, listing {info['adapters']}")
+    tok = srv.tokenizer
+    by = {(tuple(r.prompt_tokens), r.lora): r for r in submitted}
+    reqs = [by[(tuple(tok.encode(b["prompt"])),
+                None if b.get("model") in (None, "8b") else b["model"])]
+            for b in bodies] + [by[(tuple(tok.encode(t[4])), "zero")]]
+    for r, o in zip(reqs, outs + [live]):
+        if o["choices"][0]["text"] != tok.decode(r.output_tokens):
+            raise AssertionError(f"{r.request_id}: response disagrees with "
+                                 f"its tokens")
+    ref = InferenceEngine(EngineConfig(model=SERVER_MODEL, **SERVER_KW),
+                          params=eng.params)
+    ref.register_loras(ads)
+    rreqs = [Request(f"direct{i}", list(r.prompt_tokens), SamplingParams(
+        max_tokens=32, stop_token_ids=r.params.stop_token_ids), lora=r.lora)
+        for i, r in enumerate(reqs)]
+    for r in rreqs:
+        ref.add_request(r)
+    while ref.has_work():
+        ref.step()
+    exact = compare_streams(eng, ref, [r.prompt_tokens for r in reqs],
+                            [r.output_tokens for r in reqs],
+                            [r.output_tokens for r in rreqs],
+                            "lora server 8b", names=("server", "engine"),
+                            loras=[r.lora for r in reqs])
+    models = [b.get("model") for b in bodies]
+    log(f"[lora server] {len(bodies)} completions at once ({models}) "
+        f"in {wall:.2f} s, then a live register_lora -> {names} and a "
+        f"'zero' completion; tokens vs a directly driven engine identical: "
+        f"{exact}; unknown model: {unknown!r}")
+    ref.release_graphs()
+    eng.release_graphs()
+    return dict(exact=exact, adapters=names, wall_s=wall)
+
+
+def run_lora(dev, params):
+    """Phase 5f: multi-LoRA serving and multi-step decode on the `8b`
+    preset at full width and depth (the bf16 phase's weights, B 8, pages
+    of 16, 1025 pages). Returns the numbers."""
+    from ray_tpu_torch.models import llama
+    cfg = llama.config("8b")
+    ads = lora_adapters(cfg)
+    out = dict(delta=check_lora_delta(dev, cfg))
+    kinds = {}
+    eng1 = None
+    for kind in ("f32", "int8", "fp8"):
+        eng, res = lora_kind(kind, params, ads)
+        name = kind_label(kind)
+        if kind == "f32":
+            res["steady"] = steady_lora(eng, STEADY_MIX, f"{name} adapters",
+                                        guard=True)
+            res["mixed"] = mixed_lora(eng, STEADY_MIX, f"{name} adapters")
+            base, lo = res["base_steady"], res["steady"]
+            res["lora_launches_a_tick"] = lo["launches"] - base["launches"]
+            res["stack_bytes"] = eng.stats()["lora_stack_bytes"]
+            log(f"[lora {name}] steady decode tick base-only (no stacks) "
+                f"{base['step_ms']:.3f} ms, kernels {base['busy_ms']:.3f} ms;"
+                f" with 3 adapters active {lo['step_ms']:.3f} ms, kernels "
+                f"{lo['busy_ms']:.3f} ms "
+                f"(+{lo['step_ms'] - base['step_ms']:.3f} ms); LoRA "
+                f"launches a tick "
+                f"{res['lora_launches_a_tick']:.1f}; mixed tick "
+                f"{res['base_mixed']['tick_ms']:.2f} -> "
+                f"{res['mixed']['tick_ms']:.2f} ms, kernels "
+                f"{res['base_mixed']['busy_ms']:.2f} -> "
+                f"{res['mixed']['busy_ms']:.2f} ms; stacks "
+                f"{res['stack_bytes'] / 1e6:.1f} MB")
+            res["repeat_registration"] = registration_counts(
+                eng, {"mild": ads["mild"]}, name, False)
+            g0 = eng.graph_captures
+            again = lora_streams(eng, kind, f"{name} after repeat",
+                                 "greedy")
+            if eng.graph_captures != g0:
+                raise AssertionError("a registration of the same ranks "
+                                     "forced a capture")
+            res["prefix_bypass"] = prefix_bypass(eng)
+            res["flagged"] = log_flagged(eng, name)
+            eng1 = eng
+            del again
+        else:
+            res["flagged"] = log_flagged(eng, name)
+            eng.release_graphs()
+            del eng
+        kinds[name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kinds"] = kinds
+    out["multistep"] = multistep(params, ads, eng1, kinds["bf16"]["steady"])
+    eng1.release_graphs()
+    del eng1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["server"] = lora_server(ads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------- train
@@ -2917,10 +3634,15 @@ def main():
     phase_s["5c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kv_hierarchy = run_kv_hierarchy(params)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_s["5d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lora = run_lora(dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["5f"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     server = run_server()
     gc.collect()
@@ -2974,6 +3696,11 @@ def main():
                         source=src + "threefry.cu",
                         replaces="ray_tpu/llm/_internal/engine.py:464",
                         launches=noise_launches, **noise))
+    # phase 5f's main path (multi-LoRA and multi-step drives) launches
+    for k in kernels:
+        base = k["name"].replace("_narrow_table", "")
+        if base in LORA_LAUNCHES:
+            k["launches_lora_multistep"] = LORA_LAUNCHES[base]
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -2983,6 +3710,7 @@ def main():
                            quant_engine=quant_engine, train=train,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
+                           lora=lora,
                            profiles=PROFILES,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)

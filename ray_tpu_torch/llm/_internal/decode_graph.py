@@ -1,11 +1,12 @@
-"""One pure-decode tick as one CUDA graph.
+"""One pure-decode tick, or one multi-step round, as one CUDA graph.
 
-Counterpart of the JAX engine's jitted decode program (``_build_decode``
-in ``ray_tpu/llm/_internal/engine.py``, cached per ``all_greedy``): the
-engine keeps one ``DecodeGraph`` per sampling mode, whose body runs the
-decode forward, the KV write, sampling, the seen update and the
-on-device feedback of tokens and positions over the engine's static
-device buffers. On a CUDA device the first call runs the body eagerly
+Counterpart of the JAX engine's jitted decode programs (``_build_decode``
+and ``_build_multi_decode`` in ``ray_tpu/llm/_internal/engine.py``,
+cached per ``all_greedy``): the engine keeps one ``DecodeGraph`` per
+sampling mode, adapter stacks present or not, and steps a call, whose
+body runs the decode forward (K times for a round), the KV write,
+sampling, the seen update and the on-device feedback of tokens and
+positions over the engine's static device buffers. On a CUDA device the first call runs the body eagerly
 (it is that tick's work, and it makes every one-time setup: the kernels'
 shared-memory opt-ins, cached launch plans, library handles) and then
 captures it; every later call replays the graph: one launch for the
@@ -26,6 +27,7 @@ graphs (they never run concurrently, and each keeps its output alive).
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, ContextManager, Optional
 
 import torch
@@ -34,10 +36,10 @@ from ...ops import _kernels
 
 
 class DecodeGraph:
-    """`body()` -> the tick's (B,) int32 tokens, captured once and
-    replayed (`capture`), or run every call. `capturing()` is entered
-    around the capture (the engine counts it and lets its syncs
-    through an armed dispatch guard)."""
+    """`body()` -> the tick's (B,) int32 tokens (a multi-step round's
+    (K, B)), captured once and replayed (`capture`), or run every call.
+    `capturing()` is entered around the capture (the engine counts it
+    and lets its syncs through an armed dispatch guard)."""
 
     def __init__(self, body: Callable[[], torch.Tensor], capture: bool,
                  pool=None,
@@ -50,6 +52,7 @@ class DecodeGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self._launches = None
+        self.capture_s = 0.0        # host seconds the capture took
 
     def __call__(self) -> torch.Tensor:
         if self.graph is not None:
@@ -60,9 +63,11 @@ class DecodeGraph:
         if self._capture:
             before = _kernels.counter_state()
             graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
             with self._capturing():
                 with torch.cuda.graph(graph, pool=self._pool):
                     self.out = self._body()
+            self.capture_s = time.perf_counter() - t0
             self._launches = _kernels.rewind_counts(before)
             self.graph = graph
         return out

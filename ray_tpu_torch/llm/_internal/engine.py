@@ -54,8 +54,28 @@ mirrors the engine keeps: no device sync, no upload, no extra launch.
 Every mutating entry point takes ``_step_lock``, since the server
 calls the engine from executor threads.
 
-Not here yet: LoRA, speculative and multi-step decode, pp/tp, the
-legacy two-dispatch step, graphs for mixed ticks.
+Multi-LoRA serving, as in the JAX engine: ``register_lora(s)`` stacks
+adapters for ``wq``/``wk``/``wv``/``wo`` in ``max_loras + 1`` slots
+(slot 0 the zero adapter, names in sorted order), and a request picks
+one by ``Request.lora``; every slot of one tick may run another. The
+stacks are allocated at the first registration and again only when a
+projection's rank changes (each releases the decode graphs and counts
+one ``compiles``); other registrations write them in place. A mixed
+tick carries each token's slot in its metadata, a decode tick reads a
+static slot row of the device state. A request under an adapter
+bypasses the prefix cache: an adapter changes every later layer's K/V,
+so its pages are not the base model's (the JAX engine shares them; a
+recorded departure).
+
+Multi-step decode (``decode_steps_per_call`` K > 1): while nothing waits
+or prefills, one CUDA graph runs K decode steps, each slot masked past
+its remaining ``max_tokens`` (derived on the device from a static row
+of the device state), and the round's (K, B) tokens come back in one
+readback and fold in order. Sampled streams stay step-exact with K=1:
+the noise is keyed by (seed, absolute position).
+
+Not here yet: speculative decode, pp/tp, the legacy two-dispatch step,
+graphs for mixed ticks.
 """
 
 from __future__ import annotations
@@ -76,7 +96,8 @@ import torch
 
 from ...models import llama
 from ...models.llama import LlamaConfig
-from ...models.llama_infer import decode_step, ragged_forward
+from ...models.llama_infer import (LORA_PROJS, decode_step, lora_cat,
+                                   ragged_forward)
 from ...models.weights import params_from_numpy
 from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
@@ -176,6 +197,15 @@ class EngineConfig:
     enable_blackbox: bool = True
     blackbox_dir: Optional[str] = None      # None -> per-engine tempdir
     blackbox_capacity: int = 16             # bundles retained
+    # Multi-LoRA capacity: adapter stacks have this many slots (plus the
+    # zero adapter's), so registering adapters allocates only at the
+    # first registration or when a projection's rank changes
+    max_loras: int = 8
+    # Multi-step decode: this many decode steps in one CUDA graph replay
+    # (tokens and positions feed back on the device, each slot masked
+    # past its remaining max_tokens) while nothing waits or prefills;
+    # greedy, penalty and sampled streams are step-exact with 1
+    decode_steps_per_call: int = 1
 
     def resolve_model(self) -> LlamaConfig:
         return llama.config(self.model)
@@ -200,8 +230,7 @@ class Request:
     request_id: str
     prompt_tokens: List[int]
     params: SamplingParams
-    # a LoRA adapter name: the port serves none, so always None here (a
-    # request or an imported session naming one is refused)
+    # a registered LoRA adapter's name (None: the base model)
     lora: Optional[str] = None
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     finished: bool = False
@@ -249,6 +278,10 @@ class _InflightTick:
     done: Optional[torch.cuda.Event]
     active: np.ndarray
 
+
+# product shapes this process has run (T, hidden, dtype, LoRA ranks): a
+# tick at a new one is first use for the matmul library
+_GEMM_SHAPES: set = set()
 
 # same-size integer dtypes: page copies move bytes on every pool kind
 # (the CPU has no index ops on float8)
@@ -356,6 +389,10 @@ class InferenceEngine:
                 "the preemption valve turns ordinary contention into "
                 "finish_reason=\"error\" failures that a worst-case "
                 "reservation would just queue through")
+        if int(ec.decode_steps_per_call) < 1:
+            raise ValueError("decode_steps_per_call must be >= 1")
+        if int(ec.max_loras) < 1:
+            raise ValueError("max_loras must be >= 1")
         self.max_seq = ec.max_seq_len or cfg.max_seq
         # the cost model's envelope first: an unknown card raises before
         # any weights are allocated
@@ -420,15 +457,18 @@ class InferenceEngine:
         self._d_tables_version = -1
         self._prefill_rr = 0
         # Static device state, filled in place (a CUDA graph reads these
-        # addresses): one (8, B) int32 buffer of rows tokens / positions /
-        # active / seeds / top_ks and, viewed as float32, temps / top_ps /
-        # rep_pens; the page tables; the repetition-penalty support.
+        # addresses): one (10, B) int32 buffer of rows tokens / positions /
+        # active / seeds / top_ks, viewed as float32 temps / top_ps /
+        # rep_pens, then the LoRA slot and the budget end (position +
+        # remaining max_tokens: a multi-step round's budget is end -
+        # positions); the page tables; the repetition-penalty support.
         dev = self.device
-        self._d_state = torch.zeros((8, B), dtype=torch.int32, device=dev)
+        self._d_state = torch.zeros((10, B), dtype=torch.int32, device=dev)
         (self._d_tokens, self._d_positions, self._d_active, self._d_seeds,
          self._d_top_ks) = self._d_state[:5]
         self._d_temps, self._d_top_ps, self._d_rep_pens = \
-            self._d_state[5:].view(torch.float32)
+            self._d_state[5:8].view(torch.float32)
+        self._d_lora, self._d_end = self._d_state[8:]
         self._d_tables = torch.zeros((B, self.max_pages_per_seq),
                                      dtype=torch.int32, device=dev)
         self._d_seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
@@ -449,20 +489,35 @@ class InferenceEngine:
         self._host_events = ([torch.cuda.Event() for _ in range(2)]
                              if pin else [None, None])
         self._host_turn = 0
+        # a multi-step round's (K, B) tokens: read back at once
+        K = int(ec.decode_steps_per_call)
+        self._host_round = (torch.empty((K, B), dtype=torch.int32,
+                                        pin_memory=pin) if K > 1 else None)
+        self._round_event = torch.cuda.Event() if pin else None
         self._inflight: Optional[_InflightTick] = None
         # tokens folded outside step() (abort): the next step returns them
         self._pending_touched: List[Request] = []
-        # one decode program per sampling mode (the JAX engine's jit
-        # cache keyed on the static all_greedy)
+        # one decode program per (sampling mode, stacks present, steps):
+        # the JAX engine's jit caches keyed on the static all_greedy
         self._capture_graphs = dev.type == "cuda" and ec.cuda_graph
         self._graph_pool = None
-        self._decode_graphs: Dict[bool, DecodeGraph] = {}
+        self._decode_graphs: Dict[Tuple[bool, bool, int], DecodeGraph] = {}
+        # multi-LoRA: adapter name -> stack slot (None -> 0), the float32
+        # adapters as registered, the device stacks ({proj: {"a", "b",
+        # "r"}}, llama_infer's layout) and their allocation generation;
+        # the sorted names, replaced whole, for lock-free readers
+        self._lora_names: Dict[Optional[str], int] = {None: 0}
+        self._lora_raw: Dict[str, Dict[str, Tuple[np.ndarray, ...]]] = {}
+        self._lora_stacks: Optional[Dict[str, Dict[str, Any]]] = None
+        self._lora_gen = 0
+        self._lora_published: Tuple[str, ...] = ()
         self._guard = None          # an armed dispatch_guard, if any
         self.ticks = 0
         self.dispatches = 0
         self.ragged_ticks = 0
         self.decode_ticks = 0
         self.graph_captures = 0
+        self.multi_rounds = 0       # multi-step rounds (K steps each)
         self._lagged_ticks = 0      # ticks folded one tick late
         self._drains = 0            # in-flight ticks folded early
         # (wall, host, device) ms of recent ticks; host: the folds'
@@ -473,11 +528,19 @@ class InferenceEngine:
         # compile events, the counterpart of the JAX engine's jit-cache
         # builds (the anomaly detector's "recompile" evidence): CUDA
         # graph captures, the first ragged tick of each (token bucket,
-        # context bucket, all_greedy), and kernel library builds at
-        # first use in this process
+        # context bucket, all_greedy, LoRA stacks), kernel library
+        # builds at first use in this process, LoRA stack allocations,
+        # and on the card a tick that grew the caching allocator's
+        # reserve (first-use work, as a cold shape's build is there)
         self.compiles = 0
         self._ragged_buckets: set = set()
         self._kernel_builds = _kernels.build_count()
+        # a tick's first-use evidence for the anomaly detector's event:
+        # allocator reserve and segment deltas (eager ticks on the card),
+        # and whether its products ran at shapes new to this process
+        self._mem_seen: Optional[Tuple[int, int]] = None
+        self._tick_eager = False
+        self._tick_first_use: Dict[str, Any] = {}
         # observability (the JAX engine's, see its fields above)
         self.telemetry = EngineTelemetry(
             model=ec.metrics_model_id or "default",
@@ -520,7 +583,14 @@ class InferenceEngine:
         # others
         self._step_lock = threading.Lock()
         with self._step_lock:
+            if dev.type == "cuda":
+                self._note_allocator()       # the baseline
             self._publish_counters_locked()
+
+    def _lora_ranks(self) -> Tuple[int, ...]:
+        if self._lora_stacks is None:
+            return ()
+        return tuple(self._lora_stacks[p]["r"] for p in LORA_PROJS)
 
     def _kv_args(self) -> Dict[str, Any]:
         """The pools' kind and scale pools for the forwards (updated in
@@ -637,8 +707,8 @@ class InferenceEngine:
         if self._d_tables_version != self._tables_version:
             self._fill(self._d_tables, self._page_tables, "page tables")
             self._d_tables_version = self._tables_version
-        rows = np.zeros((8, self.config.max_batch_size), np.int32)
-        temps, top_ps, rep_pens = rows[5:].view(np.float32)
+        rows = np.zeros((10, self.config.max_batch_size), np.int32)
+        temps, top_ps, rep_pens = rows[5:8].view(np.float32)
         top_ps[:] = 1.0
         rep_pens[:] = 1.0
         for s in self.slots:
@@ -654,6 +724,9 @@ class InferenceEngine:
                 rows[0, s.index] = s.last_token
                 rows[1, s.index] = s.position
                 rows[2, s.index] = 1
+                rows[8, s.index] = self._lora_names.get(s.request.lora, 0)
+                rows[9, s.index] = s.position + (
+                    p.max_tokens - len(s.request.output_tokens))
         self._fill(self._d_state, rows, "slot state")
         self._all_greedy = bool(np.all(temps <= 0.0)
                                 and np.all(rep_pens == 1.0))
@@ -723,10 +796,11 @@ class InferenceEngine:
             self._publish_counters_locked()
 
     def _add_request_locked(self, request: Request) -> None:
-        if request.lora is not None:
+        if request.lora is not None \
+                and request.lora not in self._lora_names:
             raise ValueError(
-                f"unknown LoRA adapter {request.lora!r}: this engine "
-                f"serves no adapters")
+                f"unknown LoRA adapter {request.lora!r} "
+                f"(registered: {sorted(self._lora_raw)})")
         worst_case = len(request.prompt_tokens) + request.params.max_tokens
         if worst_case > self.max_seq:
             raise ValueError(
@@ -775,6 +849,9 @@ class InferenceEngine:
             touched: List[Request] = self._pending_touched
             self._pending_touched = []
             self.ticks += 1
+            self._tick_eager = True      # until a graph replays
+            self._tick_first_use = {}
+            compiles0 = self.compiles
             t0 = time.perf_counter()
             try:
                 self._step_tick(touched)
@@ -782,7 +859,7 @@ class InferenceEngine:
                 self._tick_times.append((wall * 1e3,
                                          self._tick_host_s * 1e3,
                                          self._tick_dev_s * 1e3))
-                self._commit_tick(wall * 1e3)
+                self._commit_tick(wall * 1e3, compiles0)
                 # reset after the append: readback and fold time of an
                 # out-of-step drain lands in the next tick's record
                 self._tick_host_s = self._tick_dev_s = 0.0
@@ -802,13 +879,21 @@ class InferenceEngine:
             self._profile_tick_end()
             return touched
 
-    def _commit_tick(self, wall_ms: float) -> None:
+    def _commit_tick(self, wall_ms: float, compiles0: int) -> None:
         """Fold the tick's pending cost sample into the perf window,
         split it across the tick's receipts, and let the anomaly
         detector judge the tick's wall against its roofline."""
         builds = _kernels.build_count()
         self.compiles += builds - self._kernel_builds
         self._kernel_builds = builds
+        if self._tick_eager and self.device.type == "cuda":
+            grew = self._note_allocator()
+            if grew and self.compiles == compiles0:
+                # the caching allocator reserved new memory: first-use
+                # work, counted once a tick like the reference's build
+                # of a cold shape
+                self.compiles += 1
+                self._tick_first_use["growth_compile"] = True
         if self.perf is None:
             return
         sample = self.perf.commit(wall_ms)
@@ -825,6 +910,21 @@ class InferenceEngine:
                 env.peak_bytes_per_s * self.n_chips)
             if ev is not None:
                 self._on_tick_anomaly(ev)
+
+    def _note_allocator(self) -> bool:
+        """Read the caching allocator's reserve and segment count (host
+        bookkeeping, no sync) into the tick's first-use evidence;
+        whether the reserve grew since the last reading. Graph replays
+        allocate nothing and skip it."""
+        st = torch.cuda.memory_stats(self.device)
+        cur = (int(st.get("reserved_bytes.all.current", 0)),
+               int(st.get("segment.all.current", 0)))
+        prev, self._mem_seen = self._mem_seen, cur
+        if prev is None:
+            return False
+        self._tick_first_use["reserved_delta"] = cur[0] - prev[0]
+        self._tick_first_use["segment_delta"] = cur[1] - prev[1]
+        return cur[0] > prev[0]
 
     def _abort_tick(self) -> None:
         """A tick that raised: stop an armed profile and drop the
@@ -857,10 +957,26 @@ class InferenceEngine:
             self._decode(touched)
 
     def generate(self, prompts: List[List[int]],
-                 params: Optional[SamplingParams] = None) -> List[Request]:
-        """Synchronous batch completion."""
+                 params: Optional[SamplingParams] = None,
+                 loras: Optional[List[Optional[str]]] = None
+                 ) -> List[Request]:
+        """Synchronous batch completion. loras: optional per-prompt
+        adapter names (a multi-LoRA batch); every name is checked before
+        any request queues."""
         params = params or SamplingParams()
-        reqs = [Request(f"gen-{i}-{id(prompts)}", list(p), params)
+        loras = loras or [None] * len(prompts)
+        if len(loras) != len(prompts):
+            raise ValueError("loras must match prompts in length")
+        with self._step_lock:
+            known = frozenset(self._lora_names)
+            registered = sorted(self._lora_raw)
+        unknown = {n for n in loras if n is not None and n not in known}
+        if unknown:
+            raise ValueError(
+                f"unknown LoRA adapter(s) {sorted(unknown)} "
+                f"(registered: {registered})")
+        reqs = [Request(f"gen-{i}-{id(prompts)}", list(p), params,
+                        lora=loras[i])
                 for i, p in enumerate(prompts)]
         for r in reqs:
             self.add_request(r)
@@ -918,8 +1034,137 @@ class InferenceEngine:
         """Drop the captured decode graphs and their memory pool (the
         next decode tick captures again)."""
         with self._step_lock:
-            self._decode_graphs.clear()
-            self._graph_pool = None
+            self._release_graphs_locked()
+
+    def _release_graphs_locked(self) -> None:
+        self._decode_graphs.clear()
+        self._graph_pool = None
+
+    # -- multi-LoRA -----------------------------------------------------------
+    def register_lora(self, name: str, adapters: Dict[str, tuple],
+                      scale: float = 1.0) -> None:
+        """Register a LoRA adapter for multi-LoRA serving.
+
+        adapters: {proj: (A, B)} for proj in wq/wk/wv/wo, A shaped
+        (L, in_dim, r) and B (L, r, out_dim) (numpy, or CPU tensors); `scale`
+        multiplies A. Requests select it by Request(lora=name); slots of
+        one tick may run different adapters. Validation happens on a
+        copy: a bad registration leaves the prior state as it was.
+        Re-registration refreshes the device slot state, so requests in
+        flight keep their adapter."""
+        self.register_loras({name: adapters}, scale=scale)
+
+    def register_loras(self, mapping: Dict[str, Dict[str, tuple]],
+                       scale: float = 1.0) -> None:
+        """Bulk form: every adapter staged, the stacks written once.
+        Under the step lock: the server registers from executor threads
+        while the pump steps."""
+        with self._step_lock:
+            self._register_loras_locked(mapping, scale)
+            self._publish_counters_locked()
+
+    def lora_adapters(self) -> List[str]:
+        """Registered adapter names, sorted (lock-free: a tuple replaced
+        whole at registration)."""
+        return list(self._lora_published)
+
+    def _register_loras_locked(self, mapping: Dict[str, Dict[str, tuple]],
+                               scale: float) -> None:
+        valid = set(LORA_PROJS)
+        new_raw = dict(self._lora_raw)
+        for name, adapters in mapping.items():
+            if not adapters or set(adapters) - valid:
+                raise ValueError(
+                    f"adapters must map a subset of {sorted(valid)}")
+            new_raw[name] = {
+                k: (np.asarray(a, np.float32) * scale,
+                    np.asarray(b, np.float32))
+                for k, (a, b) in adapters.items()}
+        if len(new_raw) > self.config.max_loras:
+            raise ValueError(
+                f"at most max_loras={self.config.max_loras} adapters")
+        names: Dict[Optional[str], int] = {None: 0}
+        for i, n in enumerate(sorted(new_raw), start=1):
+            names[n] = i
+        # all four projections get stacks (zero rank-1 stubs where no
+        # adapter uses one); the adapters of one projection share one
+        # stack, so they agree on shapes
+        cfg = self.model_cfg
+        in_dims = {"wq": cfg.hidden, "wk": cfg.hidden, "wv": cfg.hidden,
+                   "wo": cfg.q_dim}
+        out_dims = {"wq": cfg.q_dim, "wk": cfg.kv_dim, "wv": cfg.kv_dim,
+                    "wo": cfg.hidden}
+        n_slots = self.config.max_loras + 1
+        host: Dict[str, Tuple[np.ndarray, np.ndarray, int]] = {}
+        for p in LORA_PROJS:
+            shapes_a = {ad[p][0].shape for ad in new_raw.values()
+                        if p in ad}
+            shapes_b = {ad[p][1].shape for ad in new_raw.values()
+                        if p in ad}
+            if len(shapes_a) > 1 or len(shapes_b) > 1:
+                raise ValueError(
+                    f"adapters disagree on {p} shapes: "
+                    f"{sorted(shapes_a)} / {sorted(shapes_b)}")
+            if shapes_a:
+                sa, sb = next(iter(shapes_a)), next(iter(shapes_b))
+            else:
+                sa = (cfg.n_layers, in_dims[p], 1)
+                sb = (cfg.n_layers, 1, out_dims[p])
+            r = sa[-1]
+            if (len(sa) != 3 or len(sb) != 3
+                    or sa[:2] != (cfg.n_layers, in_dims[p])
+                    or sb != (cfg.n_layers, r, out_dims[p])):
+                raise ValueError(
+                    f"{p} adapter shapes {sa} / {sb} do not fit the "
+                    f"model: want (L={cfg.n_layers}, {in_dims[p]}, r) / "
+                    f"(L, r, {out_dims[p]})")
+            a_stack = np.zeros((cfg.n_layers, n_slots) + sa[1:], np.float32)
+            b_stack = np.zeros((cfg.n_layers, n_slots) + sb[1:], np.float32)
+            for nm, idx in names.items():
+                if nm is None or p not in new_raw[nm]:
+                    continue
+                a_stack[:, idx], b_stack[:, idx] = new_raw[nm][p]
+            a_cat, b_cat = lora_cat(a_stack, b_stack)
+            host[p] = (a_cat, b_cat, r)
+        # commit only after everything validated and built; the refresh
+        # below folds any tick in flight before the slot rows change
+        stacks = self._lora_stacks
+        if stacks is None or any(stacks[p]["r"] != host[p][2]
+                                 for p in LORA_PROJS):
+            # the first registration, or a projection's rank changed: new
+            # stacks (new shapes and addresses) are the counterpart of the
+            # reference's retrace; the decode graphs captured the old
+            # ones
+            dt = self.model_cfg.dtype
+            self._count_upload("lora stacks")
+            self._lora_stacks = {
+                p: {"a": torch.from_numpy(a).to(self.device, dt),
+                    "b": torch.from_numpy(b).to(self.device, dt), "r": r}
+                for p, (a, b, r) in host.items()}
+            self._lora_gen += 1
+            self.compiles += 1
+            self._release_graphs_locked()
+            if self.device.type == "cuda":
+                self._note_allocator()   # counted here, not at a tick
+        else:
+            for p, (a, b, _) in host.items():
+                self._fill(stacks[p]["a"], a, "lora stacks")
+                self._fill(stacks[p]["b"], b, "lora stacks")
+        self._lora_raw = new_raw
+        self._lora_names = names
+        self._lora_published = tuple(sorted(new_raw))
+        self.telemetry.recorder.record(
+            "lora_registration", adapters=sorted(new_raw))
+        # slots may have moved: requests in flight keep their adapter
+        self._refresh_device_state()
+
+    def _lora_stack_bytes_locked(self) -> int:
+        """Device bytes of the adapter stacks (0 before a registration)."""
+        if self._lora_stacks is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for st in self._lora_stacks.values()
+                   for t in (st["a"], st["b"]))
 
     def _lane_counts_locked(self) -> Dict[str, int]:
         """Batch-lane occupancy: queued, active and parked priority-0
@@ -1012,6 +1257,9 @@ class InferenceEngine:
             "drains": self._drains,
             "graph_captures": self.graph_captures,
             "compiles": self.compiles,
+            "multi_rounds": self.multi_rounds,
+            "lora_adapters": sorted(self._lora_raw),
+            "lora_stack_bytes": self._lora_stack_bytes_locked(),
             "chips": self.n_chips,
             "lanes": self._lane_counts_locked(),
             "tick_times": self._tick_times_summary(),
@@ -1142,6 +1390,8 @@ class InferenceEngine:
         fields = {("anomaly_kind" if k == "kind" else k): v
                   for k, v in ev.items()
                   if k not in ("arm_profile", "dump")}
+        # first-use evidence (allocator deltas, new product shapes)
+        fields.update(self._tick_first_use)
         self.telemetry.recorder.record("tick_anomaly", **fields)
         if ev.get("arm_profile") and self.anomaly is not None:
             self._arm_profile_locked(self.anomaly.config.profile_ticks)
@@ -1439,11 +1689,13 @@ class InferenceEngine:
         if self.config.kv_watermark_tokens is None:
             return
         page = self.allocator.page_size
+        k = int(self.config.decode_steps_per_call)
         # headroom past the host position: the next dispatch writes at
-        # s.position, the fold keeps one more row for the in-flight
-        # successor's write, and with async_readback the host position
-        # lags the device by the tick in flight, so growth triggers one
-        # tick early or the fold's assert trips
+        # s.position (min(k, remaining) tokens for a multi-step round),
+        # the fold keeps one more row for the in-flight successor's
+        # write, and with async_readback the host position lags the
+        # device by the tick in flight, so growth triggers one tick
+        # early or the fold's assert trips
         slack = 2 if self.config.async_readback else 1
 
         def targets(s):
@@ -1454,7 +1706,7 @@ class InferenceEngine:
             rem = max(s.request.params.max_tokens
                       - len(s.request.output_tokens), 1)
             final = s.position + rem + 1
-            return min(s.position + 1 + slack, final), final
+            return min(s.position + min(k, rem) + slack, final), final
 
         def short(s):
             if s.request is None or not s.ready:
@@ -1530,7 +1782,8 @@ class InferenceEngine:
                 # queue that the head does not outrank still restores
                 continue
             req = parked.request
-            shared, _ = self.allocator.match_prefix(req.prompt_tokens)
+            shared, _ = self.allocator.match_prefix(req.prompt_tokens,
+                                                    req.lora)
             need = self.allocator.pages_needed(
                 self._restore_reserve(parked)) - len(shared)
             if need > self.allocator.free_pages:
@@ -1558,7 +1811,8 @@ class InferenceEngine:
             # prefilled
             self.allocator.register_prefix(
                 req.prompt_tokens,
-                pages[:len(req.prompt_tokens) // self.allocator.page_size])
+                pages[:len(req.prompt_tokens) // self.allocator.page_size],
+                req.lora)
             self._set_table(slot)
             req.restarts += 1
             self.telemetry.on_restored(req, pages=parked.n_pages,
@@ -1581,7 +1835,7 @@ class InferenceEngine:
         if parked is None:
             return False
         need = self.allocator.pages_needed(self._restore_reserve(parked))
-        if self.allocator.enable_prefix_caching:
+        if self.allocator.shares(parked.request.lora):
             need -= ((len(parked.request.prompt_tokens) - 1)
                      // self.allocator.page_size)
         return need <= self.allocator.free_pages
@@ -1780,10 +2034,13 @@ class InferenceEngine:
             return req
 
     def _import_session_locked(self, state: Dict[str, Any]) -> Request:
-        if state.get("lora") is not None:
+        lora = state.get("lora")
+        if lora is not None and lora not in self._lora_names:
+            # both paths: the reference checks only the cold one, and
+            # restores a warm session onto the base weights
             raise ValueError(
-                f"session names LoRA adapter {state['lora']!r}: this "
-                f"engine serves no adapters")
+                f"unknown LoRA adapter {lora!r} "
+                f"(registered: {sorted(self._lora_raw)})")
         params = dict(state.get("params") or {})
         if params.get("stop_token_ids") is not None:
             params["stop_token_ids"] = tuple(params["stop_token_ids"])
@@ -1793,6 +2050,7 @@ class InferenceEngine:
         req = Request(str(state["request_id"]),
                       [int(t) for t in state["prompt_tokens"]],
                       SamplingParams(**params),
+                      lora=lora,
                       trace=state.get("trace"),
                       priority=int(state.get("priority") or 0),
                       tenant=str(state.get("tenant") or ""),
@@ -1998,7 +2256,7 @@ class InferenceEngine:
         req = self.waiting[0]
         need = self.allocator.pages_needed(self._reserve_tokens(
             len(req.prompt_tokens), req.params.max_tokens))
-        if self.allocator.enable_prefix_caching:
+        if self.allocator.shares(req.lora):
             need -= (len(req.prompt_tokens) - 1) // self.allocator.page_size
         return need <= self.allocator.free_pages
 
@@ -2089,15 +2347,19 @@ class InferenceEngine:
                 break
             reserve = self._reserve_tokens(len(req.prompt_tokens),
                                            req.params.max_tokens)
-            shared, matched = self.allocator.match_prefix(req.prompt_tokens)
+            shared, matched = self.allocator.match_prefix(req.prompt_tokens,
+                                                          req.lora)
             need = self.allocator.pages_needed(reserve) - len(shared)
             if need > self.allocator.free_pages:
                 self.allocator.free(shared)   # undo the match refs
                 break                         # head-of-line admission
             self.waiting.pop(0)
             if req.restarts == 0:
-                # a requeued victim counts once
-                self.allocator.record_match(matched, len(req.prompt_tokens))
+                # a requeued victim counts once; a request that bypasses
+                # the cache made no lookup
+                if self.allocator.shares(req.lora):
+                    self.allocator.record_match(matched,
+                                                len(req.prompt_tokens))
                 self.telemetry.on_admitted(req, cached_tokens=matched)
                 if self.attrib is not None:
                     self.attrib.note_queue(
@@ -2254,8 +2516,8 @@ class InferenceEngine:
         B = self.config.max_batch_size
         total = sum(n for _, n, _ in plan)
         T = self._token_bucket(total)
-        # rows: tokens / slot_ids / positions / valid
-        tok_meta = np.zeros((4, T), np.int32)
+        # rows: tokens / slot_ids / positions / valid / LoRA slot
+        tok_meta = np.zeros((5, T), np.int32)
         # rows: start / last_idx / emit / index of the sampled token
         slot_meta = np.zeros((4, B), np.int32)
         max_start = 0
@@ -2272,6 +2534,7 @@ class InferenceEngine:
             tok_meta[1, cur:cur + n] = s.index
             tok_meta[2, cur:cur + n] = np.arange(pos0, pos0 + n)
             tok_meta[3, cur:cur + n] = 1
+            tok_meta[4, cur:cur + n] = self._lora_names.get(req.lora, 0)
             slot_meta[0, s.index] = pos0
             slot_meta[1, s.index] = cur + n - 1
             slot_meta[2, s.index] = ((not is_pref)
@@ -2287,13 +2550,19 @@ class InferenceEngine:
         valid = tm[3] != 0
         start, last_idx, emit = sm[0], sm[1], sm[2] != 0
         ctx = self._ctx_bucket(max_start)
-        bucket = (T, ctx, self._all_greedy)
+        bucket = (T, ctx, self._all_greedy, self._lora_gen)
         if bucket not in self._ragged_buckets:
             # the JAX engine builds one program per bucket; here the
             # first tick of a bucket sets up the kernel's launch
             # attributes and plans
             self._ragged_buckets.add(bucket)
             self.compiles += 1
+        # the tick's products run at (T, widths, the stacks' ranks):
+        # whether this process has run them before (first-use evidence)
+        gemm = (T, self.model_cfg.hidden, str(self.model_cfg.dtype),
+                self._lora_ranks())
+        self._tick_first_use["new_gemm_shapes"] = gemm not in _GEMM_SHAPES
+        _GEMM_SHAPES.add(gemm)
         # no slot segment outgrows the chunk cap
         max_seg = min(T, max(self.config.max_prefill_tokens, 1))
         self.dispatches += 1
@@ -2302,6 +2571,8 @@ class InferenceEngine:
             self.model_cfg, self.params, tokens, slot_ids, positions, valid,
             start, last_idx, self.k_pages, self.v_pages, self._d_tables,
             ctx_pages=ctx, impl=self.impl, max_seg_len=max_seg,
+            lora=self._lora_stacks,
+            lora_idx=tm[4] if self._lora_stacks is not None else None,
             **self._kv_args())[0]
         if self._all_greedy:
             toks = _sample(logits, self._d_temps, self._d_top_ps,
@@ -2343,16 +2614,19 @@ class InferenceEngine:
         # the host's; the seen rows did
         self._state_stale = True
 
-    def _decode_body(self, all_greedy: bool) -> torch.Tensor:
-        """One pure-decode tick on the static device state: the forward
-        and KV write, sampling, the seen update, and the feedback of
-        tokens and positions for the next tick. Returns the (B,) int32
-        tokens. This is what a decode graph captures."""
-        active = self._d_active != 0
+    def _decode_once(self, all_greedy: bool,
+                     active: torch.Tensor) -> torch.Tensor:
+        """One decode step on the static device state for the slots in
+        `active`: the forward and KV write, sampling, the seen update,
+        and the feedback of tokens and positions. Returns the (B,) int32
+        tokens."""
+        lora = self._lora_stacks
         logits = decode_step(
             self.model_cfg, self.params, self._d_tokens, self._d_positions,
             self.k_pages, self.v_pages, self._d_tables, active,
-            impl=self.impl, **self._kv_args())[0]
+            impl=self.impl, lora=lora,
+            lora_idx=self._d_lora if lora is not None else None,
+            **self._kv_args())[0]
         if all_greedy:
             new = _sample(logits, self._d_temps, self._d_top_ps,
                           all_greedy=True)
@@ -2366,8 +2640,21 @@ class InferenceEngine:
                           gumbel=noise)
             self._d_seen[self._d_rows, new.long()] |= active
         self._d_tokens.copy_(new)
-        self._d_positions.add_(self._d_active)
+        self._d_positions.add_(active)
         return new
+
+    def _decode_body(self, all_greedy: bool, k: int) -> torch.Tensor:
+        """One pure-decode tick (k == 1: the (B,) tokens) or one
+        multi-step round (k > 1: the (k, B) tokens, sub-step i run for
+        the active slots whose budget, end - positions at the round's
+        start, exceeds i). This is what a decode graph captures."""
+        active = self._d_active != 0
+        if k == 1:
+            return self._decode_once(all_greedy, active)
+        budget = self._d_end - self._d_positions
+        return torch.stack([self._decode_once(all_greedy,
+                                              active & (budget > i))
+                            for i in range(k)])
 
     @contextlib.contextmanager
     def _capturing(self):
@@ -2380,23 +2667,44 @@ class InferenceEngine:
         with self._sync_allowed():
             yield
 
-    def _decode_graph(self) -> DecodeGraph:
-        key = self._all_greedy
+    def _decode_graph(self, k: int = 1) -> DecodeGraph:
+        """The decode program of (sampling mode, stacks present, k); an
+        engine that never registers an adapter keeps k=1's one graph a
+        sampling mode."""
+        key = (self._all_greedy, self._lora_stacks is not None, k)
         graph = self._decode_graphs.get(key)
         if graph is None:
             if self._capture_graphs and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             graph = DecodeGraph(
-                functools.partial(self._decode_body, key),
+                functools.partial(self._decode_body, key[0], k),
                 self._capture_graphs, self._graph_pool, self._capturing)
             self._decode_graphs[key] = graph
+        self._tick_eager = graph.graph is None
         return graph
+
+    def _multi_ok(self) -> bool:
+        """Multi-step rounds only while nothing waits or prefills: a
+        prompt advancing needs the one-step cadence."""
+        if self.waiting:
+            return False
+        return not any(s.request is not None and not s.ready
+                       for s in self.slots)
 
     def _decode(self, touched: List[Request]) -> None:
         """One pure-decode tick over every decoding slot: one graph
         replay, then the copy of its tokens to the host; with
         async_readback the previous tick folds now and this one on the
-        next step."""
+        next step. With decode_steps_per_call > 1 and nothing waiting or
+        prefilling, a multi-step round instead."""
+        if self.config.decode_steps_per_call > 1 and self._multi_ok():
+            # a round reads host budgets: the tick in flight lands first
+            self._drain(touched)
+            if self._state_stale:
+                self._refresh_device_state()
+            if self._host_active.any():
+                self._multi_decode(touched)
+            return
         if self._state_stale:
             self._refresh_device_state()
         self.dispatches += 1
@@ -2420,6 +2728,65 @@ class InferenceEngine:
             self._drains += 1
             self.telemetry.on_drain("retirement")
             self._fold_inflight(rec, touched, lagged=False)
+
+    def _multi_decode(self, touched: List[Request]) -> None:
+        """One multi-step round: one graph replay of K decode steps, one
+        (K, B) readback, and every row folded in order before any device
+        state refresh (EOS or max_tokens cut a slot mid-round; its later
+        rows are discarded). Retirement marks the state stale: the next
+        tick refreshes it."""
+        K = int(self.config.decode_steps_per_call)
+        budget = np.zeros(len(self.slots), np.int64)
+        for s in self.slots:
+            if s.request is not None and s.ready:
+                budget[s.index] = (s.request.params.max_tokens
+                                   - len(s.request.output_tokens))
+        self.dispatches += 1
+        self.multi_rounds += 1
+        toks = self._decode_graph(K)()
+        buf, done = self._host_round, self._round_event
+        buf.copy_(toks, non_blocking=done is not None)
+        if done is not None:
+            done.record()
+        self._account_multi(budget, K)
+        toks_host = self._read_tokens(buf, done)
+        t_h = time.perf_counter()
+        active = self._host_active.copy()
+        for i in range(K):
+            for s in self.slots:
+                if s.request is None or not active[s.index] \
+                        or budget[s.index] <= i:
+                    continue
+                s.position += 1
+                tok = int(toks_host[i, s.index])
+                s.last_token = tok
+                self._append_token(s, tok, touched)
+        self._tick_host_s += time.perf_counter() - t_h
+
+    def _account_multi(self, budget: np.ndarray, k: int) -> None:
+        """A multi-step round: each active slot advances min(budget, K)
+        tokens, the weights stream K times (the reference's
+        "multi_decode" charge)."""
+        if self.perf is None:
+            return
+        cm = self.perf.model
+        tot: Dict[str, float] = {}
+        ndec = 0
+        for s in self.slots:
+            if s.request is None or not self._host_active[s.index]:
+                continue
+            rows = min(int(budget[s.index]), k)
+            sc: Dict[str, float] = {}
+            for j in range(rows):
+                _merge_cost(sc, cm.decode_cost(s.position + 1 + j))
+            _merge_cost(tot, sc)
+            if self.attrib is not None and rows:
+                self.attrib.charge(s.request, sc, decode_tokens=rows,
+                                   pages=len(s.pages))
+            ndec += rows
+        if ndec:
+            self.perf.add("multi_decode", tot, decode_tokens=ndec,
+                          weight_reads=k)
 
     def _drain(self, touched: List[Request]) -> None:
         """Pipeline barrier: fold the in-flight tick, if any, into host
@@ -2470,7 +2837,8 @@ class InferenceEngine:
         req = slot.request
         n = len(req.prompt_tokens)
         self.allocator.register_prefix(
-            req.prompt_tokens, slot.pages[:n // self.allocator.page_size])
+            req.prompt_tokens, slot.pages[:n // self.allocator.page_size],
+            req.lora)
         slot.prefill_pos = n
         slot.position = n
         slot.ready = True

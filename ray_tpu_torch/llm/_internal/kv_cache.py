@@ -18,6 +18,12 @@ refcounted; only FULL pages are ever shared, so the write path (decode
 scatters, partial-page prefill) always lands in private pages and no
 copy-on-write is needed. Cached-but-unreferenced pages stay resident
 and are evicted LRU only under allocation pressure.
+
+A request under a LoRA adapter bypasses the cache (``lora`` not None:
+no match, no registration): an adapter changes the residual stream and
+so the K/V of every later layer, which the token chain does not key.
+The JAX allocator keys on tokens alone and shares such pages; this is a
+recorded departure.
 """
 
 from __future__ import annotations
@@ -95,15 +101,20 @@ class PageAllocator:
             keys.append(parent)
         return keys
 
-    def match_prefix(self, prompt_tokens: Sequence[int]
-                     ) -> Tuple[List[int], int]:
+    def shares(self, lora: Optional[str] = None) -> bool:
+        """Whether a request under `lora` matches and registers pages."""
+        return self.enable_prefix_caching and lora is None
+
+    def match_prefix(self, prompt_tokens: Sequence[int],
+                     lora: Optional[str] = None) -> Tuple[List[int], int]:
         """Longest cached chain of full prompt pages.
 
         Returns (shared page ids with a reference taken, matched token
         count). Matching is capped one token short of the full prompt so
         the final prompt token is always recomputed — its logits seed
-        the first sampled token (vLLM does the same)."""
-        if not self.enable_prefix_caching:
+        the first sampled token (vLLM does the same). A request under an
+        adapter matches nothing."""
+        if not self.shares(lora):
             return [], 0
         matchable = prompt_tokens[:max(len(prompt_tokens) - 1, 0)]
         pages: List[int] = []
@@ -138,11 +149,13 @@ class PageAllocator:
         self.cache_query_tokens += prompt_len
 
     def register_prefix(self, prompt_tokens: Sequence[int],
-                        pages: Sequence[int]) -> None:
+                        pages: Sequence[int],
+                        lora: Optional[str] = None) -> None:
         """Offer a prefilled prompt's full pages to the cache. Pages
         already cached under the same chain are skipped (the earlier
-        copy wins); newly cached pages gain the cache's reference."""
-        if not self.enable_prefix_caching:
+        copy wins); newly cached pages gain the cache's reference. Pages
+        computed under an adapter are never offered."""
+        if not self.shares(lora):
             return
         keys = self._chain_keys(prompt_tokens)
         for key, page in zip(keys, pages):

@@ -15,9 +15,10 @@ example with ``asyncio.run``).
 The server pumps engine.step() on a background asyncio task (each step
 on an executor thread); each request registers an asyncio.Queue that
 tokens stream into, so concurrent requests share the continuously
-batched decode loop. The engine serves no LoRA adapters: a body whose
-`model` names one is refused as the JAX server refuses an unknown
-adapter.
+batched decode loop. LoRA multiplexing as in the JAX server: the
+config's `lora_adapters` register at construction, `register_lora`
+adds one live, and a body whose `model` names an adapter runs on the
+base model plus that adapter (an unknown name is an error).
 """
 
 from __future__ import annotations
@@ -68,11 +69,12 @@ class LLMServerImpl:
         self.tokenizer = load_tokenizer(
             self._config.get("tokenizer_source"),
             vocab_size=self.engine.model_cfg.vocab_size)
-        # the engine serves no LoRA adapters: a config declaring some
-        # is refused as a request naming one is
-        adapters = sorted(self._config.get("lora_adapters") or {})
-        if adapters:
-            raise self._no_adapter(adapters[0])
+        # LoRA adapters declared in the config load at construction
+        # (one registration for all of them); more can be added live
+        # through register_lora
+        if self._config.get("lora_adapters"):
+            self.engine.register_loras(
+                dict(self._config["lora_adapters"]))
         self._queues: Dict[str, asyncio.Queue] = {}
         self._pump: Optional[asyncio.Task] = None
         self._wake: Optional[asyncio.Event] = None
@@ -251,20 +253,17 @@ class LLMServerImpl:
                 self._abort_off_loop(rid)
 
     def _lora_for(self, body: Dict[str, Any]) -> "str | None":
-        """The body's `model` must be this server's model: the JAX
-        server routes model=<adapter name> onto that adapter, and this
-        engine serves none, so any other name is an unknown adapter
-        (an ERROR, never a silent base-model fallback)."""
+        """LoRA multiplexing the vLLM way: model=<adapter name> routes
+        onto the base model plus that adapter. An unknown model name is
+        an ERROR, never a silent base-model fallback."""
         model = body.get("model")
         if not model or model == self.model_id:
             return None
-        raise self._no_adapter(model)
-
-    def _no_adapter(self, name: str) -> ValueError:
-        """The JAX server's error for an unknown adapter, with the empty
-        adapter list this engine serves."""
-        return ValueError(f"unknown model {name!r} (base: "
-                          f"{self.model_id!r}, adapters: [])")
+        adapters = self.engine.lora_adapters()
+        if model in adapters:
+            return model
+        raise ValueError(f"unknown model {model!r} (base: "
+                         f"{self.model_id!r}, adapters: {adapters})")
 
     def _sampling(self, body: Dict[str, Any]) -> SamplingParams:
         eos = getattr(self.tokenizer, "eos_id",
@@ -718,14 +717,16 @@ class LLMServerImpl:
             None, self.engine.stats)
         return {"id": self.model_id, "object": "model",
                 "owned_by": "ray_tpu_torch",
-                "adapters": [],
+                "adapters": self.engine.lora_adapters(),
                 "engine": stats}
 
     async def register_lora(self, name: str,
                             adapters: Dict[str, Any]) -> list:
-        """Live adapter registration: refused, as a request naming an
-        adapter is (this engine serves none)."""
-        raise self._no_adapter(name)
+        """Live adapter registration (off the event loop: registration
+        serializes against step). Returns the sorted adapter names."""
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.engine.register_lora, name, adapters)
+        return self.engine.lora_adapters()
 
     # -- observability ----------------------------------------------------
     async def metrics_text(self) -> str:

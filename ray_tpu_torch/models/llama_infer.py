@@ -13,13 +13,23 @@ impl dequantizes what it gathers, the kernel impl hands each layer's
 scale pools to the kernels (which fuse the dequant into their page
 loads), and the write side quantizes the tick's KV at append.
 
-Not here yet: tensor parallelism, LoRA.
+Multi-LoRA: ``lora`` holds each projection's adapter stacks in the
+concatenated layout ``{"a": (L, in, S*r), "b": (L, S*r, out), "r": r}``
+(S = max_loras + 1 slots, slot 0 the zero adapter), and ``lora_idx``
+the slot of each row: one per token in ``ragged_forward``, one per
+batch slot in ``decode_step``. ``wq``/``wk``/``wv``/``wo`` add the
+delta ``((y @ A) * mask(idx)) @ B`` (``lora_delta``), the sum of
+products the reference's gather-and-einsum form (``lora_delta_plain``)
+computes, without a gathered ``(rows, in, r)`` copy of the stacks.
+
+Not here yet: tensor parallelism.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,24 +59,124 @@ def _rope_single(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _proj(y: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+LORA_PROJS = ("wq", "wk", "wv", "wo")
+
+
+def lora_mask(idx: torch.Tensor, r: int, n_cols: int) -> torch.Tensor:
+    """(rows, S*r) bool: the r columns of each row's own adapter slot.
+    Built on the device from idx (no host sync, a static shape)."""
+    cols = torch.arange(n_cols, device=idx.device) // r
+    return idx.long()[:, None] == cols[None, :]
+
+
+def lora_delta(y: torch.Tensor, stack: Dict[str, Any], idx: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row low-rank delta for one projection at one layer.
+
+    y: (N, in) or (N, S, in) activations; stack: this layer's slice of
+    the concatenated stacks {"a": (in, S*r), "b": (S*r, out), "r": r};
+    idx: (N,) adapter slot per row (0: the zero adapter, an exact
+    no-op); mask: lora_mask(idx, r, S*r) when the caller shares one
+    across layers. The middle product is in y's dtype (rounded before
+    the second product, as in the reference); other slots' columns are
+    masked to exact zeros, so the sum is the reference's."""
+    if mask is None:
+        mask = lora_mask(idx, stack["r"], stack["a"].shape[-1])
+    return _lora_mid(y, stack["a"], mask) @ stack["b"]
+
+
+def _lora_mid(y: torch.Tensor, a: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """(y @ A) with every column outside the row's slot zeroed."""
+    mid = y @ a
+    if mask.dtype != mid.dtype:
+        mask = mask.to(mid.dtype)
+    if y.dim() == 3:
+        mask = mask[:, None, :]
+    return mid * mask
+
+
+def lora_delta_plain(y: torch.Tensor, a_stack: torch.Tensor,
+                     b_stack: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """The reference's form (``lora_delta`` in
+    ``ray_tpu/models/llama_infer.py``): gather each row's adapter,
+    then two rank-r products. a_stack: (S, in, r); b_stack: (S, r,
+    out)."""
+    a = a_stack[idx.long()]          # (N, in, r)
+    b = b_stack[idx.long()]          # (N, r, out)
+    if y.dim() == 2:
+        mid = torch.einsum("bh,bhr->br", y, a)
+        return torch.einsum("br,bro->bo", mid, b)
+    mid = torch.einsum("bsh,bhr->bsr", y, a)
+    return torch.einsum("bsr,bro->bso", mid, b)
+
+
+def lora_cat(a_stack: np.ndarray, b_stack: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather-layout stacks (L, S, in, r) / (L, S, r, out) -> the
+    concatenated layout (L, in, S*r) / (L, S*r, out)."""
+    L, S, h, r = a_stack.shape
+    return (a_stack.transpose(0, 2, 1, 3).reshape(L, h, S * r),
+            b_stack.reshape(L, S * r, -1))
+
+
+def _lora_layer(lora: Optional[Dict[str, Any]], i: int, masks):
+    """Layer i's slice of the stacks, each with its shared mask."""
+    if lora is None:
+        return None
+    return {p: {"a": st["a"][i], "b": st["b"][i], "r": st["r"],
+                "mask": masks[st["r"]]} for p, st in lora.items()}
+
+
+def _lora_masks(lora: Optional[Dict[str, Any]], idx, dt
+                ) -> Dict[int, Any]:
+    """One mask per distinct rank, in the compute dtype, shared by every
+    layer of a forward."""
+    if lora is None:
+        return {}
+    if idx is None:
+        raise ValueError("lora stacks need lora_idx")
+    return {st["r"]: lora_mask(idx, st["r"], st["a"].shape[-1]).to(dt)
+            for st in lora.values()}
+
+
+def _proj(y: torch.Tensor, w: torch.Tensor, dt,
+          lora_l: Optional[Dict[str, Any]] = None,
+          key: str = "") -> torch.Tensor:
     """y @ w in the compute dtype (weights are already stored in it by
-    ``weights.params_from_numpy``; the cast is then a no-op)."""
-    return y @ w.to(dt)
+    ``weights.params_from_numpy``; the cast is then a no-op), plus the
+    rows' adapter delta for projection `key` when stacks are given: the
+    masked middle product (rounded to the compute dtype, as in the
+    reference), then its product with B accumulated onto y @ w in place,
+    one launch (``addmm_``: the sum rounds once where the reference
+    rounds the delta and then the sum; the zero adapter stays an exact
+    no-op)."""
+    out = y @ w.to(dt)
+    if lora_l is not None and key in lora_l:
+        st = lora_l[key]
+        out.addmm_(_lora_mid(y, st["a"], st["mask"]), st["b"])
+    return out
 
 
 def _layer_body(cfg: LlamaConfig, dt, x, layer: Dict[str, torch.Tensor],
-                lead: int, rope_fn, attn_fn):
+                lead: int, rope_fn, attn_fn, lora_l=None):
     """ONE transformer layer, shared by the ragged and decode paths.
-    Returns (x, (k, v)) with k/v rope'd, ready for the KV scatter."""
+    Returns (x, (k, v)) with k/v rope'd, ready for the KV scatter.
+    lora_l: this layer's adapter stacks with the rows' slot masks
+    (``_lora_layer``)."""
     y = rms_norm(x, layer["ln1"], cfg.norm_eps)
-    q = _proj(y, layer["wq"], dt).reshape(lead, cfg.n_heads, cfg.head_dim)
-    k = _proj(y, layer["wk"], dt).reshape(lead, cfg.n_kv_heads, cfg.head_dim)
-    v = _proj(y, layer["wv"], dt).reshape(lead, cfg.n_kv_heads, cfg.head_dim)
+    q = _proj(y, layer["wq"], dt, lora_l, "wq").reshape(
+        lead, cfg.n_heads, cfg.head_dim)
+    k = _proj(y, layer["wk"], dt, lora_l, "wk").reshape(
+        lead, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(y, layer["wv"], dt, lora_l, "wv").reshape(
+        lead, cfg.n_kv_heads, cfg.head_dim)
     q = rope_fn(q)
     k = rope_fn(k)
     attn = attn_fn(q, k, v)
-    x = x + _proj(attn.reshape(lead, cfg.q_dim), layer["wo"], dt)
+    x = x + _proj(attn.reshape(lead, cfg.q_dim), layer["wo"], dt, lora_l,
+                  "wo")
     y = rms_norm(x, layer["ln2"], cfg.norm_eps)
     gate = F.silu(y @ layer["wg"].to(dt))
     up = y @ layer["wi"].to(dt)
@@ -119,7 +229,9 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                    impl: str = "gather", max_seg_len: int = -1,
                    kv_kind: str = "f32",
                    k_scales: Optional[torch.Tensor] = None,
-                   v_scales: Optional[torch.Tensor] = None
+                   v_scales: Optional[torch.Tensor] = None,
+                   lora: Optional[Dict[str, Any]] = None,
+                   lora_idx: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """Unified ragged prefill+decode forward over a flat token batch.
 
@@ -129,11 +241,14 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
     (B, max_pages) int32. Returns (logits (B, V) float32, k_pages,
     v_pages) with every valid token's KV written into the pools IN
     PLACE at its position (invalid rows hit the scratch page); with
-    kv_kind int8/fp8, (logits, k_pages, v_pages, k_scales, v_scales)."""
+    kv_kind int8/fp8, (logits, k_pages, v_pages, k_scales, v_scales).
+    lora: the adapter stacks (module docstring); lora_idx: (T,) int32
+    adapter slot per token."""
     _check_impl(impl)
     quantized = _check_kind(kv_kind, k_scales, v_scales)
     t = tokens.shape[0]
     dt = cfg.dtype
+    masks = _lora_masks(lora, lora_idx, dt)
     x = params["embed"].to(dt)[tokens.long()]             # (T, H)
     cos, sin = rope_frequencies(cfg, positions)
     if impl == "gather":
@@ -168,7 +283,7 @@ def ragged_forward(cfg: LlamaConfig, params: Dict[str, Any],
                     scratch=scratch)
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), t,
                                 lambda a: _rope_single(a, cos, sin),
-                                attn_fn)
+                                attn_fn, _lora_layer(lora, i, masks))
         ks.append(k)
         vs.append(v)
     k_rows = torch.stack(ks, dim=1)                      # (T, L, KVH, D)
@@ -189,7 +304,9 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
                 page_tables: torch.Tensor, active: torch.Tensor,
                 impl: str = "gather", kv_kind: str = "f32",
                 k_scales: Optional[torch.Tensor] = None,
-                v_scales: Optional[torch.Tensor] = None
+                v_scales: Optional[torch.Tensor] = None,
+                lora: Optional[Dict[str, Any]] = None,
+                lora_idx: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ...]:
     """One decode step for the whole running batch.
 
@@ -198,11 +315,14 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
     (logits (B, V) float32, k_pages, v_pages) with the new token's KV
     written IN PLACE; with kv_kind int8/fp8, (logits, k_pages, v_pages,
     k_scales, v_scales). The kernel impl passes the full-width table;
-    the kernel stops at each sequence's own last page."""
+    the kernel stops at each sequence's own last page. lora: the
+    adapter stacks (module docstring); lora_idx: (B,) int32 adapter
+    slot per batch slot."""
     _check_impl(impl)
     quantized = _check_kind(kv_kind, k_scales, v_scales)
     b = tokens.shape[0]
     dt = cfg.dtype
+    masks = _lora_masks(lora, lora_idx, dt)
     x = params["embed"].to(dt)[tokens.long()]             # (B, H)
     cos, sin = rope_frequencies(cfg, positions)
     if impl != "gather":
@@ -230,7 +350,7 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
                     scratch=scratch)
         x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), b,
                                 lambda a: _rope_single(a, cos, sin),
-                                attn_fn)
+                                attn_fn, _lora_layer(lora, i, masks))
         ks.append(k)
         vs.append(v)
     k_rows = torch.stack(ks, dim=1)                      # (B, L, KVH, D)

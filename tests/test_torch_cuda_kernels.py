@@ -992,3 +992,130 @@ def test_graph_engine_oversubscribed_matches_eager(dev, kind):
     assert outs[0][2] >= 1 and outs[0][3] == outs[0][2]
     assert graph.graph_captures >= 1 and eager.graph_captures == 0
     graph.release_graphs()
+
+
+# ------------------------------------------- multi-LoRA and multi-step
+
+def _lora_adapters(cfg, seed=0, r=8):
+    """A strong adapter on all four projections and an all-zero one."""
+    gen = torch.Generator().manual_seed(seed)
+    L, h, q, kv = cfg.n_layers, cfg.hidden, cfg.q_dim, cfg.kv_dim
+    dims = {"wq": (h, q), "wk": (h, kv), "wv": (h, kv), "wo": (q, h)}
+    strong = {p: (torch.randn(L, i, r, generator=gen) * 0.3,
+                  torch.randn(L, r, o, generator=gen) * 0.3)
+              for p, (i, o) in dims.items()}
+    zero = {p: (torch.zeros(L, i, r), torch.zeros(L, r, o))
+            for p, (i, o) in dims.items()}
+    return {"strong": strong, "zero": zero}
+
+
+def _serve_loras(eng, prompts, loras, **sp):
+    from ray_tpu_torch import Request, SamplingParams
+    # one seed: requests on one prompt differ only by their adapter
+    reqs = [Request(f"l{i}", p, SamplingParams(seed=11, **sp), lora=lo)
+            for i, (p, lo) in enumerate(zip(prompts, loras))]
+    _kernels.reset_launch_counts()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+    return [r.output_tokens for r in reqs], _kernels.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8", "fp8"])
+def test_lora_graph_engine_matches_eager_engine(dev, kind):
+    """Adapters on the card: the default engine (decode graphs keyed by
+    stacks present, pipelined readback) against cuda_graph=False and a
+    synchronous eager engine: the same greedy and sampled tokens and
+    launch counts; the zero adapter's tokens bit-equal the base ones;
+    the first registration counts one compile and no capture, a second
+    one of the same ranks neither."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    kw = dict(max_batch_size=4, page_size=16, num_pages=129, seed=3,
+              kv_dtype=kind)
+    eg = InferenceEngine(EngineConfig(**kw))
+    ee = InferenceEngine(EngineConfig(cuda_graph=False, **kw),
+                         params=eg.params)
+    es = InferenceEngine(EngineConfig(cuda_graph=False, async_readback=False,
+                                      **kw), params=eg.params)
+    ads = _lora_adapters(eg.model_cfg)
+    c0, g0 = eg.compiles, eg.graph_captures
+    for e in (eg, ee, es):
+        e.register_loras(ads)
+    assert eg.compiles == c0 + 1 and eg.graph_captures == g0
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (40, 40, 17, 90)]
+    prompts[1] = list(prompts[0])
+    loras = ["zero", None, "strong", "strong"]
+    name = "paged_decode" + ("" if kind == "f32" else f"_{kind}")
+    for sp in (dict(max_tokens=12),
+               dict(max_tokens=12, temperature=0.8, top_p=0.95, top_k=50)):
+        t0 = eg.decode_ticks
+        out_g, n_g = _serve_loras(eg, prompts, loras, **sp)
+        out_e, n_e = _serve_loras(ee, prompts, loras, **sp)
+        assert out_g == out_e == _serve_loras(es, prompts, loras, **sp)[0]
+        assert n_g == n_e
+        assert n_g[name] == eg.model_cfg.n_layers * (eg.decode_ticks - t0)
+        assert out_g[0] == out_g[1]            # zero adapter == base
+    c1, g1 = eg.compiles, eg.graph_captures
+    eg.register_lora("another", ads["zero"])
+    assert (eg.compiles, eg.graph_captures) == (c1, g1)
+    out_g, _ = _serve_loras(eg, prompts, ["another", None, "strong",
+                                          "strong"], max_tokens=12)
+    assert eg.graph_captures == g1 and out_g[0] == out_g[1]
+    eg.release_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8", "fp8"])
+def test_multistep_graph_engine_matches_single_step(dev, kind):
+    """decode_steps_per_call=4 on the card: one graph replay a round,
+    step-exact against K=1 and against the eager round, with adapters;
+    decode launches equal layers x (ticks + 4 x rounds); a steady window
+    of rounds makes no upload and no capture and reads back once a
+    round."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    kw = dict(max_batch_size=4, page_size=16, num_pages=129, seed=3,
+              kv_dtype=kind)
+    e1 = InferenceEngine(EngineConfig(**kw))
+    e4 = InferenceEngine(EngineConfig(decode_steps_per_call=4, **kw),
+                         params=e1.params)
+    ee = InferenceEngine(EngineConfig(decode_steps_per_call=4,
+                                      cuda_graph=False, **kw),
+                         params=e1.params)
+    ads = _lora_adapters(e1.model_cfg)
+    for e in (e1, e4, ee):
+        e.register_loras(ads)
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(2, 250, (n,), generator=gen).tolist()
+               for n in (33, 7, 60, 21)]
+    loras = [None, "strong", "zero", None]
+    name = "paged_decode" + ("" if kind == "f32" else f"_{kind}")
+    for sp in (dict(max_tokens=14),
+               dict(max_tokens=14, temperature=0.8, top_p=0.95, top_k=50)):
+        t0, r0 = e4.decode_ticks, e4.multi_rounds
+        out4, n4 = _serve_loras(e4, prompts, loras, **sp)
+        assert out4 == _serve_loras(e1, prompts, loras, **sp)[0]
+        assert out4 == _serve_loras(ee, prompts, loras, **sp)[0]
+        rounds = e4.multi_rounds - r0
+        assert rounds > 0
+        assert n4[name] == e4.model_cfg.n_layers * (
+            e4.decode_ticks - t0 + 4 * rounds)
+    from ray_tpu_torch import Request, SamplingParams
+    for i, lo in enumerate(loras):
+        e4.add_request(Request(f"s{i}", list(prompts[i]), SamplingParams(
+            max_tokens=120, temperature=0.8, top_k=20), lora=lo))
+    while e4.waiting or any(s.request is not None and not s.ready
+                            for s in e4.slots):
+        e4.step()
+    e4.step()
+    with dispatch_guard(engine=e4) as report:
+        for _ in range(8):
+            e4.step()
+    assert report.uploads == [] and report.captures == []
+    assert report.readbacks == 8
+    e4.release_graphs()
+    e1.release_graphs()

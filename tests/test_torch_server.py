@@ -7,8 +7,8 @@ JAX engine's weights with async_readback=False. The same bodies give the
 same tokens and text through completions, chat and both stream forms;
 stop, max_tokens, seed and deadline_s behave alike; a session exported
 mid-stream by either server continues token-exact in the other; the
-observability surfaces work; an adapter name is refused with the JAX
-server's error.
+observability surfaces work; an unknown adapter name and an empty
+adapter are refused with the JAX server's errors.
 """
 
 import asyncio
@@ -265,9 +265,14 @@ def test_adapter_names_refused_as_jax(servers):
     with pytest.raises(ValueError) as terr:
         asyncio.run(tsrv.completions(dict(body)))
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(ValueError, match="unknown model 'my-adapter'"):
+    # an adapter that maps no projection: the JAX engine's error, live
+    # and from the config
+    with pytest.raises(ValueError) as jerr:
+        asyncio.run(jsrv.register_lora("my-adapter", {}))
+    with pytest.raises(ValueError) as terr:
         asyncio.run(tsrv.register_lora("my-adapter", {}))
-    with pytest.raises(ValueError, match="unknown model 'a1'"):
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="adapters must map a subset"):
         LLMServerImpl({"model_id": "m", "lora_adapters": {"a1": {}},
                        "engine_kwargs": {"device": "cpu"}})
     # the model's own name is served
