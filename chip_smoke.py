@@ -127,6 +127,33 @@ Phases (any failure raises and exits non-zero):
      4 adapter and 2 base completions at once (tokens equal a directly
      driven engine's, or differ at a near tie), a live register_lora,
      an unknown model refused; every flagged tick's first-use evidence;
+  5g. speculative decoding and the legacy step: on the `8b` preset at
+     full width and depth (the bf16 phase's weights, B 8, pages of 16,
+     1025 pages): 8 greedy requests at once (prompts of 14-1535 tokens,
+     64 tokens) through the default engine, then through a speculative
+     engine with (a) a perfect draft (the `8b` preset on the target's own
+     tensors, shared) and (b) a `1b` draft with its own seeded random
+     weights, k 4: tokens equal to the default engine's or, where they
+     first differ, the speculative engine's token within a near tie
+     (phase 5's margin, or two bf16 ulps of the top logit where wider)
+     of the teacher-forced argmax of the gather impl (phase 5's
+     reference); first the same exactly, token for token, at
+     a small size in float32 (the `tiny` preset: a perfect draft, a bf16
+     draft on the pipelined decode kernel, and the legacy step);
+     acceptance, tokens a round, dispatches,
+     catch-up syncs, peak memory; the launch counters (the ragged kernel
+     layers x mixed ticks, the draft's decode kernel draft layers x (k-2)
+     x draft dispatches, all pipelined); a steady round's ms split into
+     draft, verify, sync and host, and ms a token a slot against the
+     default decode tick; (c) the `1b` draft's decode shape (D 64)
+     through kernel #2 against its plain version; (d) a sampled request
+     joining and leaving a perfect-draft engine: decode ticks while it
+     runs, a catch-up sync and rounds after, the greedy stream by the
+     same rule; (e) the legacy step (unified_step=False) on phase 5's six
+     prompts, 16 tokens, against the unified engine (the legacy engine's
+     token judged as in (a)): no
+     ragged launch, decode launches layers x decode ticks, dispatches a
+     tick, the wall of prefill ticks against mixed ticks;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -3364,6 +3391,564 @@ def run_lora(dev, params):
     return out
 
 
+# ------------------------------------ speculative decoding and legacy (5g)
+
+SPEC_K = 4
+SPEC_TOKENS = 64
+LEGACY_TOKENS = 16
+# the 8 requests of (a) and (b): PROMPT_TEXTS indices (14-1535 tokens)
+SPEC_MIX = [4, 4, 5, 5, 0, 1, 2, 3]
+# steady rounds skipped before the medians (first uses)
+SPEC_WARM_ROUNDS = 2
+SPEC_LAUNCHES: dict = {}
+
+
+def spec_prompts():
+    from ray_tpu_torch import ByteTokenizer
+    tok = ByteTokenizer(128256)
+    return [tok.encode(PROMPT_TEXTS[i]) for i in SPEC_MIX]
+
+
+class RoundClock:
+    """Around one engine's drive: the host ms of each speculative draft
+    (`_spec_draft`), verify (the logits_all chunk forward) and catch-up
+    sync (the hidden-emitting chunk forward outside a draft), each
+    between two synchronises (a round reads back after its draft and
+    after its verify anyway), and the draft dispatches."""
+
+    def __init__(self, eng):
+        from ray_tpu_torch.llm._internal import engine as em
+        self.eng, self.em = eng, em
+        self.ms = {"draft": [], "verify": [], "sync": []}
+        self._own_draft = eng._spec_draft
+        self._own_chunk = em.prefill_chunk
+        self._in_draft = False
+
+    def _timed(self, kind, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def __enter__(self):
+        def draft(*a, **k):
+            self._in_draft = True
+            try:
+                return self._timed("draft", self._own_draft, *a, **k)
+            finally:
+                self._in_draft = False
+
+        def chunk(*a, **k):
+            if self._in_draft:
+                return self._own_chunk(*a, **k)
+            kind = "verify" if k.get("emit") == "logits_all" else "sync"
+            return self._timed(kind, self._own_chunk, *a, **k)
+
+        self.eng._spec_draft = draft
+        self.em.prefill_chunk = chunk
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._spec_draft
+        self.em.prefill_chunk = self._own_chunk
+
+    def counts(self):
+        return {k: len(v) for k, v in self.ms.items()}
+
+
+def serve_at_once(eng, prompts, max_tokens, tag, clock=None, **sp):
+    """All requests added at once, then steps to the end: each tick's
+    wall (the step and a synchronise), whether it was a mixed tick, the
+    dispatches it made, the speculative rounds it ran (slot rounds and
+    emitted tokens) and, with a RoundClock, its draft/verify/sync ms."""
+    from ray_tpu_torch import Request, SamplingParams
+    reqs = [Request(f"{tag}{i}", list(p),
+                    SamplingParams(max_tokens=max_tokens, **sp))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    sp_state = eng._spec
+    ticks = []
+    while eng.has_work():
+        active = sum(1 for s in eng.slots if s.request is not None
+                     and s.ready)
+        r0, d0, dt0 = eng.ragged_ticks, eng.dispatches, eng.decode_ticks
+        s0 = (sp_state["rounds"], sp_state["emitted"]) if sp_state else (0, 0)
+        n0 = clock.counts() if clock else {}
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        t = dict(ms=(time.perf_counter() - t0) * 1e3,
+                 mixed=eng.ragged_ticks > r0,
+                 decode=eng.decode_ticks > dt0,
+                 dispatches=eng.dispatches - d0, active=active)
+        if sp_state:
+            t["rounds"] = sp_state["rounds"] - s0[0]
+            t["emitted"] = sp_state["emitted"] - s0[1]
+        if clock:
+            for k, n in clock.counts().items():
+                t[k] = sum(clock.ms[k][n0[k]:n])
+        ticks.append(t)
+    return [r.output_tokens for r in reqs], ticks
+
+
+def round_times(ticks, label):
+    """Medians over the steady speculative rounds (ticks with a round and
+    no mixed work, the first SPEC_WARM_ROUNDS left out): round ms, its
+    draft / verify / sync / host parts, tokens a slot a round and ms a
+    token a slot."""
+    rounds = [t for t in ticks if t.get("rounds") and not t["mixed"]]
+    rounds = rounds[SPEC_WARM_ROUNDS:] or rounds
+    med = lambda key: statistics.median(key(t) for t in rounds)
+    out = dict(
+        n=len(rounds),
+        round_ms=med(lambda t: t["ms"]),
+        draft_ms=med(lambda t: t["draft"]),
+        verify_ms=med(lambda t: t["verify"]),
+        sync_ms=med(lambda t: t["sync"]),
+        host_ms=med(lambda t: t["ms"] - t["draft"] - t["verify"]
+                    - t["sync"]),
+        tokens_a_slot=med(lambda t: t["emitted"] / max(t["active"], 1)),
+        ms_a_token=med(lambda t: t["ms"] / max(t["emitted"] / max(
+            t["active"], 1), 1e-9)))
+    log(f"[spec {label}] {out['n']} steady rounds: round {out['round_ms']:.2f}"
+        f" ms = draft {out['draft_ms']:.2f} + verify "
+        f"{out['verify_ms']:.2f} + sync {out['sync_ms']:.2f} + host "
+        f"{out['host_ms']:.2f} ms (medians); {out['tokens_a_slot']:.2f} "
+        f"tokens a slot a round, {out['ms_a_token']:.2f} ms a token a slot")
+    return out
+
+
+def decode_tick_ms(ticks):
+    """Median wall of the pure decode ticks of a default engine's drive."""
+    dec = [t["ms"] for t in ticks if t["decode"] and not t["mixed"]]
+    return statistics.median(dec[2:] or dec)
+
+
+def spec_counts(eng, label, counts, n_draft, n_mixed, kernels):
+    """A speculative drive's launches: the target's ragged kernel layers
+    x mixed ticks, the draft's decode kernel draft layers x (k-2) x
+    draft dispatches, all on the pipelined route, nothing else but the
+    sampler's noise."""
+    sp = eng._spec
+    want = {"ragged_paged": eng.model_cfg.n_layers * n_mixed,
+            "paged_decode": sp["cfg"].n_layers * (sp["k"] - 2) * n_draft}
+    log(f"[spec {label}] launches {({k: n for k, n in counts.items() if n})}"
+        f" ({n_draft} draft dispatches, {n_mixed} mixed ticks)")
+    for name, n in counts.items():
+        if name != "row_gumbel" and n != want.get(name, 0):
+            raise AssertionError(f"spec {label}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    if min(want.values()) <= 0:
+        raise AssertionError(f"spec {label}: a serving kernel never ran")
+    check_decode_route(kernels, "paged_decode", want["paged_decode"])
+    for k, n in counts.items():
+        SPEC_LAUNCHES[k] = SPEC_LAUNCHES.get(k, 0) + n
+
+
+def bf16_tie(logit):
+    """The near-tie margin at a logit: NEAR_TIE, or two bf16 ulps at the
+    logit's magnitude where that is wider (two bf16 paths' logits are
+    not resolved finer: at logits in [4, 8) two ulps are 0.0625)."""
+    ulp = 2.0 ** (math.floor(math.log2(max(abs(logit), 1e-30))) - 7)
+    return max(NEAR_TIE, 2 * ulp)
+
+
+def judge_streams(eng, teacher, prompts, out, ref_out, label,
+                  names=("spec", "default")):
+    """Phase 5's teacher-logits rule, with the engine under test judged
+    against the plain teacher (the gather impl on the same weights, as
+    phase 5's reference engine): where its greedy stream first leaves
+    the reference engine's, its token must lie within a near tie
+    (`bf16_tie` at the teacher's top logit) of the teacher-forced
+    argmax. The reference engine's token is judged the same way and
+    printed, not required: it is a bf16 path of its own. Returns
+    whether the streams were identical."""
+    nk, nr = names
+    exact = out == ref_out
+    log(f"[engine {label}] {nk} vs {nr} greedy streams identical: {exact}")
+    beyond = []
+    for i, (a, b) in enumerate(zip(out, ref_out)):
+        if a == b:
+            continue
+        j = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+        lg = teacher_logits(teacher, prompts[i] + a[:j])
+        top = lg.topk(2)
+        best = top.values[0].item()
+        short_a = best - lg[a[j]].item()
+        short_b = best - lg[b[j]].item()
+        margin = bf16_tie(best)
+        log(f"[engine {label}] request {i} diverges at output {j}: {nk} "
+            f"token {a[j]} {short_a:.4f} below the {teacher.impl} "
+            f"teacher's top, {nr} token {b[j]} {short_b:.4f} below it; "
+            f"teacher top2 {top.indices.tolist()} "
+            f"{[round(v, 4) for v in top.values.tolist()]} (near-tie "
+            f"margin {margin:.4f})")
+        if short_a > margin:
+            beyond.append(i)
+    if beyond:
+        raise AssertionError(f"{label} requests {beyond}: the {nk} engine's "
+                             f"token is beyond a near tie of the teacher's")
+    return exact
+
+
+def spec_drive(eng, prompts, label, ref_out, teacher):
+    """One speculative engine's drive of the 8 greedy requests: tokens
+    against the default engine's (`judge_streams`), its counters and
+    launches, round times, peak memory."""
+    from ray_tpu_torch.ops import _kernels
+    eng.allocator.clear_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    st0 = eng.stats()
+    with RoundClock(eng) as clock:
+        out, ticks = serve_at_once(eng, prompts, SPEC_TOKENS, f"sp{label}",
+                                   clock=clock)
+    counts = _kernels.launch_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = eng.stats()
+    n_mixed = sum(t["mixed"] for t in ticks)
+    spec_counts(eng, label, counts, len(clock.ms["draft"]), n_mixed,
+                _kernels)
+    exact = judge_streams(eng, teacher, prompts, out, ref_out,
+                          f"spec {label}")
+    for o in out:
+        if len(o) != SPEC_TOKENS:
+            raise AssertionError(f"spec {label}: a stream of {len(o)}")
+    res = dict(exact=exact, spec_rounds=st["spec_rounds"],
+               acceptance=st["spec_acceptance_rate"],
+               tokens_per_round=st["spec_tokens_per_round"],
+               dispatches=st["dispatches"] - st0["dispatches"],
+               ticks=len(ticks), mixed_ticks=n_mixed,
+               draft_dispatches=len(clock.ms["draft"]),
+               syncs=len(clock.ms["sync"]), peak_bytes=peak,
+               launches=counts, compile_cache=st["compile_cache"],
+               rounds=round_times(ticks, label))
+    log(f"[spec {label}] acceptance {res['acceptance']}, tokens a round "
+        f"{res['tokens_per_round']} over {res['spec_rounds']} slot rounds; "
+        f"{res['dispatches']} dispatches in {len(ticks)} ticks "
+        f"({n_mixed} mixed, {res['syncs']} catch-up syncs); peak "
+        f"{peak / 2**30:.3f} GiB above the engines as built; "
+        f"compile cache {st['compile_cache']}")
+    return res
+
+
+def draft_decode_check(eng, gen, dev):
+    """(c) The `1b` draft's decode step shape through kernel #2 (B 8, H
+    32, KVH 8, D 64, pages of 16) on the draft's own layer-0 pools after
+    its drive, at the 8 requests' final lengths, against
+    paged_decode_with_new_token_plain: error, route, times, bound."""
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import paged_attention as pa
+    sp = eng._spec
+    dcfg = sp["cfg"]
+    page = eng.config.page_size
+    lens = [len(p) + SPEC_TOKENS for p in spec_prompts()]
+    maxp = max(-(-n // page) for n in lens) + 1
+    B, H, KVH, D = len(lens), dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    tables = torch.arange(B * maxp, dtype=torch.int32,
+                          device=dev).reshape(B, maxp)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        dcfg.dtype)
+    q, k_new, v_new = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+    args = (q, sp["dk"][0], sp["dv"][0], tables, seq, k_new, v_new)
+    kern = _kernels.PAGED_DECODE_BY_KIND[0]
+    before = dict(kern.routes)
+    out = pa.paged_decode_with_new_token(*args)
+    ref = pa.paged_decode_with_new_token_plain(*args)
+    torch.cuda.synchronize()
+    route = [r for r, n in kern.routes.items() if n != before.get(r, 0)]
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= DECODE_TOL or route != ["pipelined"]:
+        raise AssertionError(f"draft decode (D {D}): error {err} (tol "
+                             f"{DECODE_TOL}), routes {route}")
+    ms = time_ms(lambda: pa.paged_decode_with_new_token(*args))
+    plain_ms = time_ms(lambda: pa.paged_decode_with_new_token_plain(*args),
+                       iters=5)
+    item = q.element_size()
+    keys = sum(lens)
+    nbytes = (2 * keys * KVH * D * item + 2 * B * H * D * item
+              + 2 * B * KVH * D * item + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * H * D * (keys + B), q.dtype)
+    log(f"[spec draft decode] 1b shape B {B}, H {H}, KVH {KVH}, D {D}, "
+        f"lens {lens}: max_abs_err {err:.3e} (tol {DECODE_TOL}), route "
+        f"{route[0]}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, route=route[0])
+
+
+def spec_fallback(eng, ref_out, prompts, teacher):
+    """(d) On the perfect-draft engine: a greedy request runs rounds, a
+    sampled one joins (regular decode ticks) and leaves, the greedy one
+    ends on rounds again after a catch-up sync; its stream against the
+    default engine's for its prompt, by phase 5's rule."""
+    from ray_tpu_torch import Request, SamplingParams
+    eng.allocator.clear_cache()
+    sp = eng._spec
+    greedy = Request("fb-g", list(prompts[2]),
+                     SamplingParams(max_tokens=SPEC_TOKENS))
+    eng.add_request(greedy)
+    for _ in range(4):
+        eng.step()
+    r0 = sp["rounds"]
+    if r0 == 0:
+        raise AssertionError("spec fallback: no round before the join")
+    dt0 = eng.decode_ticks
+    sampler = Request("fb-s", list(prompts[6]),
+                      SamplingParams(max_tokens=16, **SAMPLED))
+    eng.add_request(sampler)
+    while not sampler.finished:
+        eng.step()
+    r1, fallback = sp["rounds"], eng.decode_ticks - dt0
+    with RoundClock(eng) as clock:
+        while not greedy.finished:
+            eng.step()
+    resumed = sp["rounds"] - r1
+    synced = len(clock.ms["sync"])
+    log(f"[spec fallback] {fallback} decode ticks while the sampled "
+        f"request ran, rounds {r0} before, {r1 - r0} during, {resumed} "
+        f"after; catch-up syncs after it left: {synced}")
+    if fallback <= 0 or resumed <= 0 or not synced:
+        raise AssertionError("spec fallback: no decode tick, no resumed "
+                             "round or no catch-up sync")
+    exact = judge_streams(eng, teacher, [prompts[2]],
+                          [greedy.output_tokens], [ref_out[2]],
+                          "spec fallback")
+    return dict(exact=exact, fallback_ticks=fallback, rounds_after=resumed,
+                sampled_tokens=len(sampler.output_tokens))
+
+
+def drive_ticks(eng, prompts, max_tokens, tag):
+    """`drive`'s arrivals (3 requests, then one a step), with a record a
+    tick: its wall (the step and a synchronise), its dispatches, and
+    whether it prefilled (a request waited or a slot was prefilling
+    when it began)."""
+    from ray_tpu_torch import Request, SamplingParams
+    reqs = [Request(f"{tag}{i}", list(p), SamplingParams(
+        max_tokens=max_tokens)) for i, p in enumerate(prompts)]
+    for r in reqs[:3]:
+        eng.add_request(r)
+    pending = reqs[3:]
+    ticks = []
+    while eng.has_work() or pending:
+        pre = bool(eng.waiting) or any(s.request is not None and not s.ready
+                                       for s in eng.slots)
+        d0 = eng.dispatches
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ticks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          dispatches=eng.dispatches - d0, prefill=pre))
+        if pending:
+            eng.add_request(pending.pop(0))
+    return [r.output_tokens for r in reqs], ticks
+
+
+def legacy_counts(eng, counts, routes, decode_ticks):
+    """The legacy drive's launches (and `routes`, the decode launches by
+    route, read right after it): no ragged kernel, the decode kernel
+    layers x decode ticks on the pipelined route, nothing else."""
+    want = {"paged_decode": eng.model_cfg.n_layers * decode_ticks}
+    log(f"[legacy] launches {({k: n for k, n in counts.items() if n})} "
+        f"({decode_ticks} decode ticks), decode routes {routes}")
+    if not decode_ticks or any(n != want.get(k, 0)
+                               for k, n in counts.items()):
+        raise AssertionError(f"legacy launches {counts}, expected {want}")
+    if routes != {"pipelined": want["paged_decode"]}:
+        raise AssertionError(f"legacy decode routes {routes}: the "
+                             f"pipelined kernel must take all of them")
+    for k, n in counts.items():
+        SPEC_LAUNCHES[k] = SPEC_LAUNCHES.get(k, 0) + n
+
+
+def legacy_vs_unified(params, eng_u, teacher):
+    """(e) The legacy step on phase 5's six prompts (16 tokens, 3 at
+    once then one a step) against the default unified engine: tokens by
+    phase 5's rule, launches (no ragged kernel; the decode kernel layers
+    x decode ticks), dispatches a tick, and the wall of the ticks with a
+    prefill (legacy) against the mixed ticks (unified)."""
+    from ray_tpu_torch import ByteTokenizer, EngineConfig, InferenceEngine
+    from ray_tpu_torch.ops import _kernels
+    prompts = [ByteTokenizer(128256).encode(t) for t in PROMPT_TEXTS]
+
+    def run(eng, tag):
+        eng.allocator.clear_cache()
+        _kernels.reset_launch_counts()
+        d0, k0, dt0 = eng.dispatches, eng.ticks, eng.decode_ticks
+        out, ticks = drive_ticks(eng, prompts, LEGACY_TOKENS, tag)
+        return dict(out=out, ticks=ticks, counts=_kernels.launch_counts(),
+                    routes=_kernels.route_counts().get("paged_decode", {}),
+                    dispatches=eng.dispatches - d0, ticks_n=eng.ticks - k0,
+                    decode_ticks=eng.decode_ticks - dt0)
+
+    eng_l = InferenceEngine(EngineConfig(decode_impl="kernel",
+                                         unified_step=False, **ENGINE_KW),
+                            params=params)
+    # each engine's drive twice: the first warms its forwards' shapes
+    run(eng_l, "lw")
+    leg = run(eng_l, "l")
+    run(eng_u, "uw")
+    uni = run(eng_u, "u")
+    legacy_counts(eng_l, leg["counts"], leg["routes"], leg["decode_ticks"])
+    exact = judge_streams(eng_l, teacher, prompts, leg["out"], uni["out"],
+                          "legacy", names=("legacy", "unified"))
+    med = lambda ts: statistics.median(t["ms"] for t in ts)
+    pre_l = [t for t in leg["ticks"] if t["prefill"]]
+    pre_u = [t for t in uni["ticks"] if t["prefill"]]
+    res = dict(exact=exact, legacy_dispatches_per_tick=(
+        leg["dispatches"] / leg["ticks_n"]),
+        unified_dispatches_per_tick=uni["dispatches"] / uni["ticks_n"],
+        legacy_ticks=leg["ticks_n"], unified_ticks=uni["ticks_n"],
+        legacy_prefill_ticks=len(pre_l), unified_mixed_ticks=len(pre_u),
+        legacy_prefill_tick_dispatches=sum(
+            t["dispatches"] for t in pre_l) / len(pre_l),
+        legacy_prefill_tick_ms=med(pre_l), unified_mixed_tick_ms=med(pre_u),
+        legacy_decode_tick_ms=med([t for t in leg["ticks"]
+                                   if not t["prefill"]]),
+        legacy_wall_ms=sum(t["ms"] for t in leg["ticks"]),
+        unified_wall_ms=sum(t["ms"] for t in uni["ticks"]),
+        legacy_launches=leg["counts"])
+    log(f"[legacy] dispatches a tick {res['legacy_dispatches_per_tick']:.3f}"
+        f" ({leg['dispatches']} in {leg['ticks_n']} ticks; "
+        f"{res['legacy_prefill_tick_dispatches']:.2f} in each of the "
+        f"{len(pre_l)} ticks with a prefill) against unified "
+        f"{res['unified_dispatches_per_tick']:.3f} ({uni['dispatches']} in "
+        f"{uni['ticks_n']}); ticks with a prefill: legacy median "
+        f"{res['legacy_prefill_tick_ms']:.2f} ms, unified mixed "
+        f"{res['unified_mixed_tick_ms']:.2f} ms; legacy decode tick "
+        f"{res['legacy_decode_tick_ms']:.2f} ms; drive wall "
+        f"{res['legacy_wall_ms']:.1f} against {res['unified_wall_ms']:.1f}"
+        f" ms; legacy ticks "
+        f"{[(round(t['ms'], 1), t['dispatches']) for t in leg['ticks']]}")
+    eng_l.release_graphs()
+    del eng_l
+    return res
+
+
+def strict_small(prompts):
+    """Exact parity at a small size, through the kernels: the `tiny`
+    preset in float32 (4 layers, head_dim 64), 4 slots, prompts cut to
+    200 tokens, 24 greedy tokens. The default engine's streams must be
+    reproduced token for token by a speculative engine with a perfect
+    draft (the target's own tensors), by one with a bf16 draft of the
+    same widths and its own random weights (its decode steps on the
+    pipelined kernel), and by the legacy step."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import _kernels
+    cfg = llama.config("tiny", dtype=torch.float32)
+    kw = dict(model=cfg, max_batch_size=4, page_size=16,
+              max_prefill_tokens=64, num_pages=129, seed=1,
+              decode_impl="kernel")
+    sp = [p[:200] for p in prompts]
+    base = InferenceEngine(EngineConfig(**kw))
+    want, _ = drive(base, sp, 24, "ss")
+    draft16 = llama.config("tiny", dtype=torch.bfloat16)
+    res = {}
+    for name, over in (
+            ("perfect draft", dict(speculative=dict(
+                draft_model=cfg, draft_params=base.params,
+                num_speculative_tokens=SPEC_K))),
+            ("bf16 draft", dict(speculative=dict(
+                draft_model=draft16, num_speculative_tokens=SPEC_K))),
+            ("legacy", dict(unified_step=False))):
+        eng = InferenceEngine(EngineConfig(**over, **kw), params=base.params)
+        _kernels.reset_launch_counts()
+        got, _ = drive(eng, sp, 24, "ss")
+        counts = {k: n for k, n in _kernels.launch_counts().items() if n}
+        st = eng.stats()
+        log(f"[spec strict] tiny f32 {name}: identical to the default "
+            f"engine: {got == want}; launches {counts}; routes "
+            f"{_kernels.route_counts()}; spec rounds "
+            f"{st.get('spec_rounds')}, acceptance "
+            f"{st.get('spec_acceptance_rate')}")
+        if got != want:
+            raise AssertionError(f"spec strict {name}: {got} != {want}")
+        if not counts.get("paged_decode"):
+            raise AssertionError(f"spec strict {name}: no decode launch")
+        if name == "bf16 draft" and "pipelined" not in \
+                _kernels.route_counts().get("paged_decode", {}):
+            raise AssertionError("spec strict: the bf16 draft's decode "
+                                 "steps did not take the pipelined kernel")
+        res[name] = dict(rounds=st.get("spec_rounds"),
+                         acceptance=st.get("spec_acceptance_rate"),
+                         launches=counts)
+        eng.release_graphs()
+    base.release_graphs()
+    return res
+
+
+def run_spec(dev, params):
+    """Phase 5g: speculative decoding and the legacy step on the `8b`
+    preset at full width and depth (the bf16 phase's weights, B 8, pages
+    of 16, 1025 pages). Returns the numbers."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, SamplingParams
+    prompts = spec_prompts()
+    log(f"[spec] prompt lengths {[len(p) for p in prompts]}, "
+        f"{SPEC_TOKENS} tokens each, k {SPEC_K}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5757)
+    out = dict(strict=strict_small(prompts))
+    eng_u = InferenceEngine(EngineConfig(decode_impl="kernel", **ENGINE_KW),
+                            params=params)
+    # phase 5's teacher: the gather impl on the same weights (its pools
+    # unused: teacher_logits builds its own)
+    teacher = InferenceEngine(EngineConfig(decode_impl="gather", **dict(
+        ENGINE_KW, num_pages=2)), params=params)
+    eng_u.generate([prompts[0]], SamplingParams(max_tokens=2))   # warm-up
+    eng_u.allocator.clear_cache()
+    ref, uticks = serve_at_once(eng_u, prompts, SPEC_TOKENS, "su")
+    out["default_decode_tick_ms"] = decode_tick_ms(uticks)
+    log(f"[spec] default engine: decode tick median "
+        f"{out['default_decode_tick_ms']:.3f} ms over the same requests")
+
+    def spec_engine(draft):
+        eng = InferenceEngine(EngineConfig(
+            decode_impl="kernel", speculative=dict(
+                num_speculative_tokens=SPEC_K, **draft), **ENGINE_KW),
+            params=params)
+        eng.generate([prompts[0]], SamplingParams(max_tokens=2))
+        return eng
+
+    eng = spec_engine(dict(draft_model="8b", draft_params=params))
+    if eng._spec["params"]["layers"]["wq"] is not params["layers"]["wq"]:
+        raise AssertionError("the perfect draft copied the target's weights")
+    out["perfect"] = spec_drive(eng, prompts, "perfect 8b draft", ref,
+                                teacher)
+    out["fallback"] = spec_fallback(eng, ref, prompts, teacher)
+    eng.release_graphs()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = spec_engine(dict(draft_model="1b"))
+    out["small"] = spec_drive(eng, prompts, "1b draft", ref, teacher)
+    out["draft_decode"] = draft_decode_check(eng, gen, dev)
+    eng.release_graphs()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["legacy"] = legacy_vs_unified(params, eng_u, teacher)
+    tick = out["default_decode_tick_ms"]
+    for name in ("perfect", "small"):
+        r = out[name]["rounds"]
+        log(f"[spec {name}] {r['ms_a_token']:.2f} ms a token a slot against "
+            f"the default decode tick's {tick:.2f} ms "
+            f"({r['ms_a_token'] / tick:.2f}x)")
+    eng_u.release_graphs()
+    del eng_u, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
@@ -3639,10 +4224,15 @@ def main():
     phase_s["5d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lora = run_lora(dev, params)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_s["5f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = run_spec(dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["5g"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     server = run_server()
     gc.collect()
@@ -3701,6 +4291,11 @@ def main():
         base = k["name"].replace("_narrow_table", "")
         if base in LORA_LAUNCHES:
             k["launches_lora_multistep"] = LORA_LAUNCHES[base]
+    # phase 5g's main paths (speculative and legacy drives) launches
+    for k in kernels:
+        base = k["name"].replace("_narrow_table", "")
+        if base in SPEC_LAUNCHES:
+            k["launches_spec_legacy"] = SPEC_LAUNCHES[base]
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -3710,7 +4305,7 @@ def main():
                            quant_engine=quant_engine, train=train,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
-                           lora=lora,
+                           lora=lora, spec=spec,
                            profiles=PROFILES,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)

@@ -22,11 +22,20 @@ Every tensor the body reads must keep its address between calls: the
 engine fills its static buffers in place. Temporaries of the body live
 in the graph's private memory pool, which the engine shares between its
 graphs (they never run concurrently, and each keeps its output alive).
+
+Python's cyclic garbage collector is off during a capture. An engine
+and its graphs form reference cycles, so a dead engine's graphs are
+freed by that collector, whenever it runs; freeing a graph releases its
+memory pool, and a ``cudaFree`` while a stream captures invalidates the
+capture (the next launch in it fails, e.g. as
+CUBLAS_STATUS_EXECUTION_FAILED in a product). Collections wait until
+the capture ends.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, ContextManager, Optional
 
@@ -64,9 +73,15 @@ class DecodeGraph:
             before = _kernels.counter_state()
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with self._capturing():
-                with torch.cuda.graph(graph, pool=self._pool):
-                    self.out = self._body()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with self._capturing():
+                    with torch.cuda.graph(graph, pool=self._pool):
+                        self.out = self._body()
+            finally:
+                if collecting:
+                    gc.enable()
             self.capture_s = time.perf_counter() - t0
             self._launches = _kernels.rewind_counts(before)
             self.graph = graph

@@ -74,8 +74,22 @@ of the device state), and the round's (K, B) tokens come back in one
 readback and fold in order. Sampled streams stay step-exact with K=1:
 the noise is keyed by (seed, absolute position).
 
-Not here yet: speculative decode, pp/tp, the legacy two-dispatch step,
-graphs for mixed ticks.
+The legacy two-dispatch step (``unified_step=False``), as in the JAX
+engine: a tick with a prefilling slot runs padded prefill dispatches
+(``llama_infer.prefill`` for a whole prompt that fits one chunk,
+``prefill_chunk`` for the next chunk of a longer one or of a prefix-cache
+suffix), one slot a tick while a batch decodes, each sampling the first
+token in the same dispatch, then the decode tick.
+
+Speculative decoding (``speculative``), as in the JAX engine: a draft
+model with its own pools (page ids shared with the target's) proposes
+k-1 tokens a round and the target verifies them in one chunk forward;
+greedy streams are the target's own. Rounds run eagerly, one readback
+after the draft and one after the verify; a decode tick outside the
+rounds (a sampled request in the batch) refreshes the device state
+first, and a draft catch-up absorbs the tokens it produced.
+
+Not here yet: pp/tp, graphs for mixed ticks and speculative rounds.
 """
 
 from __future__ import annotations
@@ -97,7 +111,7 @@ import torch
 from ...models import llama
 from ...models.llama import LlamaConfig
 from ...models.llama_infer import (LORA_PROJS, decode_step, lora_cat,
-                                   ragged_forward)
+                                   prefill, prefill_chunk, ragged_forward)
 from ...models.weights import params_from_numpy
 from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
@@ -121,6 +135,9 @@ class EngineConfig:
     page_size: int = 16
     num_pages: int = 512
     max_seq_len: Optional[int] = None    # default: model max_seq
+    # padded prompt lengths of the legacy step's prefill and chunk
+    # forwards (and of a speculative draft's prompt prefill)
+    prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024, 2048)
     seed: int = 0
     # "auto": the CUDA kernels on a CUDA device, dense gather on the
     # CPU. Also "gather" | "kernel".
@@ -128,6 +145,13 @@ class EngineConfig:
     # chunked prefill: a prompt advances at most this many tokens a tick
     max_prefill_tokens: int = 512
     enable_prefix_caching: bool = True
+    # True: a tick with a prefilling slot is one unified ragged forward.
+    # False: the legacy two-dispatch step, as in the JAX engine: one
+    # prefill chunk for one slot (every prefilling slot while nothing
+    # decodes) through the padded `prefill`/`prefill_chunk` forwards,
+    # its first token sampled in the same dispatch, then a whole-batch
+    # decode tick
+    unified_step: bool = True
     # token budget of one unified tick; 0 -> max_prefill_tokens +
     # max_batch_size (a full chunk always rides on the decode tokens)
     max_num_batched_tokens: int = 0
@@ -206,6 +230,18 @@ class EngineConfig:
     # past its remaining max_tokens) while nothing waits or prefills;
     # greedy, penalty and sampled streams are step-exact with 1
     decode_steps_per_call: int = 1
+    # Speculative decoding: {"draft_model": preset | LlamaConfig,
+    # "num_speculative_tokens": k (default 4, >= 2), "draft_params":
+    # optional parameter tree (numpy, or tensors, shared when already
+    # in the serving layout on this device)}. While every decoding
+    # request is greedy without a penalty, a round drafts k-1 tokens
+    # with the draft model (a chunk forward over the tokens it has not
+    # seen, then k-2 decode steps), verifies them in one chunk forward
+    # of the target and emits the accepted prefix plus the target's
+    # own next token: 1 to k tokens a round, the target's greedy tokens
+    # exactly. The draft shares the target's vocab; no LoRA, no KV
+    # offload, no int8/fp8 pages.
+    speculative: Optional[Dict[str, Any]] = None
 
     def resolve_model(self) -> LlamaConfig:
         return llama.config(self.model)
@@ -378,6 +414,35 @@ class InferenceEngine:
             raise ValueError(f"decode_impl must be auto|gather|kernel, got "
                              f"{ec.decode_impl!r}")
         self.impl = impl
+        if (ec.enable_kv_offload or ec.kv_watermark_tokens is not None) \
+                and ec.speculative:
+            raise ValueError(
+                "the KV memory hierarchy (enable_kv_offload / "
+                "kv_watermark_tokens) does not compose with pp>1 or "
+                "speculative engines: their KV lives in stage/draft "
+                "pools the host tier does not migrate")
+        if self.kv_kind != "f32":
+            if ec.speculative:
+                raise ValueError(
+                    "kv_dtype=int8/fp8 does not compose with pp>1 or "
+                    "speculative engines: their stage/draft pools "
+                    "have no scale plumbing")
+            if not ec.unified_step:
+                raise ValueError(
+                    "kv_dtype=int8/fp8 requires unified_step=True: "
+                    "the legacy whole-prompt prefill programs have no "
+                    "quantized write path (unified engines prefill "
+                    "through the ragged program, which does)")
+        draft_cfg = None
+        if ec.speculative:
+            draft_cfg = llama.config(ec.speculative["draft_model"])
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocab")
+            if draft_cfg.n_experts:
+                raise ValueError("MoE draft models are not served by this "
+                                 "engine yet")
+            if int(ec.speculative.get("num_speculative_tokens", 4)) < 2:
+                raise ValueError("num_speculative_tokens must be >= 2")
         if ec.kv_watermark_tokens is not None \
                 and ec.kv_watermark_tokens < 1:
             raise ValueError("kv_watermark_tokens must be >= 1 or None")
@@ -450,6 +515,14 @@ class InferenceEngine:
                 self.kv_kind, cfg.n_kv_heads, cfg.head_dim)
         self.kv_page_bytes = row_bytes * ec.page_size
         B = ec.max_batch_size
+        # speculative decoding: the draft's parameters and pools (page
+        # ids mirror the target's: a slot's table addresses both), the
+        # canonical tokens whose KV each slot's draft holds, counters,
+        # and the keys of the forwards run so far (first runs count as
+        # compiles, as the reference's jit builds do)
+        self._spec: Optional[Dict[str, Any]] = None
+        if draft_cfg is not None:
+            self._spec = self._build_draft(draft_cfg)
         self.slots = [_Slot(i) for i in range(B)]
         self.waiting: List[Request] = []
         self._page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
@@ -489,6 +562,13 @@ class InferenceEngine:
         self._host_events = ([torch.cuda.Event() for _ in range(2)]
                              if pin else [None, None])
         self._host_turn = 0
+        # the legacy step's and the speculative path's forwards run
+        # so far (their first run counts one compile)
+        self._prefill_fns: set = set()
+        self._chunk_fns: set = set()
+        # pipelined readback; a speculative engine reads host state
+        # between its dispatches, so it reads back synchronously
+        self._async = bool(ec.async_readback) and self._spec is None
         # a multi-step round's (K, B) tokens: read back at once
         K = int(ec.decode_steps_per_call)
         self._host_round = (torch.empty((K, B), dtype=torch.int32,
@@ -571,6 +651,13 @@ class InferenceEngine:
                 CostModel(dataclasses.replace(cfg, param_dtype=cfg.dtype),
                           ec.page_size, kv_dtype=self.kv_kind),
                 envelope, n_chips=self.n_chips)
+            if self._spec is not None:
+                # draft dispatches are charged against the draft's own
+                # closed forms (its weights at their stored dtype too)
+                dc = self._spec["cfg"]
+                self._spec["cost_model"] = CostModel(
+                    dataclasses.replace(dc, param_dtype=dc.dtype),
+                    ec.page_size)
         self.attrib: Optional[ReceiptLedger] = (
             ReceiptLedger() if (self.perf is not None
                                 and ec.enable_attribution) else None)
@@ -586,6 +673,34 @@ class InferenceEngine:
             if dev.type == "cuda":
                 self._note_allocator()       # the baseline
             self._publish_counters_locked()
+
+    def _build_draft(self, draft_cfg: LlamaConfig) -> Dict[str, Any]:
+        """The speculative draft: its parameters (``draft_params`` as
+        given, else drawn from a generator seeded seed + 7) in the
+        serving layout on this device, and its zeroed pools."""
+        ec = self.config
+        dparams = ec.speculative.get("draft_params")
+        if dparams is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(ec.seed + 7)
+            dparams = llama.init_params(
+                dataclasses.replace(draft_cfg, param_dtype=draft_cfg.dtype),
+                gen, self.device)
+        dkv = (draft_cfg.n_layers, ec.num_pages, ec.page_size,
+               draft_cfg.n_kv_heads, draft_cfg.head_dim)
+        return {
+            "cfg": draft_cfg,
+            "k": int(ec.speculative.get("num_speculative_tokens", 4)),
+            "params": params_from_numpy(dparams, draft_cfg, self.device),
+            "dk": torch.zeros(dkv, dtype=draft_cfg.dtype,
+                              device=self.device),
+            "dv": torch.zeros(dkv, dtype=draft_cfg.dtype,
+                              device=self.device),
+            "draft_pos": np.zeros(ec.max_batch_size, np.int64),
+            "accepted": 0, "rounds": 0, "emitted": 0,
+            "draft_fns": set(), "verify_fns": set(), "prefill_fns": set(),
+            "cost_model": None,
+        }
 
     def _lora_ranks(self) -> Tuple[int, ...]:
         if self._lora_stacks is None:
@@ -704,9 +819,7 @@ class InferenceEngine:
         self.telemetry.recorder.record(
             "device_state_rebuild", active=self.num_active())
         self._refresh_seen()
-        if self._d_tables_version != self._tables_version:
-            self._fill(self._d_tables, self._page_tables, "page tables")
-            self._d_tables_version = self._tables_version
+        self._device_tables()
         rows = np.zeros((10, self.config.max_batch_size), np.int32)
         temps, top_ps, rep_pens = rows[5:8].view(np.float32)
         top_ps[:] = 1.0
@@ -732,6 +845,27 @@ class InferenceEngine:
                                 and np.all(rep_pens == 1.0))
         self._host_active = rows[2] != 0
         self._state_stale = False
+
+    def _device_tables(self) -> torch.Tensor:
+        """The static device page tables, refilled in place when the
+        host tables moved since the last fill."""
+        if self._d_tables_version != self._tables_version:
+            self._fill(self._d_tables, self._page_tables, "page tables")
+            self._d_tables_version = self._tables_version
+        return self._d_tables
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        """A synchronous readback of a small device tensor (the legacy
+        prefill's first token, a speculative round's candidates and
+        predictions), through ``_read_tokens``."""
+        pin = self.device.type == "cuda"
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+        buf.copy_(t, non_blocking=pin)
+        done = None
+        if pin:
+            done = torch.cuda.Event()
+            done.record()
+        return self._read_tokens(buf, done)
 
     # -- scheduling -----------------------------------------------------------
     @staticmethod
@@ -951,9 +1085,18 @@ class InferenceEngine:
         # optimistic admission: extend reservations before the dispatch
         # whose KV writes would cross them
         self._grow_slots(touched)
-        if any(s.request is not None and not s.ready for s in self.slots):
-            self._ragged_step(touched)
-        elif any(s.ready for s in self.slots):
+        prefilling = any(s.request is not None and not s.ready
+                         for s in self.slots)
+        if self.config.unified_step:
+            if prefilling:
+                self._ragged_step(touched)
+            elif any(s.ready for s in self.slots):
+                self._decode(touched)
+            return
+        # the legacy step: a prefill dispatch, then a decode dispatch
+        if prefilling:
+            self._advance_prefill(touched)
+        if any(s.ready for s in self.slots):
             self._decode(touched)
 
     def generate(self, prompts: List[List[int]],
@@ -1070,6 +1213,11 @@ class InferenceEngine:
 
     def _register_loras_locked(self, mapping: Dict[str, Dict[str, tuple]],
                                scale: float) -> None:
+        if self._spec is not None:
+            raise NotImplementedError(
+                "multi-LoRA is not supported with speculative decoding "
+                "(the draft/verify programs run base weights; a greedy "
+                "adapter request would silently lose its adapter)")
         valid = set(LORA_PROJS)
         new_raw = dict(self._lora_raw)
         for name, adapters in mapping.items():
@@ -1252,7 +1400,7 @@ class InferenceEngine:
             "kv_host_bytes_used": (self.host_tier.used_bytes
                                    if self.host_tier is not None else 0),
             "kernel_launches": _kernels.launch_counts(),
-            "async_readback": self.config.async_readback,
+            "async_readback": self._async,
             "lagged_ticks": self._lagged_ticks,
             "drains": self._drains,
             "graph_captures": self.graph_captures,
@@ -1263,6 +1411,30 @@ class InferenceEngine:
             "chips": self.n_chips,
             "lanes": self._lane_counts_locked(),
             "tick_times": self._tick_times_summary(),
+            # the forwards run so far by kind, the counterpart of the
+            # reference's jit caches ("jit_cache")
+            "compile_cache": {
+                "ragged_buckets": len(self._ragged_buckets),
+                "prefill_buckets": len(self._prefill_fns),
+                "chunk_buckets": len(self._chunk_fns),
+                "spec_fns": (0 if self._spec is None else sum(
+                    len(self._spec[k]) for k in
+                    ("draft_fns", "verify_fns", "prefill_fns"))),
+                "compiled_programs": self.compiles,
+            },
+            **self._spec_stats(),
+        }
+
+    def _spec_stats(self) -> Dict[str, Any]:
+        """The reference's speculative keys, once a round has run."""
+        sp = self._spec
+        if sp is None or not sp["rounds"]:
+            return {}
+        return {
+            "spec_rounds": sp["rounds"],
+            "spec_acceptance_rate": round(
+                sp["accepted"] / (sp["rounds"] * (sp["k"] - 1)), 3),
+            "spec_tokens_per_round": round(sp["emitted"] / sp["rounds"], 2),
         }
 
     def _tick_times_summary(self) -> Dict[str, Any]:
@@ -1696,7 +1868,7 @@ class InferenceEngine:
         # write, and with async_readback the host position lags the
         # device by the tick in flight, so growth triggers one tick
         # early or the fold's assert trips
-        slack = 2 if self.config.async_readback else 1
+        slack = 2 if self._async else 1
 
         def targets(s):
             """(minimum, full) token targets, both clamped to the
@@ -2614,6 +2786,386 @@ class InferenceEngine:
         # the host's; the seen rows did
         self._state_stale = True
 
+    # -- the legacy two-dispatch step ----------------------------------------
+    # unified_step=False, as in the JAX engine: a tick with a prefilling
+    # slot first runs padded prefill dispatches, each for one slot (the
+    # whole prompt through `prefill` when it starts at 0 and fits one
+    # chunk, else its next chunk through `prefill_chunk`) with the first
+    # token sampled in the same dispatch, then the whole-batch decode
+    # tick (`_decode`, shared with the unified step).
+    def _bucket_for(self, n: int) -> int:
+        """The padded length of an n-token prefill: the smallest
+        prefill bucket that holds it (and max_seq past the largest)."""
+        for b in self.config.prefill_buckets:
+            if n <= b and b <= self.max_seq:
+                return b
+        return self.max_seq
+
+    def _prep_full_prompt(self, req: Request) -> Tuple[np.ndarray, int]:
+        """(1, bucket) padded tokens of a whole prompt, and the bucket."""
+        n = len(req.prompt_tokens)
+        bucket = self._bucket_for(n)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :n] = req.prompt_tokens
+        return tokens, bucket
+
+    def _prep_chunk(self, slot: _Slot, req: Request
+                    ) -> Tuple[np.ndarray, int, int]:
+        """(1, bucket) padded tokens of a slot's next prompt chunk (at
+        most max_prefill_tokens), its length and the bucket."""
+        n = len(req.prompt_tokens)
+        chunk = min(self.config.max_prefill_tokens, n - slot.prefill_pos)
+        bucket = self._bucket_for(chunk)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :chunk] = req.prompt_tokens[
+            slot.prefill_pos:slot.prefill_pos + chunk]
+        return tokens, chunk, bucket
+
+    def _account_prefill(self, slot: _Slot, start: int, n: int) -> None:
+        """One slot's prefill dispatch (whole prompt or chunk) into the
+        tick sample and the slot's receipt."""
+        if self.perf is None:
+            return
+        c = self.perf.model.chunk_cost(start, n)
+        self.perf.add("prefill", c, prefill_tokens=n)
+        if self.attrib is not None:
+            self.attrib.charge(slot.request, c, prefill_tokens=n,
+                               pages=len(slot.pages))
+
+    def _first_use(self, cache: set, key) -> None:
+        """Count a forward's first run at `key` as one compile (the
+        reference builds one program per key)."""
+        if key not in cache:
+            cache.add(key)
+            self.compiles += 1
+
+    def _advance_prefill(self, touched: List[Request]) -> None:
+        """Advance prefilling slots: one chunk a tick while a batch
+        decodes (its decode ticks keep flowing), every prefilling slot
+        while nothing decodes. The reference's round-robin, which reads
+        the cursor it moves (so a slot can take two chunks in one tick
+        while another waits): the dispatch counts stay its own."""
+        decoding = any(s.ready for s in self.slots)
+        B = len(self.slots)
+        for off in range(B):
+            slot = self.slots[(self._prefill_rr + off) % B]
+            if slot.request is not None and not slot.ready:
+                self._prefill_rr = (slot.index + 1) % B
+                self._prefill_one_chunk(slot, touched)
+                if decoding:
+                    return
+
+    def _prefill_one_chunk(self, slot: _Slot,
+                           touched: List[Request]) -> None:
+        """One prefill dispatch for one slot: the whole prompt when it
+        starts at 0 and fits a chunk (no context gather), else the next
+        chunk over the cached context. The last one samples the first
+        token and finishes the prefill."""
+        req = slot.request
+        n = len(req.prompt_tokens)
+        cfg = self.model_cfg
+        table = self._dev(self._page_tables[slot.index:slot.index + 1],
+                          "page tables")
+        lora = self._lora_stacks
+        lidx = (self._dev(np.asarray([self._lora_names.get(req.lora, 0)],
+                                     np.int32))
+                if lora is not None else None)
+        if slot.prefill_pos == 0 and n <= self.config.max_prefill_tokens:
+            self.telemetry.on_prefill_chunk(req, n, 0)
+            self._account_prefill(slot, 0, n)
+            tokens, bucket = self._prep_full_prompt(req)
+            self._first_use(self._prefill_fns, bucket)
+            self.dispatches += 1
+            logits = prefill(cfg, self.params, self._dev(tokens),
+                             self._dev(np.asarray([n], np.int32)),
+                             self.k_pages, self.v_pages, table, lora=lora,
+                             lora_idx=lidx)[0]
+            self._finish_legacy_prefill(slot, logits, touched)
+            return
+        tokens, chunk, bucket = self._prep_chunk(slot, req)
+        start = slot.prefill_pos
+        self.telemetry.on_prefill_chunk(req, chunk, start)
+        self._account_prefill(slot, start, chunk)
+        ctx = self._ctx_bucket(start)
+        self._first_use(self._chunk_fns, (bucket, ctx))
+        meta = self._dev(np.asarray([start, chunk], np.int32))
+        self.dispatches += 1
+        logits = prefill_chunk(cfg, self.params, self._dev(tokens),
+                               meta[:1], meta[1:], self.k_pages,
+                               self.v_pages, table, ctx_pages=ctx,
+                               lora=lora, lora_idx=lidx)[0]
+        slot.prefill_pos += chunk
+        if slot.prefill_pos >= n:
+            self._finish_legacy_prefill(slot, logits, touched)
+
+    def _finish_legacy_prefill(self, slot: _Slot, logits: torch.Tensor,
+                               touched: List[Request]) -> None:
+        """Sample a finished prompt's first token from its last row's
+        (1, V) logits, as the reference's prefill programs do: the whole
+        prompt counts as seen for the penalty, the noise is keyed by
+        (seed, prompt length); then finish the prefill. The slot joins
+        the device decode state, its seen row rebuilt, before the next
+        decode tick."""
+        p = slot.request.params
+        n = len(slot.request.prompt_tokens)
+        V = self.model_cfg.vocab_size
+        f = self._dev(np.asarray([[p.temperature], [p.top_p],
+                                  [p.repetition_penalty]], np.float32),
+                      "sampling row")
+        seen = None
+        if p.repetition_penalty != 1.0:
+            row = np.zeros((1, V), bool)
+            row[0, np.asarray(slot.request.prompt_tokens, np.int64) % V] = \
+                True
+            seen = self._dev(row, "seen row")
+        if p.temperature <= 0.0:
+            toks = _sample(logits, f[0], f[1], rep_pens=f[2], seen=seen,
+                           all_greedy=True)
+        else:
+            i = self._dev(np.asarray([[p.top_k], [slot.seed], [n]],
+                                     np.int32), "sampling row")
+            toks = _sample(logits, f[0], f[1], i[0], f[2], seen,
+                           gumbel=row_gumbel(i[1], i[2], V))
+        first = int(self._readback(toks)[0])
+        self._mark_seen_dirty(slot.index)
+        self._state_stale = True
+        self._finish_prefill(slot, first, touched)
+
+    # -- speculative decoding ------------------------------------------------
+    # The reference's rounds (ray_tpu/llm/_internal/engine.py:2188-2530),
+    # run eagerly. Round invariant: canonical tokens [0, P) (prompt and
+    # output), the target's KV written for [0, P-1), the newest token
+    # pending. A round: (1) the draft chunk-prefills the canonical tokens
+    # it has not seen, then runs k-2 decode steps: candidates d1..d_{k-1};
+    # (2) the target verifies [t_last, d1..] in one chunk forward with
+    # logits at every position; (3) the host accepts the longest prefix
+    # the target's argmax agrees with, and emits it and the target's own
+    # next token. Rejected candidates leave KV at [P+n, P+k-1) that the
+    # next round's verify rewrites before any attention reads it.
+    def _spec_prefill_draft(self, slot: _Slot) -> None:
+        """Admission: the draft prefills the whole prompt in one
+        dispatch (it is small; chunking buys nothing). With the prefix
+        cache a shared page is rewritten with the values it holds."""
+        sp = self._spec
+        req = slot.request
+        n = len(req.prompt_tokens)
+        tokens, bucket = self._prep_full_prompt(req)
+        self._first_use(sp["prefill_fns"], bucket)
+        table = self._dev(self._page_tables[slot.index:slot.index + 1],
+                          "page tables")
+        if self.perf is not None:
+            cm_d = sp["cost_model"]
+            c = cm_d.chunk_cost(0, n)
+            self.perf.add("spec", c, weight_bytes=cm_d.weight_bytes)
+            if self.attrib is not None:
+                self.attrib.charge(req, c, pages=len(slot.pages))
+        self.dispatches += 1
+        prefill(sp["cfg"], sp["params"], self._dev(tokens),
+                self._dev(np.asarray([n], np.int32)), sp["dk"], sp["dv"],
+                table, emit="hidden")
+        sp["draft_pos"][slot.index] = n
+
+    def _spec_ready(self) -> bool:
+        """Rounds run only while every decoding request is greedy
+        without a penalty (acceptance is an exact token match). Read
+        from host slot state, before any device-state refresh: rounds
+        back to back upload no slot state."""
+        if self._spec is None:
+            return False
+        ready = [s for s in self.slots if s.request is not None and s.ready]
+        return bool(ready) and all(
+            s.request.params.temperature <= 0.0
+            and s.request.params.repetition_penalty == 1.0 for s in ready)
+
+    def _spec_draft(self, meta: torch.Tensor, tables: torch.Tensor,
+                    ctx: int) -> torch.Tensor:
+        """The draft's half of a round (one dispatch): a chunk forward
+        over each slot's unseen canonical tokens, then k-2 decode steps
+        on the draft's greedy tokens, each slot's KV writes held below
+        its limit. meta: (B, k+1+4) int32, the delta tokens then start /
+        length / active / limit. Returns the (B, k-1) candidates."""
+        sp = self._spec
+        dcfg, k = sp["cfg"], sp["k"]
+        w = k + 1
+        start, lens = meta[:, w], meta[:, w + 1]
+        active, limit = meta[:, w + 2] != 0, meta[:, w + 3]
+        logits = prefill_chunk(dcfg, sp["params"], meta[:, :w], start, lens,
+                               sp["dk"], sp["dv"], tables,
+                               ctx_pages=ctx)[0]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos = start + lens
+        cands = [tok]
+        for _ in range(k - 2):
+            # a write past the slot's pages would land on a page another
+            # request owns (a table's unused entries are page 0)
+            lg = decode_step(dcfg, sp["params"], tok, pos, sp["dk"],
+                             sp["dv"], tables, active & (pos < limit),
+                             impl=self.impl)[0]
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            cands.append(tok)
+            pos = pos + 1
+        return torch.stack(cands, dim=1)
+
+    def _spec_decode(self, touched: List[Request]) -> None:
+        """One speculative round for every decoding slot (all greedy):
+        the draft catch-up if a slot's unseen delta outgrew the round's
+        buffer, the draft, the verify, and the host's acceptance."""
+        sp = self._spec
+        k = sp["k"]
+        B = self.config.max_batch_size
+        page = self.allocator.page_size
+        active = [sl for sl in self.slots
+                  if sl.request is not None and sl.ready]
+
+        def canon(sl):
+            return sl.request.prompt_tokens + sl.request.output_tokens
+
+        tables = self._device_tables()
+        w = k + 1
+        # 0. draft catch-up: decode ticks outside the rounds (a sampled
+        # request in the batch, a mixed tick) can leave a delta larger
+        # than the round's buffer: prefill it into the draft in chunks
+        while True:
+            over = [sl for sl in active
+                    if len(canon(sl)) - int(sp["draft_pos"][sl.index]) > w]
+            if not over:
+                break
+            ct = np.zeros((B, w + 2), np.int32)
+            for sl in over:
+                seq = canon(sl)
+                dp = int(sp["draft_pos"][sl.index])
+                # leave at least one delta token for the round itself
+                take = min(w, len(seq) - dp - 1)
+                ct[sl.index, :take] = seq[dp:dp + take]
+                ct[sl.index, w:] = (dp, take)
+                sp["draft_pos"][sl.index] = dp + take
+            if self.perf is not None:
+                cm_d = sp["cost_model"]
+                tot: Dict[str, float] = {}
+                for sl in over:
+                    c = cm_d.chunk_cost(int(ct[sl.index, w]),
+                                        int(ct[sl.index, w + 1]))
+                    _merge_cost(tot, c)
+                    if self.attrib is not None:
+                        self.attrib.charge(sl.request, c,
+                                           pages=len(sl.pages))
+                self.perf.add("spec", tot, weight_bytes=cm_d.weight_bytes)
+            self._first_use(sp["draft_fns"], ("sync", w))
+            self.dispatches += 1
+            m = self._dev(ct)
+            prefill_chunk(sp["cfg"], sp["params"], m[:, :w], m[:, w],
+                          m[:, w + 1], sp["dk"], sp["dv"], tables,
+                          ctx_pages=-1, emit="hidden")
+
+        # 1. the draft: one dispatch for the batch
+        dm = np.zeros((B, w + 4), np.int32)
+        for sl in active:
+            seq = canon(sl)
+            dp = int(sp["draft_pos"][sl.index])
+            delta = seq[dp:]
+            assert 0 < len(delta) <= w, (dp, len(seq))
+            dm[sl.index, :len(delta)] = delta
+            dm[sl.index, w:] = (dp, len(delta), 1, len(sl.pages) * page)
+        ctx = self._ctx_bucket(max(len(canon(sl)) for sl in active) + k)
+        if self.perf is not None:
+            # a delta chunk and k-2 decode steps a slot, charged against
+            # the draft: k-1 forwards, each reading the draft's weights
+            cm_d = sp["cost_model"]
+            tot = {}
+            for sl in active:
+                dp, dn = int(dm[sl.index, w]), int(dm[sl.index, w + 1])
+                sc: Dict[str, float] = {}
+                _merge_cost(sc, cm_d.chunk_cost(dp, dn))
+                for j in range(max(k - 2, 0)):
+                    _merge_cost(sc, cm_d.decode_cost(dp + dn + j + 1))
+                _merge_cost(tot, sc)
+                if self.attrib is not None:
+                    self.attrib.charge(sl.request, sc, pages=len(sl.pages))
+            self.perf.add("spec", tot, weight_bytes=cm_d.weight_bytes,
+                          weight_reads=max(k - 1, 1))
+        self._first_use(sp["draft_fns"], (w, ctx))
+        self.dispatches += 1
+        cands = self._readback(self._spec_draft(self._dev(dm), tables, ctx))
+
+        # 2. the verify: [t_last, d1..] a slot, its length clamped to the
+        # request's remaining tokens so no write passes its pages
+        vm = np.zeros((B, k + 2), np.int32)
+        for sl in active:
+            seq = canon(sl)
+            P = len(seq)
+            remaining = sl.request.params.max_tokens - len(
+                sl.request.output_tokens)
+            use = 1 + min(k - 1, max(remaining - 1, 0))
+            vm[sl.index, 0] = seq[-1]
+            vm[sl.index, 1:use] = cands[sl.index, :use - 1]
+            vm[sl.index, k:] = (P - 1, use)
+            # safe because admission reserves prompt + max_tokens
+            assert P - 1 + use <= len(sl.pages) * page, (
+                "verify write past allocated pages", sl.index, P, use,
+                len(sl.pages), page)
+        if self.perf is not None:
+            # one chunk a slot with logits at every position: the head
+            # runs for every verified row, not just the last
+            cm = self.perf.model
+            tot = {}
+            for sl in active:
+                use = int(vm[sl.index, k + 1])
+                sc = dict(cm.chunk_cost(int(vm[sl.index, k]), use))
+                sc["flops_gemm"] = (sc.get("flops_gemm", 0.0)
+                                    + (use - 1) * cm.head_flops)
+                _merge_cost(tot, sc)
+                if self.attrib is not None:
+                    self.attrib.charge(sl.request, sc, pages=len(sl.pages))
+            self.perf.add("spec", tot)
+        self._first_use(sp["verify_fns"], ctx)
+        self.dispatches += 1
+        m = self._dev(vm)
+        logits_all = prefill_chunk(
+            self.model_cfg, self.params, m[:, :k], m[:, k], m[:, k + 1],
+            self.k_pages, self.v_pages, tables, ctx_pages=ctx,
+            emit="logits_all")[0]
+        preds = self._readback(
+            torch.argmax(logits_all, dim=-1).to(torch.int32))   # (B, k)
+
+        # 3. the host's acceptance
+        t_h = time.perf_counter()
+        n_emit = 0
+        for sl in active:
+            i = sl.index
+            req = sl.request
+            emit0 = n_emit
+            use = int(vm[i, k + 1])
+            P = int(vm[i, k]) + 1
+            n_acc = 0
+            while n_acc < use - 1 and preds[i, n_acc] == vm[i, n_acc + 1]:
+                n_acc += 1
+            new_tokens = [int(t) for t in vm[i, 1:1 + n_acc]] + [
+                int(preds[i, n_acc])]
+            sp["rounds"] += 1
+            sp["accepted"] += n_acc
+            # the draft re-syncs from the round's start: its candidates
+            # past the accepted prefix may be wrong
+            sp["draft_pos"][i] = P
+            # position counts cached tokens: t_last and every accepted
+            # candidate gained KV this round; the newest stays pending
+            sl.position = P - 1
+            for tok in new_tokens:
+                sp["emitted"] += 1
+                n_emit += 1
+                sl.position += 1
+                sl.last_token = tok
+                self._append_token(sl, tok, touched)
+                if sl.request is None:        # finished mid-round
+                    break
+            if self.attrib is not None and n_emit > emit0:
+                self.attrib.charge(req, decode_tokens=n_emit - emit0)
+        if self.perf is not None and n_emit:
+            self.perf.note_tokens(decode_tokens=n_emit)
+        self._tick_host_s += time.perf_counter() - t_h
+        # the decode loop's device state (tokens, positions) did not
+        # move: a decode tick outside the rounds refreshes it first
+        self._state_stale = True
+
     def _decode_once(self, all_greedy: bool,
                      active: torch.Tensor) -> torch.Tensor:
         """One decode step on the static device state for the slots in
@@ -2696,7 +3248,12 @@ class InferenceEngine:
         replay, then the copy of its tokens to the host; with
         async_readback the previous tick folds now and this one on the
         next step. With decode_steps_per_call > 1 and nothing waiting or
-        prefilling, a multi-step round instead."""
+        prefilling, a multi-step round instead; with a draft model and
+        every decoding request greedy, a speculative round (before any
+        device-state refresh: a round reads host state)."""
+        if self._spec_ready():
+            self._spec_decode(touched)
+            return
         if self.config.decode_steps_per_call > 1 and self._multi_ok():
             # a round reads host budgets: the tick in flight lands first
             self._drain(touched)
@@ -2716,7 +3273,7 @@ class InferenceEngine:
         # after the launch, so the host's arithmetic runs under the
         # device's work instead of ahead of it
         self._account_decode_batch()
-        if not self.config.async_readback:
+        if not self._async:
             self._fold_inflight(rec, touched, lagged=False)
             return
         prev, self._inflight = self._inflight, rec
@@ -2843,6 +3400,8 @@ class InferenceEngine:
         slot.position = n
         slot.ready = True
         slot.last_token = first_token
+        if self._spec is not None:
+            self._spec_prefill_draft(slot)
         self._append_token(slot, first_token, touched)
 
     def _append_token(self, slot: _Slot, tok: int,

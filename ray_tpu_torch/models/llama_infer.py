@@ -7,6 +7,16 @@ the pure-decode step, over the shared paged pool
 attention: "gather" (dense, the plain version) or "kernel" (the CUDA
 kernels on a CUDA tensor; their plain versions on a CPU tensor).
 
+The padded-batch forwards of the legacy engine step and of speculative
+decoding: ``prefill`` (whole prompts, dense causal attention by
+``cfg.attention_impl`` under the reference's rule, so "auto" is the
+dense path and "pallas" the flash kernel) and ``prefill_chunk`` (a
+chunk of each prompt over its cached context, through
+``chunk_attention_on_gathered``; the context is gathered one layer at a
+time, where the reference gathers every layer's at once). Both write
+the valid rows' KV into the pools in place; they take float32/bf16
+pools only, as in the reference.
+
 ``kv_kind`` "int8"/"fp8" serves from quantized pools with float32 scale
 pools ``[n_layers, num_pages, page_size, KVH]`` beside them: the gather
 impl dequantizes what it gathers, the kernel impl hands each layer's
@@ -34,8 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import kv_quant
-from ..ops.paged_attention import (decode_scratch, gather_context,
-                                   paged_attention_on_gathered,
+from ..ops.attention import attention as attention_op
+from ..ops.paged_attention import (chunk_attention_on_gathered,
+                                   decode_scratch, gather_context,
+                                   gather_layer, paged_attention_on_gathered,
                                    paged_decode_with_new_token, scatter_kv,
                                    scatter_kv_quant)
 from ..ops.ragged_paged_attention import (ragged_paged_attention,
@@ -361,4 +373,148 @@ def decode_step(cfg: LlamaConfig, params: Dict[str, Any],
     logits = x.float() @ params["lm_head"].float()
     if quantized:
         return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
+
+
+# ------------------------------------------------- padded-batch prefill
+
+def _check_emit(emit: str, allowed: Tuple[str, ...]) -> None:
+    if emit not in allowed:
+        raise ValueError(f"emit must be one of {allowed}, got {emit!r}")
+
+
+def _prefill_attention_impl(cfg: LlamaConfig) -> str:
+    """The reference's rule: "auto" and "ring" run the dense path."""
+    return ("xla" if cfg.attention_impl in ("auto", "ring")
+            else cfg.attention_impl)
+
+
+def _rows_lora_idx(lora_idx: Optional[torch.Tensor],
+                   n: int) -> Optional[torch.Tensor]:
+    """(B,) adapter slots of the batch rows -> (B*n,) of their tokens."""
+    return None if lora_idx is None else lora_idx.repeat_interleave(n)
+
+
+def _padded_forward(cfg: LlamaConfig, params: Dict[str, Any],
+                    tokens: torch.Tensor, positions: torch.Tensor,
+                    k_pages, v_pages, page_tables, valid, attn_for_layer,
+                    lora, lora_idx) -> torch.Tensor:
+    """Every layer over a (B, S) padded batch, flattened to B*S rows for
+    the products; `attn_for_layer(i)` gives layer i's attention on the
+    flat (B*S, heads, D) q/k/v. Writes the valid rows' KV into the pools
+    in place and returns the final activations (B, S, hidden)."""
+    b, s = tokens.shape
+    n = b * s
+    dt = cfg.dtype
+    idx = _rows_lora_idx(lora_idx, s)
+    masks = _lora_masks(lora, idx, dt)
+    x = params["embed"].to(dt)[tokens.reshape(-1).long()]      # (B*S, H)
+    cos, sin = rope_frequencies(cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer_body(cfg, dt, x, _layer(params, i), n,
+                                lambda a: _rope_single(a, cos, sin),
+                                attn_for_layer(i), _lora_layer(lora, i, masks))
+        ks.append(k)
+        vs.append(v)
+    scatter_kv(k_pages, v_pages, torch.stack(ks, dim=1),
+               torch.stack(vs, dim=1), page_tables.repeat_interleave(s, 0),
+               positions, valid)
+    return x.reshape(b, s, -1)
+
+
+def prefill(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            true_lens: torch.Tensor, k_pages: torch.Tensor,
+            v_pages: torch.Tensor, page_tables: torch.Tensor,
+            lora: Optional[Dict[str, Any]] = None,
+            lora_idx: Optional[torch.Tensor] = None, emit: str = "logits"
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-prompt forward over padded prompts.
+
+    tokens: (B, S) int32, each row a prompt from position 0 padded past
+    true_lens[b]; page_tables: (B, max_pages) int32. Causal attention
+    over the batch's own keys (``_prefill_attention_impl``). Every valid
+    row's KV is written IN PLACE (padding rows hit the scratch page).
+    Returns (last_logits (B, V) float32 at row true_lens - 1, k_pages,
+    v_pages); with emit="hidden", the activations (B, S, hidden) in
+    place of the logits. lora_idx: (B,) adapter slot of each prompt."""
+    _check_emit(emit, ("logits", "hidden"))
+    b, s = tokens.shape
+    dev = tokens.device
+    impl = _prefill_attention_impl(cfg)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.arange(s, dtype=torch.int32, device=dev).repeat(b)
+
+    def attn_for_layer(i):
+        def attn(q, k, v):
+            out = attention_op(q.reshape(b, s, h, d), k.reshape(b, s, kvh, d),
+                               v.reshape(b, s, kvh, d), causal=True,
+                               impl=impl)
+            return out.reshape(b * s, h, d)
+        return attn
+
+    valid = positions < true_lens.repeat_interleave(s)
+    x = _padded_forward(cfg, params, tokens, positions, k_pages, v_pages,
+                        page_tables, valid, attn_for_layer, lora, lora_idx)
+    if emit == "hidden":
+        return x, k_pages, v_pages
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = x[torch.arange(b, device=dev), (true_lens.long() - 1)]
+    logits = last.float() @ params["lm_head"].float()
+    return logits, k_pages, v_pages
+
+
+def prefill_chunk(cfg: LlamaConfig, params: Dict[str, Any],
+                  tokens: torch.Tensor, start_pos: torch.Tensor,
+                  chunk_lens: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, page_tables: torch.Tensor,
+                  ctx_pages: int = -1, lora: Optional[Dict[str, Any]] = None,
+                  lora_idx: Optional[torch.Tensor] = None,
+                  emit: str = "logits"
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A chunk of each prompt against its already-cached context.
+
+    tokens: (B, C) int32 padded chunk; start_pos: (B,) tokens already in
+    the pool; chunk_lens: (B,) valid tokens in the chunk. Query i sits
+    at start_pos + i and attends the context (positions < start_pos,
+    gathered one layer at a time from the first `ctx_pages` table
+    entries, -1: all) and the chunk's keys j <= i. The chunk's valid KV
+    is written IN PLACE at start_pos + [0, chunk_lens) through the full
+    table. Returns (logits, k_pages, v_pages): emit="logits" the
+    float32 logits (B, V) at each chunk's last valid token, "logits_all"
+    float32 logits at every position (B, C, V) (a speculative verify),
+    "hidden" the activations (B, C, hidden). lora_idx: (B,) adapter slot
+    of each row."""
+    _check_emit(emit, ("logits", "logits_all", "hidden"))
+    b, c = tokens.shape
+    dev = tokens.device
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    start = start_pos.to(torch.int32)
+    positions = (start[:, None] + torch.arange(
+        c, dtype=torch.int32, device=dev)[None, :]).reshape(-1)   # (B*C,)
+    ctx_tables = page_tables if ctx_pages < 0 else page_tables[:, :ctx_pages]
+
+    def attn_for_layer(i):
+        k_ctx = gather_layer(k_pages[i], ctx_tables)
+        v_ctx = gather_layer(v_pages[i], ctx_tables)
+
+        def attn(q, k, v):
+            out = chunk_attention_on_gathered(
+                q.reshape(b, c, h, d), k_ctx, v_ctx, k.reshape(b, c, kvh, d),
+                v.reshape(b, c, kvh, d), start, chunk_lens)
+            return out.reshape(b * c, h, d)
+        return attn
+
+    valid = (torch.arange(c, device=dev)[None, :]
+             < chunk_lens.to(dev)[:, None]).reshape(-1)
+    x = _padded_forward(cfg, params, tokens, positions, k_pages, v_pages,
+                        page_tables, valid, attn_for_layer, lora, lora_idx)
+    if emit == "hidden":
+        return x, k_pages, v_pages
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if emit == "logits_all":
+        return x.float() @ params["lm_head"].float(), k_pages, v_pages
+    last = x[torch.arange(b, device=dev),
+             torch.clamp(chunk_lens.long() - 1, min=0)]
+    logits = last.float() @ params["lm_head"].float()
     return logits, k_pages, v_pages

@@ -14,7 +14,8 @@ side dequantizes on gather (``gather_kv_quant``, ``gather_layer_quant``)
 or in the decode kernel's page loads (``k_scales``/``v_scales``).
 
 Two decode paths:
-- dense gather (``gather_kv`` + ``paged_attention_on_gathered``);
+- dense gather (``gather_kv`` + ``paged_attention_on_gathered``, or
+  ``paged_attention`` for one layer);
 - the hand-written CUDA kernels ``csrc/paged_decode.cu`` behind
   ``paged_decode_attention`` / ``paged_decode_with_new_token``: bf16
   queries of the shapes ``decode_takes`` run the pipelined kernel (page
@@ -25,6 +26,12 @@ Two decode paths:
   wrappers run the plain PyTorch version beside them
   (``paged_decode_attention_plain`` / ``paged_decode_with_new_token_plain``);
   on a CUDA tensor they launch a kernel or raise.
+
+``chunk_attention_on_gathered`` runs multi-token queries over a gathered
+context and the chunk's own causal keys (the chunked-prefill forward
+``llama_infer.prefill_chunk``: the legacy engine step's long prompts and
+the speculative draft and verify). Like the reference, where it is XLA
+code outside any Pallas kernel, it is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -130,6 +137,59 @@ def paged_attention_on_gathered(q: torch.Tensor, k: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", probs, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_tables: torch.Tensor,
+                    seq_lens: torch.Tensor, layer: int) -> torch.Tensor:
+    """Single-layer decode attention, dense: layer `layer`'s pages
+    gathered by the table, then ``paged_attention_on_gathered``.
+    q: [B, H, D] (one new token a sequence); seq_lens: [B] valid cached
+    tokens (the new one included). Returns [B, H, D]."""
+    k = gather_layer(k_pages[layer], page_tables)
+    v = gather_layer(v_pages[layer], page_tables)
+    return paged_attention_on_gathered(q, k, v, seq_lens)
+
+
+def chunk_attention_on_gathered(q: torch.Tensor, k_ctx: torch.Tensor,
+                                v_ctx: torch.Tensor, k_chunk: torch.Tensor,
+                                v_chunk: torch.Tensor, start: torch.Tensor,
+                                chunk_lens: torch.Tensor) -> torch.Tensor:
+    """Multi-token queries over a gathered context plus the chunk itself
+    (chunked prefill, a prefix-cache suffix, a speculative verify).
+
+    q: [B, C, H, D] queries at absolute positions start[b] + i;
+    k_ctx/v_ctx: [B, ctx, KVH, D] the gathered pool (valid: position <
+    start[b]); k_chunk/v_chunk: [B, C, KVH, D] the chunk's own KV;
+    chunk_lens: [B] valid tokens in the chunk. Query i attends context
+    positions < start[b] and chunk positions j <= i with j <
+    chunk_lens[b]. Scores masked with -inf, softmax in float32 over both
+    parts at once, GQA in kv-major head order. A row with no key (a slot
+    with chunk_lens 0 and start 0) comes out NaN, as in the reference;
+    callers discard those rows. Returns [B, C, H, D]."""
+    b, c, h, d = q.shape
+    ctx, kvh = k_ctx.shape[1], k_ctx.shape[2]
+    group = h // kvh
+    dev = q.device
+    qf = q.reshape(b, c, kvh, group, d).float()
+    scale = 1.0 / (d ** 0.5)
+    s_ctx = torch.einsum("bikgd,bckd->bkgic", qf, k_ctx.float())
+    s_chk = torch.einsum("bikgd,bjkd->bkgij", qf, k_chunk.float())
+    ctx_mask = (torch.arange(ctx, device=dev)[None, :]
+                < start.to(dev).long()[:, None])                # [B, ctx]
+    i_idx = torch.arange(c, device=dev)[:, None]
+    j_idx = torch.arange(c, device=dev)[None, :]
+    chk_mask = ((j_idx <= i_idx)[None]
+                & (j_idx[None] < chunk_lens.to(dev).long()[:, None, None]))
+    neg = float("-inf")
+    s_ctx = (s_ctx * scale).masked_fill(~ctx_mask[:, None, None, None, :],
+                                        neg)
+    s_chk = (s_chk * scale).masked_fill(~chk_mask[:, None, None, :, :], neg)
+    probs = torch.softmax(torch.cat([s_ctx, s_chk], dim=-1), dim=-1)
+    p_ctx, p_chk = probs[..., :ctx], probs[..., ctx:]
+    out = (torch.einsum("bkgic,bckd->bikgd", p_ctx, v_ctx.float())
+           + torch.einsum("bkgij,bjkd->bikgd", p_chk, v_chunk.float()))
+    return out.reshape(b, c, h, d).to(q.dtype)
 
 
 # ------------------------------------------------------------- decode kernel

@@ -891,6 +891,54 @@ def test_dispatch_guard_on_the_card(dev):
             eng._d_tokens.sum().item()
 
 
+@pytest.mark.cuda
+def test_capture_survives_a_dead_engine_collected(dev):
+    """The cause of test_dispatch_guard_on_the_card's intermittent
+    failure (CUBLAS_STATUS_EXECUTION_FAILED inside a capture, then
+    cudaErrorStreamCaptureInvalidated): a dead engine's decode graph,
+    held only by the engine's reference cycles, freed by an automatic
+    collection while another engine captures. Here the dead engine's
+    objects are kept young (no collection while it lives) and a
+    collection falls due inside the capture, after its last outside
+    reference goes: collections wait until the capture ends, so it
+    succeeds, the dead engine is freed after it, and the tokens are the
+    eager engine's."""
+    import gc
+    import weakref
+    from ray_tpu_torch import EngineConfig, InferenceEngine, SamplingParams
+    kw = dict(max_batch_size=3, num_pages=129)
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(10 ** 9)        # the dead engine stays in generation 0
+    try:
+        dead = [InferenceEngine(EngineConfig(**kw))]
+        dead[0].generate([[5] * 12], SamplingParams(max_tokens=6))
+        assert dead[0].graph_captures == 1
+        gone = weakref.ref(dead[0])
+        eng = InferenceEngine(EngineConfig(**kw))
+        own = eng._decode_body
+
+        def body(*a):
+            if torch.cuda.is_current_stream_capturing() and dead:
+                dead.clear()         # the engine's own cycles hold it now
+                gc.set_threshold(1)  # a collection falls due
+                [[{}] for _ in range(64)]
+            return own(*a)
+
+        eng._decode_body = body
+        [got] = eng.generate([[7] * 12], SamplingParams(max_tokens=8))
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    assert eng.graph_captures == 1 and not dead and gone() is None
+    ref = InferenceEngine(EngineConfig(cuda_graph=False,
+                                       async_readback=False, **kw),
+                          params=eng.params)
+    [want] = ref.generate([[7] * 12], SamplingParams(max_tokens=8))
+    assert got.output_tokens == want.output_tokens
+    eng.release_graphs()
+
+
 def _restored_rows_equal(eng, slot, parked):
     """A gather of the restored slot's first `position` token rows
     against the host copy it was restored from, byte for byte."""
@@ -1119,3 +1167,99 @@ def test_multistep_graph_engine_matches_single_step(dev, kind):
     assert report.readbacks == 8
     e4.release_graphs()
     e1.release_graphs()
+
+
+# ---------------------------- speculative decoding and the legacy step
+
+def _spec_prompts(seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(2, 250, (n,), generator=gen).tolist()
+            for n in (40, 3, 17, 90, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["perfect", "bf16_d64"])
+def test_spec_engine_matches_default_engine(dev, draft):
+    """A speculative engine on the card (float32 `debug` target, k 4)
+    against the default engine on the same weights: the same greedy
+    tokens; the ragged kernel launched layers x mixed ticks and the
+    draft's decode kernel draft layers x (k-2) x draft dispatches (a
+    bf16 draft at head_dim 64 on the pipelined route); a sampled request
+    in the batch falls back to decode ticks and still finishes."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, SamplingParams
+    from ray_tpu_torch.models import llama
+    cfg = llama.config("debug", dtype=torch.float32)
+    kw = dict(model=cfg, max_batch_size=4, page_size=16, num_pages=129,
+              seed=3)
+    base = InferenceEngine(EngineConfig(**kw))
+    if draft == "perfect":
+        spec = {"draft_model": cfg, "draft_params": base.params}
+    else:
+        spec = {"draft_model": llama.config(
+            "debug", head_dim=64, n_heads=4, n_kv_heads=2,
+            dtype=torch.bfloat16)}
+    eng = InferenceEngine(EngineConfig(speculative=dict(
+        num_speculative_tokens=4, **spec), **kw), params=base.params)
+    prompts = _spec_prompts(21)
+    want, _ = _serve(base, prompts, max_tokens=20)
+    calls = []
+    own = eng._spec_draft
+    eng._spec_draft = lambda *a, **k: calls.append(1) or own(*a, **k)
+    r0 = eng.ragged_ticks
+    got, counts = _serve(eng, prompts, max_tokens=20)
+    assert got == want
+    st = eng.stats()
+    assert st["spec_rounds"] > 0 and st["decode_ticks"] == 0
+    assert counts["ragged_paged"] == cfg.n_layers * (eng.ragged_ticks - r0)
+    dl = eng._spec["cfg"].n_layers
+    assert counts["paged_decode"] == dl * 2 * len(calls) > 0
+    route = "cuda_core" if draft == "perfect" else "pipelined"
+    assert _kernels.route_counts()["paged_decode"] == {
+        route: counts["paged_decode"]}
+    if draft == "perfect":
+        assert st["spec_acceptance_rate"] > 0.6
+    from ray_tpu_torch import Request
+    s = Request("samp", prompts[3], SamplingParams(max_tokens=8,
+                                                   temperature=0.9))
+    g = Request("greedy", prompts[0], SamplingParams(max_tokens=30))
+    eng.add_request(g)
+    eng.step()
+    eng.add_request(s)
+    while eng.has_work():
+        eng.step()
+    assert len(s.output_tokens) == 8 and eng.stats()["decode_ticks"] > 0
+    [ref] = base.generate([prompts[0]], SamplingParams(max_tokens=30))
+    assert g.output_tokens == ref.output_tokens
+    base.release_graphs()
+    eng.release_graphs()
+
+
+@pytest.mark.cuda
+def test_legacy_engine_matches_unified_engine(dev):
+    """unified_step=False on the card (float32 `debug`): the unified
+    engine's greedy and penalty tokens; no ragged launch, the decode
+    kernel layers x decode ticks; more dispatches than ticks."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import llama
+    cfg = llama.config("debug", dtype=torch.float32)
+    kw = dict(model=cfg, max_batch_size=3, page_size=16, num_pages=129,
+              seed=4, max_prefill_tokens=32)
+    uni = InferenceEngine(EngineConfig(**kw))
+    leg = InferenceEngine(EngineConfig(unified_step=False, **kw),
+                          params=uni.params)
+    prompts = _spec_prompts(22)
+    for sp in (dict(max_tokens=12), dict(max_tokens=10,
+                                         repetition_penalty=1.3)):
+        want, _ = _serve(uni, prompts, **sp)
+        t0, d0, k0 = leg.decode_ticks, leg.dispatches, leg.ticks
+        got, counts = _serve(leg, prompts, **sp)
+        assert got == want
+        assert counts["ragged_paged"] == 0
+        assert counts["paged_decode"] == cfg.n_layers * (
+            leg.decode_ticks - t0) > 0
+        assert leg.dispatches - d0 > leg.ticks - k0
+    st = leg.stats()
+    assert st["compile_cache"]["chunk_buckets"] > 0
+    assert st["compile_cache"]["prefill_buckets"] > 0
+    uni.release_graphs()
+    leg.release_graphs()

@@ -243,7 +243,7 @@ def test_engine_config_rejects_unported_options(over, exc):
 
 
 def test_engine_config_unknown_fields_raise():
-    for field in ("unified_step", "mesh"):
+    for field in ("mesh",):
         with pytest.raises(TypeError):
             te.EngineConfig(**{field: None})
     assert te.InferenceEngine(te.EngineConfig(device="cpu")).impl == "gather"
