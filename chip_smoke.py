@@ -154,6 +154,33 @@ Phases (any failure raises and exits non-zero):
      token judged as in (a)): no
      ragged launch, decode launches layers x decode ticks, dispatches a
      tick, the wall of prefill ticks against mixed ticks;
+  5h. the serving fleet: two LLMServerImpl replicas r0 and r1 on the
+     `8b` preset at full width and depth, both engines on the bf16
+     phase's weight tensors (shared; B 8, pages of 16, 1025 pages, the
+     host tier on), behind FleetManager over LocalReplicaClients, one
+     tick at a time on the card (the engines share the device's lock):
+     (a) 12 greedy requests of 64 tokens in flight together, two groups
+     of 3 sharing a 1024-character prefix (RouterConfig prefix_depth
+     1024) and phase 5's 6 prompts, half through dispatch and half
+     through dispatch_stream, a cold pass then the timed one: each group
+     on one replica, its followers hitting that replica's prefix cache;
+     the same 12 on r0 alone and round-robin over both; (b) a chaos
+     client severs a greedy and a sampled stream on r0 after 16 tokens:
+     both continue on r1, r0 evicted; (c) _apply_target(1) while each
+     replica serves 2 streams: the victim's sessions ship over the RTKV
+     wire; (d) roles prefill/decode: the 1535-token prompt prefills on
+     r0 and decodes on r1, a short prompt takes no handoff; (e) the
+     prefix store under round-robin routing: a prefix published by r0
+     seeded into r1 and hit there; (f) status rows (chips 1 each,
+     active chips 2), the merged exposition with the JAX fleet family
+     names, 16 guarded decode ticks on r0 while r1 serves 4 streams
+     (no upload, no capture, one readback and one cudaGraphLaunch a
+     tick), graph captures per replica and no engine crash. Every
+     stream's tokens against an engine driven directly on the same
+     weights (phase 5's near-tie rule; phase 5d's pickable rule for the
+     sampled one); launches of #1/#2 = layers x mixed / decode ticks
+     summed over both replicas in each drive; fleet tokens/s, TTFT,
+     TPOT, peak memory, the ships' ms split by stage and their GB/s;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -3949,6 +3976,795 @@ def run_spec(dev, params):
     return out
 
 
+# ------------------------------------------------------------ the fleet (5h)
+
+FLEET_KW = dict(ENGINE_KW, enable_kv_offload=True)
+FLEET_TOKENS = 64
+FLEET_DEPTH = 1024      # router prefix depth, and the groups' shared chars
+FLEET_SEVER = 16        # token chunks a chaos-severed stream delivers
+FLEET_SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50, seed=4242)
+# families of the fleet plane the merged exposition must carry
+FLEET_FAMILIES = ("ray_tpu_llm_breaker_state", "ray_tpu_llm_failovers_total",
+                  "ray_tpu_llm_replica_evictions_total",
+                  "ray_tpu_llm_kv_sessions_shipped_total",
+                  "ray_tpu_llm_kv_ship_bytes_total",
+                  "ray_tpu_llm_slo_burn_rate", "ray_tpu_llm_fleet_mfu",
+                  "ray_tpu_llm_fleet_queue_wait_seconds")
+FLEET_LAUNCHES: dict = {}
+
+
+class CallTimer:
+    """While armed: the host (start, end) of every call to the named
+    attributes (engine methods, kv_transport functions, server
+    coroutines), by label."""
+
+    def __init__(self, targets):
+        self.targets = targets          # (object, attribute, label)
+        self.calls = {label: [] for _, _, label in targets}
+        self._saved = []
+
+    def _wrap(self, fn, label):
+        import inspect
+        calls = self.calls[label]
+        if inspect.iscoroutinefunction(fn):
+            async def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    calls.append((t0, time.perf_counter()))
+        else:
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    calls.append((t0, time.perf_counter()))
+        return timed
+
+    def __enter__(self):
+        for obj, attr, label in self.targets:
+            own = attr in vars(obj)
+            self._saved.append((obj, attr, own, getattr(obj, attr)))
+            setattr(obj, attr, self._wrap(getattr(obj, attr), label))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, own, fn in reversed(self._saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+        self._saved = []
+
+    def ms(self, label):
+        return sum(b - a for a, b in self.calls[label]) * 1e3
+
+
+class FleetRig:
+    """Phase 5h's replicas: r0 and r1, LLMServerImpl over two engines
+    on the bf16 phase's weight tensors (shared), every request their
+    engines take recorded; an engine driven directly on the same
+    weights (the reference) and phase 5's gather teacher."""
+
+    def __init__(self, params):
+        from ray_tpu_torch import EngineConfig, InferenceEngine, LLMServerImpl
+        self.engines = {rid: InferenceEngine(EngineConfig(
+            decode_impl="kernel", metrics_model_id="8b",
+            metrics_replica_id=rid, **FLEET_KW), params=params)
+            for rid in ("r0", "r1")}
+        for eng in self.engines.values():
+            if eng.params["layers"]["wq"] is not params["layers"]["wq"]:
+                raise AssertionError("a replica copied the shared weights")
+        self.servers = {rid: LLMServerImpl(dict(model_id="8b"), engine=eng)
+                        for rid, eng in self.engines.items()}
+        self.submitted = []             # (replica, Request)
+        self.since = 0
+        for rid, eng in self.engines.items():
+            add = eng.add_request
+
+            def recording(req, rid=rid, add=add):
+                self.submitted.append((rid, req))
+                return add(req)
+            eng.add_request = recording
+        self.ref = InferenceEngine(EngineConfig(
+            decode_impl="kernel", metrics_model_id="8b-ref", **ENGINE_KW),
+            params=params)
+        self.teacher = InferenceEngine(EngineConfig(
+            decode_impl="gather", **dict(ENGINE_KW, num_pages=2)),
+            params=params)
+        self.tok = self.servers["r0"].tokenizer
+
+    def clients(self, ids=("r0", "r1")):
+        from ray_tpu_torch.serve.llm import LocalReplicaClient
+        return [LocalReplicaClient(rid, self.servers[rid]) for rid in ids]
+
+    def fleet(self, clients=None, **kw):
+        from ray_tpu_torch.serve.llm import (AdmissionConfig,
+                                             AutoscaleConfig, FleetManager,
+                                             RouterConfig)
+        clients = clients or self.clients()
+        n = len(clients)
+        opts = dict(router=RouterConfig(prefix_depth=FLEET_DEPTH,
+                                        spill_waiting=64),
+                    admission=AdmissionConfig(max_concurrent=64,
+                                              max_queue=64,
+                                              queue_wait_slo_s=120.0),
+                    autoscale=AutoscaleConfig(min_replicas=n,
+                                              max_replicas=n),
+                    model_id="8b", drain_timeout_s=60.0)
+        opts.update(kw)
+        return FleetManager(clients, **opts)
+
+    def mark(self):
+        """Start a drive: first_request looks at what follows."""
+        self.since = len(self.submitted)
+
+    def first_request(self, text):
+        """The first request a replica's engine took for `text` since
+        the drive's mark."""
+        toks = self.tok.encode(text)
+        for rid, r in self.submitted[self.since:]:
+            if r.prompt_tokens == toks:
+                return rid, r
+        raise AssertionError(f"no replica took the prompt {text[:40]!r}")
+
+    def reference(self, reqs, tag):
+        """The recorded requests' prompts and parameters through the
+        reference engine, all at once: its token lists."""
+        from ray_tpu_torch import Request
+        refs = [Request(f"{tag}{i}", list(r.prompt_tokens), r.params)
+                for i, r in enumerate(reqs)]
+        for r in refs:
+            self.ref.add_request(r)
+        while self.ref.has_work():
+            self.ref.step()
+        return refs
+
+    def clear_caches(self):
+        for eng in self.engines.values():
+            eng.allocator.clear_cache()
+
+    def cancel_pumps(self):
+        for srv in self.servers.values():
+            if srv._pump is not None:
+                srv._pump.cancel()
+
+    def ticks(self):
+        """A drive's start: each replica's mixed and decode ticks and
+        its flight recorder's high water."""
+        return {rid: (e.ragged_ticks, e.decode_ticks,
+                      e.telemetry.recorder.stats()["total"])
+                for rid, e in self.engines.items()}
+
+
+def fleet_counts(rig, ticks0, label):
+    """A fleet drive's launches (counters set to 0 just before it): the
+    ragged kernel layers x mixed ticks and the decode kernel layers x
+    decode ticks, summed over both replicas, every decode launch on the
+    pipelined route. Added to FLEET_LAUNCHES."""
+    from ray_tpu_torch.ops import _kernels
+    counts = _kernels.launch_counts()
+    n_layers = rig.engines["r0"].model_cfg.n_layers
+    mixed = sum(e.ragged_ticks - ticks0[rid][0]
+                for rid, e in rig.engines.items())
+    dec = sum(e.decode_ticks - ticks0[rid][1]
+              for rid, e in rig.engines.items())
+    want = {"ragged_paged": n_layers * mixed, "paged_decode": n_layers * dec}
+    flagged = {}
+    for rid, e in rig.engines.items():
+        for ev in e.telemetry.recorder.events(since=ticks0[rid][2]):
+            if ev["event"] in ("tick_anomaly", "profile_armed",
+                               "blackbox_dump"):
+                key = f"{rid} {ev['event']}"
+                flagged[key] = flagged.get(key, 0) + 1
+    log(f"[fleet {label}] launches {({k: n for k, n in counts.items() if n})}"
+        f" ({mixed} mixed and {dec} decode ticks over both replicas); "
+        f"engine events {flagged}")
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"fleet {label}: {name} launched "
+                                 f"{counts.get(name, 0)} times, expected {n}")
+    if want["ragged_paged"] <= 0:
+        raise AssertionError(f"fleet {label}: the ragged kernel never ran")
+    check_decode_route(_kernels, "paged_decode", want["paged_decode"])
+    for k, n in counts.items():
+        if n:
+            FLEET_LAUNCHES[k] = FLEET_LAUNCHES.get(k, 0) + n
+    return counts
+
+
+def sse_tokens(chunk):
+    """Token ids of one fleet SSE chunk ([] for [DONE])."""
+    if not chunk.startswith("data: {"):
+        return []
+    return json.loads(chunk[len("data: "):])["choices"][0]["token_ids"]
+
+
+async def fleet_request(fleet, text, stream, gate=None, first=None, **sp):
+    """One request through the fleet's entry point: dispatch (unary) or
+    dispatch_stream (token ids and chunk arrival times)."""
+    import asyncio
+    if gate is not None:
+        await gate
+    body = dict(prompt=text, max_tokens=FLEET_TOKENS, **sp)
+    t0 = time.perf_counter()
+    if not stream:
+        out = await fleet.dispatch("completions", body)
+        return dict(text=text, stream=False, t0=t0,
+                    t1=time.perf_counter(),
+                    out=out["choices"][0]["text"])
+    toks, times = [], []
+    async for c in fleet.dispatch_stream("completions_stream", body):
+        got = sse_tokens(c)
+        if got:
+            toks += got
+            times.append(time.perf_counter())
+            if first is not None and not first.done():
+                first.set_result(None)
+    await asyncio.sleep(0)
+    return dict(text=text, stream=True, t0=t0, t1=time.perf_counter(),
+                tokens=toks, times=times)
+
+
+def fleet_texts():
+    """(a)'s prompts: two groups of 3 sharing a 1024-character prefix
+    (64 full pages of 16 tokens), and phase 5's 6 prompts (14-1535
+    tokens)."""
+    groups = []
+    for g in ("A", "B"):
+        prefix = (f"Tenant {g} shares this system prompt across all of its "
+                  f"requests. " * 20)[:FLEET_DEPTH]
+        groups.append([prefix + f" Question {i} from tenant {g}?"
+                       for i in range(3)])
+    return groups, list(PROMPT_TEXTS)
+
+
+def fleet_drive(rig, fleet, label):
+    """(a) on `fleet`: the group leaders and the 6 distinct prompts at
+    once, each group's two followers as soon as its leader streamed its
+    first token (12 in flight together); half through dispatch, half
+    through dispatch_stream, greedy, 64 tokens. Checks each response
+    against its engine request; returns the results, the wall and the
+    token lists by text."""
+    import asyncio
+    groups, distinct = fleet_texts()
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        lead = [loop.create_future() for _ in groups]
+        coros = []
+        for g, texts in enumerate(groups):
+            coros.append(fleet_request(fleet, texts[0], True,
+                                       first=lead[g]))
+            coros.append(fleet_request(fleet, texts[1], False, lead[g]))
+            coros.append(fleet_request(fleet, texts[2], True, lead[g]))
+        for i, t in enumerate(distinct):
+            coros.append(fleet_request(fleet, t, i % 3 == 0))
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*coros)
+        wall = time.perf_counter() - t0
+        rig.cancel_pumps()
+        return res, wall
+
+    res, wall = asyncio.run(main())
+    tokens = {}
+    for r in res:
+        rid, req = rig.first_request(r["text"])
+        r["replica"], r["request"] = rid, req
+        if r["stream"]:
+            if r["tokens"] != req.output_tokens:
+                raise AssertionError(f"fleet {label}: streamed tokens differ "
+                                     f"from the engine request's")
+        elif r["out"] != rig.tok.decode(req.output_tokens):
+            raise AssertionError(f"fleet {label}: a response disagrees with "
+                                 f"its tokens")
+        tokens[r["text"]] = req.output_tokens
+    n_out = sum(len(t) for t in tokens.values())
+    log(f"[fleet {label}] {len(res)} requests ({sum(r['stream'] for r in res)}"
+        f" streams): {n_out} output tokens in {wall:.3f} s, "
+        f"{n_out / wall:.1f} tokens/s")
+    return res, wall, n_out
+
+
+def fleet_times(rig, res):
+    """TTFT, TPOT and e2e (ms) of the drive's requests from their
+    replicas' lifecycles (/debug/trace): p50 and p99."""
+    import asyncio
+    by_engine = {}
+    for r in res:
+        by_engine.setdefault(r["replica"], set()).add(r["request"].request_id)
+    lc = {}
+    for rid, wanted in by_engine.items():
+        doc = asyncio.run(rig.servers[rid].debug_trace())
+        evs = [e for e in doc["traceEvents"]
+               if (e.get("args") or {}).get("request_id") in wanted]
+        lc.update(lifecycles({"traceEvents": evs}))
+    if len(lc) != len(res):
+        raise AssertionError(f"{len(res) - len(lc)} requests without a "
+                             f"lifecycle")
+    return {k: dict(p50=pctl([v[k] for v in lc.values()], 0.5),
+                    p99=pctl([v[k] for v in lc.values()], 0.99))
+            for k in ("ttft", "tpot", "e2e")}
+
+
+def fleet_judge(rig, pairs, label):
+    """(engine request, the fleet's token list) pairs against the
+    reference engine on the same prompts and parameters: greedy by
+    phase 5's rule (`judge_streams`), sampled by phase 5d's pickable
+    rule (`compare_sampled`). Returns whether all were identical."""
+    from ray_tpu_torch import Request
+    refs = rig.reference([r for r, _ in pairs], f"ref{label}")
+    greedy = [i for i, (r, _) in enumerate(pairs)
+              if r.params.temperature == 0]
+    sampled = [i for i in range(len(pairs)) if i not in greedy]
+    exact = True
+    if greedy:
+        exact &= judge_streams(
+            None, rig.teacher, [pairs[i][0].prompt_tokens for i in greedy],
+            [pairs[i][1] for i in greedy],
+            [refs[i].output_tokens for i in greedy], f"fleet {label}",
+            names=("fleet", "engine"))
+    if sampled:
+        got = [Request(f"fleet{i}", list(pairs[i][0].prompt_tokens),
+                       pairs[i][0].params, output_tokens=list(pairs[i][1]))
+               for i in sampled]
+        exact &= compare_sampled(rig.ref, rig.engines["r0"],
+                                 [refs[i] for i in sampled], got,
+                                 f"fleet {label}", NEAR_TIE)
+    return exact
+
+
+def fleet_routing(rig):
+    """(a) and (g): the 12 requests over both replicas, a cold pass and
+    the timed warm one, then the same 12 on r0 alone and round-robin
+    over both (6 a replica)."""
+    from ray_tpu_torch.ops import _kernels
+    # a first pass meets every shape of the drive cold (first ragged
+    # ticks, graph captures, flagged ticks and the profiles they arm);
+    # the timed pass repeats it warm
+    rig.clear_caches()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+    rig.mark()
+    cold, cold_wall, cold_n = fleet_drive(rig, rig.fleet(), "cold pass")
+    fleet_counts(rig, ticks0, "cold pass")
+    cold_times = fleet_times(rig, cold)
+    # a profile a flagged tick armed runs on the next ticks, each tick
+    # holding the card: let it finish before the timed pass
+    t0 = time.perf_counter()
+    armed = [rid for rid, e in rig.engines.items() if e._profile is not None]
+    for eng in rig.engines.values():
+        while eng._profile is not None:
+            eng.step()
+    profile_s = time.perf_counter() - t0
+    rig.clear_caches()
+    fleet = rig.fleet()
+    hits0 = {rid: e.allocator.cache_hit_tokens
+             for rid, e in rig.engines.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+    rig.mark()
+    res, wall, n_out = fleet_drive(rig, fleet, "2 replicas")
+    counts = fleet_counts(rig, ticks0, "2 replicas")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    groups, _ = fleet_texts()
+    placed = [{rig.first_request(t)[0] for t in g} for g in groups]
+    rstats = fleet.router.stats()
+    hits = {rid: e.allocator.cache_hit_tokens - hits0[rid]
+            for rid, e in rig.engines.items()}
+    rates = {rid: round(e.allocator.cache_hit_rate, 4)
+             for rid, e in rig.engines.items()}
+    log(f"[fleet 2 replicas] groups on {placed}; router {rstats}; prefix "
+        f"cache hit tokens {hits}, hit rates {rates}")
+    if any(len(p) != 1 for p in placed) or rstats["affinity_hits"] < 6:
+        raise AssertionError(f"a group was not kept on one replica: "
+                             f"{placed}, {rstats}")
+    for p in placed:
+        if hits[next(iter(p))] < 2 * (FLEET_DEPTH - 16):
+            raise AssertionError(f"the followers missed their replica's "
+                                 f"prefix cache: {hits}")
+    times = fleet_times(rig, res)
+    exact = fleet_judge(rig, [(r["request"], r["request"].output_tokens)
+                              for r in res], "2 replicas")
+    # the same 12 requests on one replica
+    rig.clear_caches()
+    one = rig.fleet(clients=rig.clients(("r0",)))
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+    rig.mark()
+    res1, wall1, n1 = fleet_drive(rig, one, "1 replica")
+    fleet_counts(rig, ticks0, "1 replica")
+    times1 = fleet_times(rig, res1)
+    # the same 12 over both replicas, 6 each (round-robin routing)
+    from ray_tpu_torch.serve.llm import RouterConfig
+    rig.clear_caches()
+    rr = rig.fleet(router=RouterConfig(policy="round_robin",
+                                       prefix_depth=FLEET_DEPTH))
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+    rig.mark()
+    res_rr, wall_rr, n_rr = fleet_drive(rig, rr, "round robin")
+    fleet_counts(rig, ticks0, "round robin")
+    times_rr = fleet_times(rig, res_rr)
+    log("[fleet] ms p50 / p99, 2 replicas | 1 replica: " + "; ".join(
+        f"{k} {times[k]['p50']:.1f} / {times[k]['p99']:.1f} | "
+        f"{times1[k]['p50']:.1f} / {times1[k]['p99']:.1f}" for k in times))
+    log(f"[fleet] output tokens/s: 2 replicas {n_out / wall:.1f}, 1 replica "
+        f"{n1 / wall1:.1f} ({n_out / wall / (n1 / wall1):.3f}x); peak "
+        f"{peak / 2**30:.3f} GiB above the replicas as built")
+    for label, tps, tm in (
+            ("the cold pass", cold_n / cold_wall, cold_times),
+            ("round robin (6 a replica)", n_rr / wall_rr, times_rr)):
+        log(f"[fleet] {label}: {tps:.1f} output tokens/s; ms p50 / p99 "
+            + "; ".join(f"{k} {v['p50']:.1f} / {v['p99']:.1f}"
+                        for k, v in tm.items()))
+    log(f"[fleet] profiles armed in the cold pass on {armed} finished in "
+        f"{profile_s:.2f} s of ticks holding the card")
+    return dict(requests=len(res), output_tokens=n_out, wall_s=wall,
+                tokens_per_s=n_out / wall, times=times, exact=exact,
+                cold=dict(wall_s=cold_wall, tokens_per_s=cold_n / cold_wall,
+                          times=cold_times, profiles_armed=armed,
+                          profile_s=profile_s),
+                round_robin=dict(wall_s=wall_rr, tokens_per_s=n_rr / wall_rr,
+                                 times=times_rr),
+                router=rstats, prefix_hit_tokens=hits, peak_bytes=peak,
+                launches=counts,
+                one_replica=dict(output_tokens=n1, wall_s=wall1,
+                                 tokens_per_s=n1 / wall1, times=times1))
+
+
+def routed_prompt(fleet, rid, salt):
+    """A prompt of ~300 tokens whose prefix the ring puts on `rid`."""
+    from ray_tpu_torch.serve.llm import prefix_fingerprint
+    i = 0
+    while True:
+        text = f"{PROMPT_TEXTS[2]} {salt} probe {i}."
+        if fleet.router.ring.preferred(prefix_fingerprint(
+                {"prompt": text}, FLEET_DEPTH))[0] == rid:
+            return text
+        i += 1
+
+
+def fleet_failover(rig):
+    """(b): a chaos client severs a greedy and a sampled stream on r0
+    after 16 token chunks; both continue on r1."""
+    import asyncio
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.serve.llm import (ChaosReplicaClient, ChaosSchedule,
+                                         HealthConfig)
+    sched = ChaosSchedule(seed=11).sever_stream(
+        after_chunks=FLEET_SEVER, method="completions_stream_tokens",
+        count=2)
+    clients = rig.clients()
+    clients[0] = ChaosReplicaClient(clients[0], sched)
+    fleet = rig.fleet(clients=clients,
+                      health=HealthConfig(open_cooldown_s=300.0))
+    texts = [routed_prompt(fleet, "r0", s) for s in ("greedy", "sampled")]
+    fo0 = sum(v for _, v in fleet.metrics["failovers"]._samples())
+    rig.mark()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+
+    async def main():
+        out = await asyncio.gather(
+            fleet_request(fleet, texts[0], True),
+            fleet_request(fleet, texts[1], True, **FLEET_SAMPLED))
+        rig.cancel_pumps()
+        return out
+    res = asyncio.run(main())
+    fleet_counts(rig, ticks0, "failover")
+    fired = [f["kind"] for f in sched.fired]
+    failovers = sum(v for _, v in fleet.metrics["failovers"]._samples()) - fo0
+    if fired != ["stream_sever"] * 2 or failovers != 2 \
+            or fleet.replicas["r0"].status != "UNHEALTHY":
+        raise AssertionError(f"fleet failover: fired {fired}, failovers "
+                             f"{failovers}, r0 {fleet.replicas['r0'].status}")
+    added = []
+    for r in res:
+        # the longest gap after the first half of the severed stream
+        gaps = [b - a for a, b in zip(r["times"], r["times"][1:])]
+        added.append((max(gaps[FLEET_SEVER // 2:])
+                      - statistics.median(gaps)) * 1e3)
+    exact = fleet_judge(rig, [(rig.first_request(r["text"])[1], r["tokens"])
+                              for r in res], "failover")
+    log(f"[fleet failover] {failovers} failovers (r0 evicted); the "
+        f"continuations' added latency {[round(a, 2) for a in added]} ms "
+        f"(greedy, sampled: the gap at the cut less the median gap)")
+    return dict(failovers=failovers, added_latency_ms=added, exact=exact,
+                tokens=[len(r["tokens"]) for r in res])
+
+
+def fleet_transport_timer(rig, extra=()):
+    from ray_tpu_torch.serve.llm import kv_transport as kvt
+    targets = [(kvt, n, n) for n in (
+        "encode_session", "decode_session", "encode_prefix",
+        "decode_prefix", "to_b64", "from_b64")]
+    for rid, eng in rig.engines.items():
+        targets += [(eng, n, f"{rid}.{n}") for n in (
+            "export_session", "import_session", "export_prefix",
+            "import_prefix")]
+    return CallTimer(targets + list(extra))
+
+
+def fleet_drain(rig):
+    """(c): 4 greedy streams, 2 on each replica; _apply_target(1) once
+    each has its first token: the victim's sessions ship to the
+    survivor over the RTKV wire."""
+    import asyncio
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.serve.llm import TransportConfig
+    fleet = rig.fleet(transport=TransportConfig(enable_disagg=False,
+                                                enable_prefix_store=False))
+    texts = [routed_prompt(fleet, rid, f"drain {rid} {i}")
+             for rid in ("r0", "r1") for i in range(2)]
+    rig.mark()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        first = [loop.create_future() for _ in texts]
+        tasks = [asyncio.ensure_future(fleet_request(fleet, t, True,
+                                                     first=f))
+                 for t, f in zip(texts, first)]
+        await asyncio.gather(*first)
+        fleet._apply_target(1)
+        victim = next(rid for rid, st in fleet.replicas.items()
+                      if st.status == "DRAINING")
+        res = await asyncio.gather(*tasks)
+        await asyncio.wait_for(fleet.replicas[victim].drain_task, 120)
+        rig.cancel_pumps()
+        return victim, res
+    with fleet_transport_timer(rig) as timer:
+        victim, res = asyncio.run(main())
+    fleet_counts(rig, ticks0, "drain")
+    moved = [e for e in fleet.recorder.events()
+             if e["event"] == "session_migrated"]
+    spans = [e for e in fleet.trace.events()
+             if e.get("name") == "session_migration"]
+    if not moved or fleet.replicas[victim].status != "STANDBY":
+        raise AssertionError(f"fleet drain: {len(moved)} sessions shipped, "
+                             f"victim {fleet.replicas[victim].status}")
+    nbytes = sum(int(e["bytes"]) for e in moved)
+    pages = sum(int(e["pages"]) for e in moved)
+    survivor = "r1" if victim == "r0" else "r0"
+    parts = dict(
+        export=timer.ms(f"{victim}.export_session"),
+        encode=timer.ms("encode_session"),
+        decode=timer.ms("decode_session"),
+        imports=timer.ms(f"{survivor}.import_session"),
+        b64=timer.ms("to_b64") + timer.ms("from_b64"))
+    ship_ms = sum(parts.values())
+    exact = fleet_judge(rig, [(rig.first_request(r["text"])[1], r["tokens"])
+                              for r in res], "drain")
+    log(f"[fleet drain] victim {victim}: {len(moved)} sessions, {pages} "
+        f"pages, {nbytes / 1e6:.1f} MB shipped; ms "
+        f"{({k: round(v, 2) for k, v in parts.items()})} = {ship_ms:.1f} ms,"
+        f" {nbytes / ship_ms / 1e6:.3f} GB/s; export spans "
+        f"{[round(e['dur'] / 1e3, 2) for e in spans]} ms")
+    return dict(victim=victim, sessions=len(moved), pages=pages,
+                bytes=nbytes, ms=parts, ship_ms=ship_ms,
+                gb_per_s=nbytes / ship_ms / 1e6, exact=exact)
+
+
+def fleet_disagg(rig):
+    """(d): roles prefill (r0) / decode (r1): the 1535-token prompt
+    prefills on r0 and decodes on r1; a short prompt skips the
+    handoff."""
+    import asyncio
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.serve.llm import TransportConfig
+    rig.clear_caches()
+    fleet = rig.fleet(roles=["prefill", "decode"],
+                      transport=TransportConfig(enable_prefix_store=False,
+                                                disagg_prompt_chars=1024))
+    e0, e1 = rig.engines["r0"], rig.engines["r1"]
+    ex0, rs0 = e0.host_tier.exports_total, e1.host_tier.restores_total
+    rig.mark()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+    timer = fleet_transport_timer(rig, [(rig.servers["r0"], "prefill_export",
+                                         "prefill_export")])
+
+    async def main():
+        long = await fleet_request(fleet, PROMPT_TEXTS[0], True)
+        short = await fleet_request(fleet, PROMPT_TEXTS[4], True)
+        rig.cancel_pumps()
+        return long, short
+    with timer:
+        long, short = asyncio.run(main())
+    fleet_counts(rig, ticks0, "disagg")
+    if e0.host_tier.exports_total != ex0 + 1 \
+            or e1.host_tier.restores_total != rs0 + 1 \
+            or [e["event"] for e in fleet.recorder.events()].count(
+                "disagg_handoff") != 1:
+        raise AssertionError("fleet disagg: not one handoff r0 -> r1")
+    pe = timer.calls["prefill_export"][0]
+    imp = timer.calls["r1.import_session"][0]
+    export = timer.ms("r0.export_session")
+    encode = timer.ms("encode_session") + timer.ms("to_b64")
+    parts = dict(prefill=(pe[1] - pe[0]) * 1e3 - export - encode,
+                 export=export, encode=encode,
+                 decode=timer.ms("from_b64") + timer.ms("decode_session"),
+                 imports=(imp[1] - imp[0]) * 1e3,
+                 first_decode=(long["times"][1] - imp[1]) * 1e3)
+    total = (long["times"][0] - long["t0"]) * 1e3
+    exact = fleet_judge(rig, [
+        (rig.first_request(PROMPT_TEXTS[0])[1], long["tokens"]),
+        (rig.first_request(PROMPT_TEXTS[4])[1], short["tokens"])], "disagg")
+    log(f"[fleet disagg] 1535-token prompt: first token after {total:.1f} "
+        f"ms; handoff ms {({k: round(v, 2) for k, v in parts.items()})}; "
+        f"the short prompt took no handoff")
+    return dict(first_token_ms=total, ms=parts, exact=exact)
+
+
+def fleet_prefix_store(rig):
+    """(e): round-robin routing with the prefix store: a 1024-character
+    prefix served on r0 is published, seeded into r1 and hits there."""
+    import asyncio
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.serve.llm import RouterConfig, TransportConfig
+    rig.clear_caches()
+    fleet = rig.fleet(
+        router=RouterConfig(policy="round_robin", prefix_depth=FLEET_DEPTH),
+        transport=TransportConfig(enable_disagg=False,
+                                  enable_migration=False,
+                                  prefix_min_chars=FLEET_DEPTH))
+    prefix = ("The fleet prefix store holds this shared system prompt. "
+              * 20)[:FLEET_DEPTH]
+    texts = [prefix + f" Turn {i}." for i in range(2)]
+    hit0 = {rid: e.allocator.cache_hit_tokens
+            for rid, e in rig.engines.items()}
+    rig.mark()
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+
+    async def main():
+        out = [await fleet_request(fleet, t, True) for t in texts]
+        rig.cancel_pumps()
+        return out
+    with fleet_transport_timer(rig) as timer:
+        res = asyncio.run(main())
+    fleet_counts(rig, ticks0, "prefix store")
+    st = fleet.prefix_store.stats()
+    hits = {rid: e.allocator.cache_hit_tokens - hit0[rid]
+            for rid, e in rig.engines.items()}
+    placed = [rig.first_request(t)[0] for t in texts]
+    if st["publishes"] != 1 or st["hits"] != 1 or placed != ["r0", "r1"] \
+            or hits["r1"] < FLEET_DEPTH - 16:
+        raise AssertionError(f"fleet prefix store: {st}, placed {placed}, "
+                             f"hit tokens {hits}")
+    parts = dict(export=timer.ms("r0.export_prefix"),
+                 encode=timer.ms("encode_prefix") + timer.ms("to_b64"),
+                 decode=timer.ms("from_b64") + timer.ms("decode_prefix"),
+                 imports=timer.ms("r1.import_prefix"))
+    exact = fleet_judge(rig, [(rig.first_request(r["text"])[1], r["tokens"])
+                              for r in res], "prefix store")
+    log(f"[fleet prefix store] published on r0 ({st['bytes_used'] / 1e6:.1f}"
+        f" MB of base64), seeded into r1: r1 hit {hits['r1']} tokens; ms "
+        f"{({k: round(v, 2) for k, v in parts.items()})}")
+    return dict(store=st, hit_tokens=hits, ms=parts, exact=exact)
+
+
+def fleet_surfaces(rig):
+    """(f): status rows and active chips, the merged exposition, graph
+    captures per replica; 16 guarded decode ticks on r0 (driven
+    directly) while r1 serves 4 streams through the fleet."""
+    import asyncio
+    from ray_tpu_torch import Request, SamplingParams
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    fleet = rig.fleet()
+
+    async def surfaces():
+        await fleet.refresh()
+        return await fleet.status(), await fleet.metrics_text()
+    status, text = asyncio.run(surfaces())
+    rows = {rid: (r["status"], r.get("chips"))
+            for rid, r in status["replicas"].items()}
+    if rows != {"r0": ("ACTIVE", 1), "r1": ("ACTIVE", 1)} \
+            or status["autoscale"]["active_chips"] != 2:
+        raise AssertionError(f"fleet status rows {rows}, active chips "
+                             f"{status['autoscale']['active_chips']}")
+    n_samples = check_exposition(text)
+    missing = [f for f in FLEET_FAMILIES if text.count(f"# TYPE {f} ") != 1]
+    if missing:
+        raise AssertionError(f"merged exposition: families {missing} not "
+                             f"declared exactly once")
+    e0 = rig.engines["r0"]
+    reqs = [Request(f"guard{i}", rig.tok.encode(PROMPT_TEXTS[i % 6])[:200],
+                    SamplingParams(max_tokens=GUARD_TICKS * PROFILE_ATTEMPTS
+                                   + 16))
+            for i in range(8)]
+    for r in reqs:
+        e0.add_request(r)
+    page = e0.allocator.page_size
+    # steady: every slot decoding with the pages of its final need (no
+    # growth upload), the decode graph replaying
+    while not all(s.request is not None and s.ready
+                  and len(s.pages) * page >= s.position + 1
+                  + s.request.params.max_tokens
+                  - len(s.request.output_tokens) for s in e0.slots):
+        e0.step()
+    for _ in range(3):
+        e0.step()
+    r1_only = rig.fleet(clients=rig.clients(("r1",)))
+    ticks0 = rig.ticks()
+    _kernels.reset_launch_counts()
+
+    def window():
+        with e0._step_lock:
+            return guarded_window(e0, "fleet r0", dispatch_guard)
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        first = [loop.create_future() for _ in range(4)]
+        tasks = [asyncio.ensure_future(fleet_request(
+            r1_only, f"{PROMPT_TEXTS[1]} Served on r1, stream {i}.", True,
+            first=first[i])) for i in range(4)]
+        await asyncio.gather(*first)
+        guard = await loop.run_in_executor(None, window)
+        res = await asyncio.gather(*tasks)
+        rig.cancel_pumps()
+        return guard, res
+    guard, res = asyncio.run(main())
+    for r in reqs:
+        e0.abort(r.request_id)
+    while e0.has_work():
+        e0.step()
+    fleet_counts(rig, ticks0, "guarded window")
+    captures = {rid: e.graph_captures for rid, e in rig.engines.items()}
+    crashes = {rid: [e["event"] for e in eng.telemetry.recorder.events()
+                     if e["event"] == "engine_crash"]
+               for rid, eng in rig.engines.items()}
+    if any(crashes.values()) or any(len(r["tokens"]) != FLEET_TOKENS
+                                    for r in res):
+        raise AssertionError(f"fleet surfaces: crashes {crashes}, r1 streams "
+                             f"{[len(r['tokens']) for r in res]}")
+    log(f"[fleet surfaces] status rows {rows}, active chips 2; exposition "
+        f"{n_samples} samples, fleet families {FLEET_FAMILIES} once each; "
+        f"graph captures {captures}, none invalidated")
+    return dict(rows=rows, samples=n_samples, guard=guard,
+                graph_captures=captures)
+
+
+def run_fleet(dev, params):
+    """Phase 5h: the serving fleet over two LLMServerImpl replicas on
+    one card, the `8b` preset at full width and depth (the bf16 phase's
+    weights, shared; B 8, pages of 16, 1025 pages). Returns the
+    numbers."""
+    import asyncio
+    t0 = time.perf_counter()
+    rig = FleetRig(params)
+
+    async def warm():
+        for srv in rig.servers.values():
+            await srv.completions(dict(prompt=PROMPT_TEXTS[3],
+                                       max_tokens=4))
+        rig.cancel_pumps()
+    asyncio.run(warm())
+    log(f"[fleet] 2 replicas, the reference and the teacher built and warm "
+        f"in {time.perf_counter() - t0:.1f} s")
+    out = dict(routing=fleet_routing(rig))
+    out["failover"] = fleet_failover(rig)
+    out["drain"] = fleet_drain(rig)
+    out["disagg"] = fleet_disagg(rig)
+    out["prefix_store"] = fleet_prefix_store(rig)
+    out["surfaces"] = fleet_surfaces(rig)
+    out["launches"] = dict(FLEET_LAUNCHES)
+    for eng in list(rig.engines.values()) + [rig.ref]:
+        eng.release_graphs()
+    del rig
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_LAYERS = 4        # full 8b width; depth cut so AdamW state fits 80 GB
@@ -4229,10 +5045,15 @@ def main():
     phase_s["5f"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     spec = run_spec(dev, params)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_s["5g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = run_fleet(dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["5h"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     server = run_server()
     gc.collect()
@@ -4296,6 +5117,11 @@ def main():
         base = k["name"].replace("_narrow_table", "")
         if base in SPEC_LAUNCHES:
             k["launches_spec_legacy"] = SPEC_LAUNCHES[base]
+    # phase 5h's main paths (the fleet drives over both replicas) launches
+    for k in kernels:
+        base = k["name"].replace("_narrow_table", "")
+        if base in FLEET_LAUNCHES:
+            k["launches_fleet"] = FLEET_LAUNCHES[base]
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -4305,7 +5131,7 @@ def main():
                            quant_engine=quant_engine, train=train,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
-                           lora=lora, spec=spec,
+                           lora=lora, spec=spec, fleet=fleet,
                            profiles=PROFILES,
                            tensor_cores=tensor_cores,
                            decode_ptxas=decode_isa), f, indent=1)

@@ -52,7 +52,16 @@ black-box bundles (``blackbox.py``) and on-demand device profiles
 (``profile_next_ticks``). All of it is host arithmetic on the host
 mirrors the engine keeps: no device sync, no upload, no extra launch.
 Every mutating entry point takes ``_step_lock``, since the server
-calls the engine from executor threads.
+calls the engine from executor threads. On a CUDA device that lock is
+the device's (``make_lock``): every engine on one card takes the same
+re-entrant lock, so two replicas of one process (a fleet on one card)
+run one tick at a time. A CUDA graph capture is then never invalidated
+by the other engine's allocation, readback or library call, the
+process-wide launch counters never rewind another engine's launches,
+and a profile session or an armed dispatch guard (which holds the lock
+for its window) sees one engine's work only. A tick that follows the
+other engine's first waits for the work that engine queued, outside
+its own wall (``_claim_device``).
 
 Multi-LoRA serving, as in the JAX engine: ``register_lora(s)`` stacks
 adapters for ``wq``/``wk``/``wv``/``wo`` in ``max_loras + 1`` slots
@@ -397,6 +406,30 @@ def _resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+# one re-entrant lock per CUDA device, shared by every engine on it
+_DEVICE_LOCKS: Dict[int, Any] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+# the engine whose tick ran last on each CUDA device (id(engine)): a
+# tick after another engine's waits for that engine's queued work and
+# re-reads the allocator's baseline first (``_claim_device``)
+_LAST_ON_DEVICE: Dict[int, int] = {}
+
+
+def make_lock(device: torch.device):
+    """An engine's step lock: on a CUDA device the device's one
+    re-entrant lock, shared by every engine there; elsewhere a lock of
+    the engine's own (CPU engines share no device state)."""
+    if device.type != "cuda":
+        return threading.Lock()
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _DEVICE_LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.get(idx)
+        if lock is None:
+            lock = _DEVICE_LOCKS[idx] = threading.RLock()
+        return lock
+
+
 class InferenceEngine:
     def __init__(self, config: EngineConfig,
                  params: Optional[Dict[str, Any]] = None):
@@ -667,8 +700,8 @@ class InferenceEngine:
                 AnomalyConfig(**(ec.anomaly or {})))
         # serializes the mutating entry points: the server steps on an
         # executor thread while aborts, imports and stats arrive from
-        # others
-        self._step_lock = threading.Lock()
+        # others; on a CUDA device, every engine there shares it
+        self._step_lock = make_lock(dev)
         with self._step_lock:
             if dev.type == "cuda":
                 self._note_allocator()       # the baseline
@@ -977,6 +1010,8 @@ class InferenceEngine:
         and return, as in the JAX engine (with async_readback the
         device is still working on the tick when it returns)."""
         with self._step_lock:
+            if self.device.type == "cuda":
+                self._claim_device()
             self._profile_tick_begin()
             # tokens folded outside step() (abort) ride this tick's
             # return, also on the MemoryError path
@@ -1044,6 +1079,21 @@ class InferenceEngine:
                 env.peak_bytes_per_s * self.n_chips)
             if ev is not None:
                 self._on_tick_anomaly(ev)
+
+    def _claim_device(self) -> None:
+        """Tick entry on a CUDA device (the device's lock held): when
+        another engine ran on the card since this one's last tick, wait
+        for the work it queued and take the allocator's reading anew,
+        before the tick's clock starts. The tick's wall (the anomaly
+        detector's and the cost window's input), its profile and its
+        first-use evidence then hold this engine's work alone."""
+        idx = self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+        if _LAST_ON_DEVICE.get(idx) != id(self):
+            _LAST_ON_DEVICE[idx] = id(self)
+            with self._sync_allowed():
+                torch.cuda.synchronize(self.device)
+            self._note_allocator()
 
     def _note_allocator(self) -> bool:
         """Read the caching allocator's reserve and segment count (host

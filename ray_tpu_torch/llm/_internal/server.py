@@ -35,6 +35,17 @@ from .tokenizer import load_tokenizer
 # max_tokens when the body omits it (the JAX server's)
 DEFAULT_MAX_TOKENS = 32
 
+# body keys the fleet ingress mints itself (serve/llm/fleet.py): every
+# public ingress strips client-supplied values — a forged
+# `_request_id` could replay or abort another request,
+# `_continue_tokens` injects raw token ids, `_deadline_epoch` bypasses
+# `deadline_s`, and `_session` would inject raw KV pages into the pool.
+# One list; this server pops them one by one and the fleet imports it.
+INTERNAL_BODY_KEYS = ("_request_id", "_trace", "_deadline_epoch",
+                      "_continue_tokens", "_token_offset",
+                      "_session", "_resume_offset", "_chat",
+                      "_tenant", "_lane")
+
 
 def parse_since(raw: Any) -> "int | None":
     """`?since=<seq>` cursor parsing: absent or malformed → None (the
@@ -51,21 +62,27 @@ def parse_since(raw: Any) -> "int | None":
 class LLMServerImpl:
     """The deployment class body (decorated at app-build time)."""
 
-    def __init__(self, llm_config: Dict[str, Any]):
+    def __init__(self, llm_config: Dict[str, Any],
+                 engine: Optional[InferenceEngine] = None):
+        """`engine`: an engine the caller built (replicas of one process
+        sharing one set of weight tensors), in place of the one
+        `engine_kwargs` would build; its config then says the model,
+        the metrics tags and the replica id."""
         self._config = dict(llm_config)
         engine_kwargs = dict(self._config.get("engine_kwargs") or {})
         self.model_id = self._config.get("model_id", "default")
         # Prometheus samples tag per model unless the
         # engine_kwargs pin an explicit tag
         engine_kwargs.setdefault("metrics_model_id", self.model_id)
+        if engine is None:
+            engine = InferenceEngine(EngineConfig(
+                model=self._config.get("model_source", "debug"),
+                **engine_kwargs))
+        self.engine = engine
         # fleet identity: the fleet's deployment code
         # injects metrics_replica_id so this replica's series and
         # fleet_stats() rows carry its id; standalone servers stay ""
-        self.replica_id = str(
-            engine_kwargs.get("metrics_replica_id") or "")
-        self.engine = InferenceEngine(EngineConfig(
-            model=self._config.get("model_source", "debug"),
-            **engine_kwargs))
+        self.replica_id = str(engine.config.metrics_replica_id or "")
         self.tokenizer = load_tokenizer(
             self._config.get("tokenizer_source"),
             vocab_size=self.engine.model_cfg.vocab_size)

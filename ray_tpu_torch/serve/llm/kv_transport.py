@@ -24,21 +24,29 @@ the reference's names (``bfloat16``, ``float8_e4m3fn``) and decode to
 torch tensors through a same-size integer view, never upcast. int8
 pages and float32 scales are plain numpy.
 
+The fleet half (`prompt_char_len`, the replica roles,
+`TransportConfig`, `FleetPrefixStore` and `transport_metrics`) is the
+policy that ``fleet.py`` layers over the wire: disaggregated prefill,
+drain migration, failover-by-restore and the fleet prefix store.
+
 Host-side only: numpy, torch's CPU tensors and the standard library.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import struct
 import zlib
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ...llm._internal.kv_offload import TENSOR_DTYPES
+from ...util import metrics as metrics_api
 
 MAGIC = b"RTKV"
 # v2: kv_dtype in meta + per-(row, head) scale arrays for quantized
@@ -288,7 +296,174 @@ def from_b64(payload: str) -> bytes:
         raise TransportError(f"payload is not valid base64: {e!r}")
 
 
-__all__ = ["MAGIC", "SUPPORTED_WIRE_VERSIONS", "WIRE_VERSION",
-           "TransportChecksumError", "TransportError", "decode_prefix",
-           "decode_session", "encode_prefix", "encode_session",
-           "from_b64", "ship_kind_compatible", "to_b64"]
+def prompt_char_len(body: Dict[str, Any]) -> int:
+    """Prompt length in characters — the disaggregation trigger reads
+    the same canonical text prefix_fingerprint hashes (prompt string,
+    or the role-tagged chat rendering)."""
+    if body.get("prompt") is not None:
+        return len(str(body["prompt"]))
+    return sum(len(str(m.get("role", ""))) + len(str(m.get("content",
+                                                           "")))
+               for m in (body.get("messages") or []))
+
+
+# -- fleet policy -------------------------------------------------------
+
+ROLE_PREFILL = "prefill"
+ROLE_DECODE = "decode"
+ROLE_MIXED = "mixed"
+REPLICA_ROLES = (ROLE_PREFILL, ROLE_DECODE, ROLE_MIXED)
+
+
+@dataclasses.dataclass
+class TransportConfig:
+    """Fleet KV-shipping policy (FleetManager(transport=...); None =
+    the transport is off: no handoff, no migration, no prefix store)."""
+    # (a) disaggregated prefill/decode: prompts at least this many
+    # characters long are prefilled on a `prefill`-role replica and
+    # handed to a decode replica (no-op without prefill replicas)
+    enable_disagg: bool = True
+    disagg_prompt_chars: int = 256
+    # (b) live migration: drain-before-downscale ships parked
+    # sessions instead of replaying, and stream failover tries an
+    # export-restore fast path before falling back to replay
+    enable_migration: bool = True
+    # (c) fleet prefix store: prompts whose ROUTER-DEPTH prefix is at
+    # least this long are published once and seeded into every
+    # replica that serves the prefix
+    enable_prefix_store: bool = True
+    prefix_min_chars: int = 64
+    prefix_store_bytes: int = 256 << 20
+    # bound on every export/import control call (a wedged replica
+    # must not stall a drain or a failover decision)
+    ship_timeout_s: float = 10.0
+
+
+@dataclasses.dataclass
+class _PrefixEntry:
+    payload: str                 # b64 wire frame (encode_prefix)
+    nbytes: int
+    tokens: int                  # full-page token count stored
+    publisher: str               # replica that exported it
+    seeded: set = dataclasses.field(default_factory=set)
+    hits: int = 0                # lookups that found this entry
+    last_seq: int = 0            # recency stamp (store-wide counter)
+
+
+class FleetPrefixStore:
+    """Fleet-shared prefix tier: prefix fingerprint → serialized full
+    prompt pages, byte-bounded. Lives in the ingress process (one per
+    FleetManager); replicas are SEEDED lazily — the first time the
+    router lands a stored prefix on a replica that has not seen it,
+    the fleet imports the pages there before dispatching, so the
+    replica's own prefix cache hits exactly as if it had prefilled
+    the prompt itself.
+
+    Eviction is HIT-FREQUENCY-WEIGHTED, not LRU-by-bytes: under byte
+    pressure the victim is the entry with the lowest hits-per-byte
+    score (ties broken least-recently-used). A hot small system
+    prompt — the store's whole reason to exist — therefore outlives a
+    cold large prefix that happens to have arrived later, where pure
+    LRU would churn the hot entry out the moment a burst of large cold
+    prefixes passed through."""
+
+    def __init__(self, capacity_bytes: int = 256 << 20):
+        self.capacity_bytes = int(capacity_bytes)
+        self._entries: "OrderedDict[str, _PrefixEntry]" = OrderedDict()
+        self._seq = 0
+        self.bytes_used = 0
+        self.publishes = 0
+        self.hits = 0                # imports that seeded a replica
+        self.evictions = 0
+
+    def __contains__(self, fp: str) -> bool:
+        return fp in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, fp: str) -> Optional[_PrefixEntry]:
+        ent = self._entries.get(fp)
+        if ent is not None:
+            self._seq += 1
+            ent.hits += 1
+            ent.last_seq = self._seq
+        return ent
+
+    @staticmethod
+    def _score(ent: _PrefixEntry) -> "Tuple[float, int]":
+        """Eviction priority, LOWEST evicted first: hit frequency per
+        byte (a hot small entry scores far above a cold large one),
+        recency as the tie-break. New entries start at 0 hits — they
+        must earn their residency."""
+        return (ent.hits / max(ent.nbytes, 1), ent.last_seq)
+
+    def put(self, fp: str, payload: str, tokens: int,
+            publisher: str) -> Optional[_PrefixEntry]:
+        """Store one published prefix (publisher counts as seeded).
+        Oversized payloads are refused rather than thrashing the
+        whole store."""
+        if fp in self._entries:
+            return self._entries[fp]
+        nbytes = len(payload)
+        if nbytes > self.capacity_bytes:
+            return None
+        while self.bytes_used + nbytes > self.capacity_bytes \
+                and self._entries:
+            victim = min(self._entries,
+                         key=lambda k: self._score(self._entries[k]))
+            old = self._entries.pop(victim)
+            self.bytes_used -= old.nbytes
+            self.evictions += 1
+        self._seq += 1
+        ent = _PrefixEntry(payload=payload, nbytes=nbytes,
+                           tokens=tokens, publisher=publisher,
+                           seeded={publisher}, last_seq=self._seq)
+        self._entries[fp] = ent
+        self.bytes_used += nbytes
+        self.publishes += 1
+        return ent
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "entries": len(self._entries),
+            "bytes_used": self.bytes_used,
+            "capacity_bytes": self.capacity_bytes,
+            "policy": "hit-frequency-weighted",
+            "publishes": self.publishes,
+            "hits": self.hits,
+            "evictions": self.evictions,
+            "seeded_replicas": sorted(
+                {r for e in self._entries.values() for r in e.seeded}),
+        }
+
+
+def transport_metrics() -> Dict[str, Any]:
+    """The fleet transport metric families, registered idempotently
+    in the ingress process registry (same pattern as the failure
+    plane's fleet_metrics)."""
+    C = metrics_api.Counter
+    return {
+        "sessions_shipped": C(
+            "ray_tpu_llm_kv_sessions_shipped_total",
+            "parked sessions shipped between replicas, by consumer "
+            "(disagg | migration | restore)", ("model", "kind")),
+        "ship_bytes": C(
+            "ray_tpu_llm_kv_ship_bytes_total",
+            "serialized KV transport bytes, by direction (export = "
+            "off a replica, import = onto one)",
+            ("model", "direction")),
+        "prefix_store_hits": C(
+            "ray_tpu_llm_prefix_store_hits_total",
+            "fleet prefix-store entries seeded into a replica that "
+            "had not prefilled the prefix itself", ("model",)),
+    }
+
+
+__all__ = ["FleetPrefixStore", "MAGIC", "REPLICA_ROLES", "ROLE_DECODE",
+           "ROLE_MIXED", "ROLE_PREFILL", "SUPPORTED_WIRE_VERSIONS",
+           "TransportChecksumError", "TransportConfig", "TransportError",
+           "WIRE_VERSION", "decode_prefix", "decode_session",
+           "encode_prefix", "encode_session", "from_b64",
+           "prompt_char_len", "ship_kind_compatible", "to_b64",
+           "transport_metrics"]

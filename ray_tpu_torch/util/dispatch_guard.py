@@ -24,6 +24,11 @@ Armed on an engine for the block:
   a graph capture), so a stray ``.item()`` or ``.cpu()`` raises at its
   own line.
 
+On a CUDA device the block holds the engine's step lock, which every
+engine on the card shares (``engine.make_lock``): the sync debug mode
+is process-wide, so no other engine may work on the card while it is
+set, and the block's steps run on the thread that entered it.
+
 ``raise_on_violation=False`` collects the report without raising (sync
 debug mode "warn"). A capture budget exceeded lands in the engine's
 flight recorder as a "guard_violation" event (which black-boxes a
@@ -98,16 +103,17 @@ def dispatch_guard(max_captures: int = 0, *, engine,
     report = GuardReport()
     cuda = engine.device.type == "cuda"
     mode = ("error" if raise_on_violation else "warn") if cuda else None
-    engine._guard = _Armed(report, raise_on_violation, mode)
-    prev = torch.cuda.get_sync_debug_mode() if cuda else None
-    if cuda:
-        torch.cuda.set_sync_debug_mode(mode)
-    try:
-        yield report
-    finally:
-        engine._guard = None
+    with (engine._step_lock if cuda else contextlib.nullcontext()):
+        engine._guard = _Armed(report, raise_on_violation, mode)
+        prev = torch.cuda.get_sync_debug_mode() if cuda else None
         if cuda:
-            torch.cuda.set_sync_debug_mode(prev)
+            torch.cuda.set_sync_debug_mode(mode)
+        try:
+            yield report
+        finally:
+            engine._guard = None
+            if cuda:
+                torch.cuda.set_sync_debug_mode(prev)
     if len(report.captures) > max_captures:
         recorder = getattr(getattr(engine, "telemetry", None), "recorder",
                            None)

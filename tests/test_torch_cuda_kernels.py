@@ -1263,3 +1263,172 @@ def test_legacy_engine_matches_unified_engine(dev):
     assert st["compile_cache"]["prefill_buckets"] > 0
     uni.release_graphs()
     leg.release_graphs()
+
+
+def _fleet_engines(n, **over):
+    """n `tiny` float32 engines on the card over one set of weights."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import llama
+    kw = dict(model=llama.config("tiny", dtype=torch.float32),
+              max_batch_size=4, page_size=16, num_pages=129, seed=5,
+              max_prefill_tokens=64, **over)
+    first = InferenceEngine(EngineConfig(**kw))
+    return [first] + [InferenceEngine(EngineConfig(**kw),
+                                      params=first.params)
+                      for _ in range(n - 1)]
+
+
+def _fleet_requests(tag, prompts, sampled):
+    from ray_tpu_torch import Request, SamplingParams
+    sp = (dict(temperature=0.8, top_p=0.95, top_k=50) if sampled else {})
+    return [Request(f"{tag}{i}", list(p), SamplingParams(
+        max_tokens=24, seed=100 + i, **sp)) for i, p in enumerate(prompts)]
+
+
+def _run_engine(eng, reqs, start=None):
+    if start is not None:
+        start.wait(timeout=60)
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+    return [r.output_tokens for r in reqs]
+
+
+@pytest.mark.cuda
+def test_fleet_two_engines_step_concurrently(dev):
+    """Two engines of one process on one card (a fleet's two replicas),
+    stepped from two threads at once from their first tick, so each
+    captures its decode graph while the other works: each engine's
+    tokens equal those of the same engine alone, the launch counters
+    are the sum of each alone, every engine captured its graph and none
+    crashed (an invalidated capture raises out of step()). The engines
+    share the device's lock."""
+    import threading
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(2, 2000, (n,), generator=gen).tolist()
+               for n in (40, 3, 17, 90, 9, 64)]
+    alone = _fleet_engines(2)
+    assert alone[0]._step_lock is alone[1]._step_lock
+    want, counts_alone = [], {}
+    for i, eng in enumerate(alone):
+        _kernels.reset_launch_counts()
+        want.append(_run_engine(eng, _fleet_requests("a", prompts, i == 1)))
+        for k, v in _kernels.launch_counts().items():
+            counts_alone[k] = counts_alone.get(k, 0) + v
+    pair = _fleet_engines(2)
+    _kernels.reset_launch_counts()
+    start = threading.Barrier(2)
+    got, errors = [None, None], []
+
+    def worker(i):
+        try:
+            got[i] = _run_engine(pair[i], _fleet_requests(
+                "b", prompts, i == 1), start)
+        except BaseException as e:      # reported by the main thread
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert got == want
+    assert _kernels.launch_counts() == counts_alone
+    assert counts_alone["paged_decode"] > 0 \
+        and counts_alone["ragged_paged"] > 0
+    for a, b in zip(alone, pair):
+        assert b.graph_captures == a.graph_captures >= 1
+        assert "engine_crash" not in [
+            e["event"] for e in b.telemetry.recorder.events()]
+    for e in alone + pair:
+        e.release_graphs()
+
+
+@pytest.mark.cuda
+def test_fleet_two_replicas_on_the_card_token_exact(dev):
+    """A two-replica fleet on one card (port LLMServerImpl replicas on
+    `tiny` float32 engines sharing their weights): 4 unary requests and
+    4 streams at once, then a drain to one replica that ships the live
+    sessions over the RTKV wire; every request's tokens equal those of
+    one synchronous eager engine on the same weights, and the launch
+    counters are layers x ticks summed over both replicas."""
+    import asyncio
+    import dataclasses
+    import json
+    from ray_tpu_torch import InferenceEngine, LLMServerImpl, Request
+    from ray_tpu_torch.serve.llm import (AutoscaleConfig, FleetManager,
+                                         LocalReplicaClient, TransportConfig)
+    [e0] = _fleet_engines(1, enable_kv_offload=True,
+                          metrics_replica_id="r0")
+    e1, ref = (InferenceEngine(dataclasses.replace(e0.config, **kw),
+                               params=e0.params)
+               for kw in (dict(metrics_replica_id="r1"),
+                          dict(cuda_graph=False, async_readback=False,
+                               metrics_replica_id="ref")))
+    submitted = []
+    servers = {}
+    for eng in (e0, e1):
+        add = eng.add_request
+        eng.add_request = (lambda a: lambda r: submitted.append(r) or a(r))(
+            add)
+        rid = eng.config.metrics_replica_id
+        servers[rid] = LLMServerImpl({"model_id": "tiny"}, engine=eng)
+    fleet = FleetManager(
+        [LocalReplicaClient(r, s) for r, s in servers.items()],
+        autoscale=AutoscaleConfig(min_replicas=2, max_replicas=2),
+        transport=TransportConfig(enable_disagg=False,
+                                  enable_prefix_store=False))
+    texts = [f"fleet request {i} " * (1 + 3 * i) for i in range(8)]
+    ticks0 = [(e.ragged_ticks, e.decode_ticks) for e in (e0, e1)]
+    _kernels.reset_launch_counts()
+
+    async def stream(body, started):
+        toks = []
+        async for c in fleet.dispatch_stream("completions_stream", body):
+            if c.startswith("data: {"):
+                toks += json.loads(c[6:])["choices"][0]["token_ids"]
+                if not started.done():
+                    started.set_result(None)
+        return toks
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        started = [loop.create_future() for _ in texts[4:]]
+        unary = [fleet.dispatch("completions",
+                                {"prompt": t, "max_tokens": 24})
+                 for t in texts[:4]]
+        streams = [stream({"prompt": t, "max_tokens": 48}, s)
+                   for t, s in zip(texts[4:], started)]
+        tasks = [asyncio.ensure_future(c) for c in unary + streams]
+        await asyncio.wait_for(asyncio.gather(*started), 120)
+        fleet._apply_target(1)
+        out = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+        for s in servers.values():
+            s._pump.cancel()
+        return out
+
+    out = asyncio.run(main())
+    counts = _kernels.launch_counts()
+    n_layers = e0.model_cfg.n_layers
+    mixed = sum(e.ragged_ticks - t[0] for e, t in zip((e0, e1), ticks0))
+    dec = sum(e.decode_ticks - t[1] for e, t in zip((e0, e1), ticks0))
+    assert counts["ragged_paged"] == n_layers * mixed > 0
+    assert counts["paged_decode"] == n_layers * dec > 0
+    assert "session_migrated" in [e["event"]
+                                  for e in fleet.recorder.events()]
+    tok = servers["r0"].tokenizer
+    first = {}
+    for r in submitted:                  # the first submission of a prompt
+        first.setdefault(tuple(r.prompt_tokens), r)
+    for i, text in enumerate(texts):
+        r = first[tuple(tok.encode(text))]
+        [want] = _run_engine(ref, [Request(f"ref{i}", list(r.prompt_tokens),
+                                           r.params)])
+        if i < 4:
+            assert out[i]["choices"][0]["text"] == tok.decode(want), i
+        else:
+            assert out[i] == want, i
+    for e in (e0, e1):
+        e.release_graphs()
