@@ -188,6 +188,34 @@ Phases (any failure raises and exits non-zero):
      the three flash kernels' launch counters as remat implies; step
      time, tokens/s, MFU, peak memory and a profiler breakdown; one
      step on attention_impl="xla" from the same parameters must agree;
+     one step each under remat_policy "dots_no_batch" (the default:
+     the outputs of products with no batch dimension kept) and
+     "nothing" from the same parameters, ms and peak memory above the
+     state beside each other: the same loss, grad norms within
+     TRAIN_GNORM_RTOL;
+  6b. MoE training: TrainStepBundle on the `8x7b` preset (Mixtral-8x7B
+     widths: 8 experts, top-2, capacity factor 1.25) at full width, 2
+     layers (seeded random f32 parameters, bf16 compute, remat
+     "dots_no_batch", loss chunk 512), batch 4 x 2048: a warm-up step
+     and 8 timed steps; losses finite and falling, moe_aux finite and
+     positive; the flash launch counters as remat implies; step ms,
+     tokens/s, MFU (active experts), peak memory, a profile by group
+     (the float32 one-hot dispatch and combine products apart from the
+     bf16 expert products); then, through llama.loss_fn and
+     torch.autograd.grad on the trained parameters with no optimizer
+     state: attention_impl="xla" against the kernels, and the dropless
+     path against the capacity path at capacity factor E / top_k (no
+     drops) at batch 1 x 2048, each within phase 6's tolerances; the
+     grouped expert product of torch._grouped_mm against the port's
+     per-expert loop at these widths (two bf16 ulps), with both times;
+  6c. checkpoints: an `8b`-width tree of 2 layers in bf16 from a seeded
+     generator written by save_llama_checkpoint (with config.json) into
+     a temporary directory (removed after), write and read GB/s; an
+     engine with checkpoint= and model=None (the architecture from
+     config.json) decodes phase 5's six prompts greedily token-exact
+     against an engine on the source tensors; init_state_from_checkpoint
+     at float32: parameters bit-equal to the upcast source, and one step
+     the same loss as a bundle from state_from_numpy on those values;
   7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
 
@@ -207,9 +235,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1314,7 +1344,8 @@ def kernel_groups(evs):
              "serving attention" if ("ragged" in key
                                      or "paged_decode" in key) else
              "noise kernel" if "row_gumbel" in key else
-             "float32 matmuls" if "sgemm" in key else
+             "float32 matmuls" if ("sgemm" in key
+                                   or "f32f32_f32f32" in key) else
              "matmuls" if ("nvjet" in key or "gemm" in key
                            or "cutlass" in key) else
              "copies and casts" if "copy" in key else
@@ -4915,6 +4946,10 @@ def run_train(dev):
     mk = _sync_metrics(mk)
     del state
     torch.cuda.empty_cache()
+    policies = policy_ab(cfg, opt, snap, tokens)
+    if policies["dots_no_batch"]["loss"] != mk["loss"]:
+        raise AssertionError("train: the policy A/B's default step and the "
+                             "profiled step disagree on the loss")
     xb = TrainStepBundle(llama.config(cfg, attention_impl="xla"),
                          optimizer=opt)
     _, mx = xb.step((snap, opt.init(snap)), tokens)
@@ -4933,8 +4968,402 @@ def run_train(dev):
         tokens_per_s=tok_s, flops_per_step=fpt * TRAIN_BATCH * TRAIN_SEQ,
         mfu=mfu, peak_memory_bytes=peak, eval_loss=ev["loss"], head=head,
         kernel_vs_xla=dict(kernel=mk, xla=mx, loss_rel=dl, gnorm_rel=dg),
+        remat_policies=policies,
         profile=dict(prof, step_wall_ms=step_ms,
                      idle_share=max(0.0, 1 - prof["device_ms"] / step_ms)))
+
+
+POLICY_STEPS = 2        # timed steps a leg of the remat policy A/B
+
+
+def policy_leg(cfg, opt, params, tokens):
+    """A fresh TrainStepBundle state from `params`: one warm-up and
+    POLICY_STEPS timed steps; their ms and the peak memory above the
+    state."""
+    from ray_tpu_torch.models.training import TrainStepBundle
+    bundle = TrainStepBundle(cfg, optimizer=opt)
+    state = (params, opt.init(params))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(1 + POLICY_STEPS):
+        t0 = time.perf_counter()
+        state, _ = bundle.step(state, tokens)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms[1:], torch.cuda.max_memory_allocated() - base
+
+
+def policy_ab(cfg, opt, snap, tokens):
+    """The remat policy A/B from copies of the same parameters: a
+    forward and backward alone under each policy (the loss equal, grad
+    norms within TRAIN_GNORM_RTOL; the peak above the parameters is the
+    activations the policy keeps), then train steps in turns (A, B, B,
+    A: a warm-up and POLICY_STEPS timed steps a leg), their median ms
+    and peak above the state."""
+    from ray_tpu_torch.models import llama
+    cfgs = {p: llama.config(cfg, remat_policy=p)
+            for p in ("dots_no_batch", "nothing")}
+    out = {p: dict(step_ms=[]) for p in cfgs}
+    for policy, pcfg in cfgs.items():
+        params = _clone_tree(snap)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[policy].update(grad_metrics(pcfg, params, tokens))
+        out[policy]["fwd_bwd_peak_above_params"] = \
+            torch.cuda.max_memory_allocated() - base
+        del params
+    for policy in ("dots_no_batch", "nothing", "nothing", "dots_no_batch"):
+        ms, peak = policy_leg(cfgs[policy], opt, _clone_tree(snap), tokens)
+        out[policy]["step_ms"] += ms
+        out[policy]["step_peak_above_state"] = peak
+        gc.collect()
+        torch.cuda.empty_cache()
+    for policy, r in out.items():
+        r["step_ms_median"] = statistics.median(r["step_ms"])
+        log(f"[train remat] {policy!r}: forward+backward peak "
+            f"{r['fwd_bwd_peak_above_params'] / 2**30:.2f} GiB above the "
+            f"parameters; train step median {r['step_ms_median']:.1f} ms "
+            f"({[round(x, 1) for x in r['step_ms']]}), peak "
+            f"{r['step_peak_above_state'] / 2**30:.2f} GiB above the "
+            f"state; loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}")
+    a, b = out["dots_no_batch"], out["nothing"]
+    dg = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+    log(f"[train remat] \"nothing\" against \"dots_no_batch\": step "
+        f"{b['step_ms_median'] / a['step_ms_median']:.3f}x, "
+        f"forward+backward peak "
+        f"{b['fwd_bwd_peak_above_params'] / a['fwd_bwd_peak_above_params']:.3f}x;"
+        f" grad_norm rel {dg:.2e} (tol {TRAIN_GNORM_RTOL})")
+    if a["loss"] != b["loss"] or not dg <= TRAIN_GNORM_RTOL:
+        raise AssertionError("train: the remat policies disagree")
+    return out
+
+
+# ------------------------------------------------------------ MoE training
+
+MOE_LAYERS = 2          # 8x7b widths; 3.165B params: p, g, m, v 50.6 GB
+MOE_BATCH, MOE_SEQ = 4, 2048
+MOE_STEPS = 8           # timed, after one warm-up step
+MOE_LAUNCHES = {}       # phase 6b's main path launches, for the summary
+
+
+def grad_metrics(cfg, params, tokens):
+    """llama.loss_fn and torch.autograd.grad on `params` (no optimizer
+    state): the metrics, the global norm of the gradients and the host
+    syncs the two calls made (torch's sync debug mode)."""
+    import warnings
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import _leaves as leaves, global_norm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loss, m = llama.loss_fn(cfg, params, tokens)
+            grads = torch.autograd.grad(loss, leaves(params))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    out = dict(_sync_metrics(m), grad_norm=global_norm(grads).item(),
+               host_syncs=syncs)
+    del grads, loss
+    return out
+
+
+def agree(label, a, b, keys=("loss", "grad_norm")):
+    rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in keys}
+    tol = dict(loss=TRAIN_LOSS_RTOL, grad_norm=TRAIN_GNORM_RTOL,
+               moe_aux=TRAIN_LOSS_RTOL)
+    log(f"[train moe] {label}: " + "; ".join(
+        f"{k} {a[k]:.6f} vs {b[k]:.6f} (rel {rel[k]:.2e}, tol {tol[k]})"
+        for k in keys))
+    if any(rel[k] > tol[k] for k in keys):
+        raise AssertionError(f"train moe: {label} disagree")
+    return rel
+
+
+def grouped_probe(cfg, params, tokens):
+    """The dropless path's grouped expert product at these widths: the
+    port's per-expert loop (ops/moe.py) against torch._grouped_mm (one
+    library call, used nowhere in the port) on the same sorted rows of
+    layer 0, forward within two bf16 ulps, with both times."""
+    from ray_tpu_torch.ops import moe
+    from ray_tpu_torch.models import llama
+    with torch.no_grad():
+        x = params["embed"].to(cfg.dtype)[tokens.long()].reshape(
+            -1, cfg.hidden)
+        lay = {k: v[0] for k, v in params["layers"].items()}
+        probs = moe.router_probs(llama.rms_norm(x, lay["ln2"], cfg.norm_eps),
+                                 lay["router"])
+        _, idx = moe.top_k_routing(probs, cfg.moe_top_k)
+        eid = idx.reshape(-1)
+        order = torch.sort(eid, stable=True).indices
+        rows = x[torch.arange(x.shape[0], device=x.device)
+                 .repeat_interleave(cfg.moe_top_k)[order]]
+        counts = torch.bincount(eid, minlength=cfg.n_experts)
+        w = lay["wg"].to(cfg.dtype)
+        sizes = counts.tolist()
+
+        def loop():
+            return torch.cat([r @ w[e] for e, r in
+                              enumerate(rows.split(sizes))])
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+
+        def grouped():
+            return torch._grouped_mm(rows, w, offs=offs)
+        ref, got = loop(), grouped()
+        err = ((got.float() - ref.float()).abs()
+               / ref.float().abs().clamp(min=1e-3 * ref.float().abs().max())
+               ).max().item()
+        loop_ms, grouped_ms = time_ms(loop, iters=10), time_ms(grouped,
+                                                               iters=10)
+    flops = 2 * rows.shape[0] * cfg.hidden * cfg.ffn
+    log(f"[train moe] grouped product {tuple(rows.shape)} x "
+        f"{tuple(w.shape)} (groups {sizes}): per-expert loop "
+        f"{loop_ms:.3f} ms ({flops / loop_ms / 1e9:.0f} TFLOP/s), "
+        f"torch._grouped_mm {grouped_ms:.3f} ms; max rel diff {err:.2e} "
+        f"(tol {FLASH_REL}: two bf16 ulps)")
+    if not err <= FLASH_REL:
+        raise AssertionError("train moe: torch._grouped_mm and the "
+                             "per-expert loop disagree")
+    return dict(rows=rows.shape[0], groups=sizes, loop_ms=loop_ms,
+                grouped_mm_ms=grouped_ms, max_rel_diff=err)
+
+
+def run_train_moe(dev):
+    """Phase 6b: TrainStepBundle on the 8x7b preset, 2 layers."""
+    import dataclasses
+    import numpy as np
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (TrainStepBundle,
+                                               default_optimizer)
+    from ray_tpu_torch.ops import _kernels
+    cfg = llama.config("8x7b", n_layers=MOE_LAYERS, max_seq=MOE_SEQ)
+    opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                            total_steps=100)
+    bundle = TrainStepBundle(cfg, optimizer=opt)
+    t0 = time.perf_counter()
+    state = bundle.init_state(0)
+    rng = np.random.default_rng(1)
+    tokens = bundle.shard_batch(rng.integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)).astype(np.int32))
+    torch.cuda.synchronize()
+    t_cap = MOE_BATCH * MOE_SEQ * cfg.moe_top_k / cfg.n_experts \
+        * cfg.moe_capacity_factor
+    log(f"[train moe] 8x7b widths, {cfg.n_layers} layers, "
+        f"{cfg.num_params() / 1e9:.3f}B params (f32; bf16 compute; remat "
+        f"{cfg.remat_policy!r}; {cfg.n_experts} experts, top-"
+        f"{cfg.moe_top_k}, capacity {int(t_cap)} a expert), batch "
+        f"{MOE_BATCH}x{MOE_SEQ}; init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps = []
+    for i in range(1 + MOE_STEPS):
+        t0 = time.perf_counter()
+        state, m = bundle.step(state, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = _sync_metrics(m)
+        steps.append(dict(ms=ms, **m))
+        log(f"[train moe] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{m['loss']:.5f} moe_aux {m['moe_aux']:.5f} grad_norm "
+            f"{m['grad_norm']:.5f} {ms:.1f} ms")
+    counts = _kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(steps)
+    want = dict(flash_fwd=2 * cfg.n_layers * n, flash_dq=cfg.n_layers * n,
+                flash_dkv=cfg.n_layers * n)
+    log(f"[train moe] launches {counts} (expected {want})")
+    for name, w in want.items():
+        if counts[name] != w:
+            raise AssertionError(f"train moe: {name} launched "
+                                 f"{counts[name]} times, expected {w}")
+    if any(c for name, c in counts.items() if not name.startswith("flash")):
+        raise AssertionError("train moe: a serving kernel ran")
+    MOE_LAUNCHES.update(want)
+    for st in steps:
+        if not all(math.isfinite(st[k]) for k in ("loss", "grad_norm",
+                                                   "moe_aux")):
+            raise AssertionError(f"train moe: non-finite metrics {st}")
+        if not st["moe_aux"] > 0:
+            raise AssertionError(f"train moe: moe_aux {st['moe_aux']}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"train moe: loss did not fall "
+                             f"({steps[0]['loss']} -> {steps[-1]['loss']})")
+    timed = [st["ms"] for st in steps[1:]]
+    step_ms = statistics.median(timed)
+    tok_s = MOE_BATCH * MOE_SEQ / (step_ms / 1e3)
+    fpt = llama.flops_per_token(cfg, MOE_SEQ)
+    mfu = fpt * tok_s / PEAK_FLOPS[torch.bfloat16]
+    # the float32 one-hot products: 2 forward (dispatch, combine; kept by
+    # the policy, not recomputed) and 3 backward a layer, 2*T*E*C*H each
+    onehot_flops = 5 * cfg.n_layers * 2 * MOE_BATCH * MOE_SEQ \
+        * cfg.n_experts * int(t_cap) * cfg.hidden
+    log(f"[train moe] step median {step_ms:.1f} ms (timed steps "
+        f"{[round(x, 1) for x in timed]}); {tok_s:.0f} tokens/s; "
+        f"{fpt * MOE_BATCH * MOE_SEQ / 1e12:.2f} TFLOP a step of the model "
+        f"(active experts) and {onehot_flops / 1e12:.2f} TFLOP of float32 "
+        f"one-hot products (>= {onehot_flops / 67e12 * 1e3:.0f} ms at 67 "
+        f"TFLOP/s); MFU {100 * mfu:.2f}% of 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    state, _, prof = profile_step(bundle, state, tokens)
+    # comparisons on the trained parameters, no optimizer state
+    params = state[0]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = grad_metrics(cfg, params, tokens)
+    xla = grad_metrics(llama.config(cfg, attention_impl="xla"), params,
+                       tokens)
+    kvx = agree("kernels vs xla attention", kern, xla,
+                keys=("loss", "moe_aux", "grad_norm"))
+    one = tokens[:1]
+    free = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts
+                               / cfg.moe_top_k)
+    cap = grad_metrics(free, params, one)
+    drop = grad_metrics(dataclasses.replace(cfg, moe_dropless=True),
+                        params, one)
+    dvc = agree(f"dropless vs capacity factor {free.moe_capacity_factor} "
+                f"(batch 1x{MOE_SEQ})", drop, cap,
+                keys=("loss", "moe_aux", "grad_norm"))
+    log(f"[train moe] host syncs in a forward and backward: capacity "
+        f"{kern['host_syncs']} (batch {MOE_BATCH}), {cap['host_syncs']} "
+        f"(batch 1); dropless {drop['host_syncs']} (the group sizes, read "
+        f"once a layer call: forward and recompute)")
+    grouped = grouped_probe(cfg, params, one)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        layers=cfg.n_layers, params=cfg.num_params(), batch=MOE_BATCH,
+        seq=MOE_SEQ, capacity=int(t_cap), steps=steps,
+        step_ms_median=step_ms, tokens_per_s=tok_s,
+        flops_per_step=fpt * MOE_BATCH * MOE_SEQ,
+        onehot_flops_per_step=onehot_flops, mfu=mfu,
+        peak_memory_bytes=peak, launches=counts,
+        kernel_vs_xla=dict(kernel=kern, xla=xla, rel=kvx),
+        dropless_vs_capacity=dict(dropless=drop, capacity=cap, rel=dvc),
+        grouped=grouped,
+        profile=dict(prof, step_wall_ms=step_ms,
+                     idle_share=max(0.0, 1 - prof["device_ms"] / step_ms)))
+
+
+# ------------------------------------------------------------- checkpoints
+
+CKPT_LAYERS = 2
+CKPT_TOKENS = 16
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def run_checkpoint(dev):
+    """Phase 6c: an 8b-width bf16 checkpoint of 2 layers written, served
+    and trained from."""
+    import dataclasses
+    import numpy as np
+    from ray_tpu_torch import ByteTokenizer, EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import checkpoint_io, llama
+    from ray_tpu_torch.models.training import (TrainStepBundle,
+                                               default_optimizer)
+    from ray_tpu_torch.models.weights import serving_dtypes
+    cfg = llama.config("8b", n_layers=CKPT_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tree = llama.init_params(
+        dataclasses.replace(cfg, param_dtype=torch.bfloat16), gen, dev)
+    nbytes = tree_bytes(tree)
+    tmp = tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint_io.save_llama_checkpoint(cfg, tree, tmp)
+        checkpoint_io.save_config(cfg, tmp)
+        write_s = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+        disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+        t0 = time.perf_counter()
+        srv = checkpoint_io.load_llama_params(cfg, tmp, dev,
+                                              serving_dtypes(cfg))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        log(f"[checkpoint] 8b widths, {cfg.n_layers} layers, bf16: "
+            f"{nbytes / 1e9:.3f} GB of tensors, files {files} "
+            f"({disk / 1e9:.3f} GB); write {write_s:.2f} s "
+            f"({nbytes / write_s / 1e9:.2f} GB/s, into the page cache); "
+            f"read into the serving layout {read_s:.2f} s "
+            f"({nbytes / read_s / 1e9:.2f} GB/s, from the page cache)")
+        del srv
+        tok = ByteTokenizer(cfg.vocab_size)
+        prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+        kw = {k: v for k, v in ENGINE_KW.items() if k != "model"}
+        outs = {}
+        for label, ecfg, params in (
+                ("tensors", EngineConfig(model=cfg, **kw), tree),
+                ("checkpoint", EngineConfig(model=None, checkpoint=tmp,
+                                            **kw), None)):
+            t0 = time.perf_counter()
+            eng = InferenceEngine(ecfg, params=params)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            if eng.model_cfg != cfg:
+                raise AssertionError(f"checkpoint: config.json gave "
+                                     f"{eng.model_cfg}, not {cfg}")
+            outs[label], _ = drive(eng, prompts, CKPT_TOKENS, label[0])
+            log(f"[checkpoint] engine from {label}: init {init_s:.2f} s; "
+                f"first tokens {[o[:4] for o in outs[label]]}")
+            eng.release_graphs()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if outs["checkpoint"] != outs["tensors"]:
+            raise AssertionError("checkpoint: the engine from the "
+                                 "checkpoint decoded other tokens")
+        log(f"[checkpoint] {len(prompts)} prompts x {CKPT_TOKENS} greedy "
+            f"tokens: the checkpoint engine token-exact")
+        opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                                total_steps=100)
+        rng = np.random.default_rng(2)
+        bundle = TrainStepBundle(cfg, optimizer=opt)
+        tokens = bundle.shard_batch(rng.integers(
+            0, cfg.vocab_size, (1, TRAIN_SEQ)).astype(np.int32))
+        t0 = time.perf_counter()
+        state = bundle.init_state_from_checkpoint(tmp)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        source = dict(_named(tree))
+        for path, a in _named(state[0]):
+            if a.dtype != torch.float32 or not torch.equal(
+                    a, source[path].float()):
+                raise AssertionError(f"checkpoint: {path} is not the "
+                                     f"upcast source")
+        _, m_ck = bundle.step(state, tokens)
+        m_ck = _sync_metrics(m_ck)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, m_np = bundle.step(bundle.state_from_numpy(tree), tokens)
+        m_np = _sync_metrics(m_np)
+        log(f"[checkpoint] init_state_from_checkpoint at float32 "
+            f"{train_s:.2f} s ({nbytes / train_s / 1e9:.2f} GB/s of the "
+            f"file): parameters bit-equal to the upcast source; one step's "
+            f"loss {m_ck['loss']:.6f} vs {m_np['loss']:.6f} from "
+            f"state_from_numpy")
+        if m_ck["loss"] != m_np["loss"]:
+            raise AssertionError("checkpoint: the step from the checkpoint "
+                                 "gave another loss")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, bytes=nbytes, disk_bytes=disk,
+                write_s=write_s, write_gb_s=nbytes / write_s / 1e9,
+                read_serving_s=read_s, read_serving_gb_s=nbytes / read_s / 1e9,
+                read_train_s=train_s, read_train_gb_s=nbytes / train_s / 1e9,
+                tokens=outs["checkpoint"], loss=m_ck["loss"])
 
 
 def _clone_tree(tree):
@@ -4949,6 +5378,14 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _named(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{path}/{k}")
+    else:
+        yield path, tree
 
 
 def main():
@@ -5061,7 +5498,15 @@ def main():
     phase_s["5e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_counts, train = run_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_s["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_moe = run_train_moe(dev)
+    phase_s["6b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint = run_checkpoint(dev)
+    phase_s["6c"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
         f"{PROFILES['lost']} of them lost records and were taken again")
@@ -5122,6 +5567,10 @@ def main():
         base = k["name"].replace("_narrow_table", "")
         if base in FLEET_LAUNCHES:
             k["launches_fleet"] = FLEET_LAUNCHES[base]
+    # phase 6b's main path (MoE training) launches
+    for k in kernels:
+        if k["name"] in MOE_LAUNCHES:
+            k["launches_moe"] = MOE_LAUNCHES[k["name"]]
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -5129,6 +5578,7 @@ def main():
             json.dump(dict(summary, card=card, ragged_ticks=ticks,
                            engine=engine,
                            quant_engine=quant_engine, train=train,
+                           train_moe=train_moe, checkpoint=checkpoint,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
                            lora=lora, spec=spec, fleet=fleet,

@@ -121,7 +121,7 @@ from ...models import llama
 from ...models.llama import LlamaConfig
 from ...models.llama_infer import (LORA_PROJS, decode_step, lora_cat,
                                    prefill, prefill_chunk, ragged_forward)
-from ...models.weights import params_from_numpy
+from ...models.weights import params_from_numpy, serving_dtypes
 from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
 from ...util import metrics as metrics_api
@@ -251,8 +251,19 @@ class EngineConfig:
     # exactly. The draft shares the target's vocab; no LoRA, no KV
     # offload, no int8/fp8 pages.
     speculative: Optional[Dict[str, Any]] = None
+    # directory of an HF-layout safetensors checkpoint
+    # (model.safetensors[.index.json] + config.json): without `params`
+    # the weights load from it (models/checkpoint_io.py) straight into
+    # the serving layout on the device, one HF tensor at a time. With
+    # model=None the architecture comes from its config.json.
+    checkpoint: Optional[str] = None
 
     def resolve_model(self) -> LlamaConfig:
+        if self.model is None:
+            if not self.checkpoint:
+                raise ValueError("model=None requires checkpoint=")
+            from ...models import checkpoint_io
+            return checkpoint_io.load_config(self.checkpoint)
         return llama.config(self.model)
 
 
@@ -496,7 +507,12 @@ class InferenceEngine:
         # any weights are allocated
         envelope = (detect_envelope(self.device, name=ec.perf_envelope)
                     if ec.enable_perf_accounting else None)
-        if params is None:
+        if params is None and ec.checkpoint:
+            from ...models import checkpoint_io
+            params = checkpoint_io.load_llama_params(
+                cfg, ec.checkpoint, self.device,
+                serving_dtypes(cfg))
+        elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(ec.seed)
             # draw straight into the compute dtype: never holds a float32

@@ -5,24 +5,34 @@ the same parameter tree (names, layers stacked on a leading axis,
 ``(in, out)`` matrix orientation), so one tree converts to the other
 through numpy (``weights.params_from_numpy``), and the training half:
 ``decoder_layer``, ``hidden_states``, ``forward``, ``loss_fn`` and
-``flops_per_token`` (dense models on one device; MoE, ring/Ulysses
-attention, meshes and pipelines are not ported yet).
+``flops_per_token`` (dense and MoE models on one device; ring/Ulysses
+attention, expert parallelism, meshes and pipelines are not ported
+yet).
 
 Remat is ``torch.utils.checkpoint`` per layer and per loss chunk, where
 the JAX package uses ``jax.checkpoint``: it changes what is kept for
-the backward, not the numbers.
+the backward, not the numbers. A layer's ``cfg.remat_policy`` maps the
+reference's ``_REMAT_POLICIES`` onto selective checkpointing:
+"dots_no_batch" keeps the outputs of products with no batch dimension
+(``aten.mm``: the projections, the router, the MoE dispatch and
+combine) and recomputes everything else (attention, the experts'
+batched and grouped products, norms, RoPE, SwiGLU); "nothing"
+recomputes the whole layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..ops import moe
 from ..ops.attention import attention as attention_op
 
 
@@ -41,8 +51,9 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16          # activation/compute dtype
     param_dtype: Any = torch.float32     # storage dtype
     attention_impl: str = "auto"
-    # MoE fields are kept so the presets read as in the JAX package;
-    # the serving path here runs dense models only.
+    # MoE (Mixtral-style): n_experts=0 -> dense SwiGLU; >0 -> every
+    # layer's MLP is a top-k expert mixture (ops/moe.py). Training runs
+    # both; the serving path runs dense models only, as the JAX one does.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -195,11 +206,8 @@ def _attend(cfg: LlamaConfig, q, k, v):
 def decoder_layer(cfg: LlamaConfig, x: torch.Tensor,
                   layer: Dict[str, torch.Tensor], cos: torch.Tensor,
                   sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One dense layer. Returns (x, aux): aux is the MoE load-balance
-    loss, 0 for the dense layers this package runs."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers (ops/moe.py) are not ported "
-                                  "yet (ROADMAP.md, A11)")
+    """Returns (x, aux): aux is the MoE load-balance loss (0 when
+    dense)."""
     b, s, _ = x.shape
     dt = cfg.dtype
     y = rms_norm(x, layer["ln1"], cfg.norm_eps)
@@ -211,10 +219,33 @@ def decoder_layer(cfg: LlamaConfig, x: torch.Tensor,
     attn = _attend(cfg, q, k, v).reshape(b, s, cfg.q_dim)
     x = x + attn @ layer["wo"].to(dt)
     y = rms_norm(x, layer["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        out, aux = moe.moe_ffn(
+            y, layer["router"], layer["wi"], layer["wg"], layer["wd"],
+            top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            dropless=cfg.moe_dropless)
+        return x + out, aux
     gate = F.silu(y @ layer["wg"].to(dt))
     up = y @ layer["wi"].to(dt)
     x = x + (gate * up) @ layer["wd"].to(dt)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# the products the reference's dots_with_no_batch_dims_saveable keeps: a
+# dot_general with no batch dimension arrives here as aten.mm (torch.bmm
+# and einsum, even over a batch of one, arrive as aten.bmm); the grouped
+# products of the dropless MoE are excluded, as a lax.ragged_dot is no
+# dot_general
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_no_batch(ctx, op, *args, **kwargs):
+    if op in _NO_BATCH_DOTS and not moe.in_grouped_products():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {"dots_no_batch": _dots_no_batch, "nothing": None}
 
 
 def hidden_states_with_aux(cfg: LlamaConfig, params: Dict[str, Any],
@@ -231,13 +262,21 @@ def hidden_states_with_aux(cfg: LlamaConfig, params: Dict[str, Any],
     # stacks the layers' grads once, where indexing each layer would add
     # a full-size gradient per layer
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    remat = {}
+    if cfg.remat:
+        policy = _REMAT_POLICIES[cfg.remat_policy]
+        if policy is not None:
+            remat["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, policy)
     for i in range(cfg.n_layers):
         layer = {name: w[i] for name, w in layers.items()}
         if cfg.remat:
-            # one layer's activations are recomputed in the backward; the
-            # computation has no randomness, so no RNG state is stashed
+            # a layer's activations, but for what the policy keeps, are
+            # recomputed in the backward; the computation has no
+            # randomness, so no RNG state is stashed
             x, a = checkpoint(decoder_layer, cfg, x, layer, cos, sin,
-                              use_reentrant=False, preserve_rng_state=False)
+                              use_reentrant=False, preserve_rng_state=False,
+                              **remat)
         else:
             x, a = decoder_layer(cfg, x, layer, cos, sin)
         aux = aux + a
@@ -342,9 +381,14 @@ def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     total = (nll * m).sum()
     count = torch.clamp(m.sum(), min=1.0)
     ce = total / count
+    loss = ce
     metrics = {"loss": ce, "tokens": count,
                "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
-    return ce, metrics
+    if cfg.n_experts:
+        aux = moe_aux / cfg.n_layers
+        loss = ce + cfg.moe_aux_weight * aux
+        metrics["moe_aux"] = aux
+    return loss, metrics
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:

@@ -147,8 +147,10 @@ class TrainStepBundle:
     State is ``(params, opt_state)``: params the JAX package's tree of
     float32 leaf tensors, opt_state ``AdamW.init``'s dict. ``step``
     updates it in place and returns it with metrics (loss, tokens,
-    ppl_proxy, grad_norm: the norm of the unclipped grads), each a 0-d
-    tensor on the device, so a step does not wait for the device."""
+    ppl_proxy, grad_norm: the norm of the unclipped grads; moe_aux for
+    MoE configs), each a 0-d tensor on the device, so a step does not
+    wait for the device (a dropless MoE layer reads its group sizes to
+    the host once a call)."""
 
     def __init__(self, cfg: llama.LlamaConfig, device=None,
                  optimizer: Optional[AdamW] = None):
@@ -162,6 +164,16 @@ class TrainStepBundle:
     def init_state(self, seed: int = 0):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = llama.init_params(self.cfg, gen, self.device)
+        return self._state(_map(lambda p: p.requires_grad_(True), params))
+
+    def init_state_from_checkpoint(self, ckpt_dir: str):
+        """State from an HF-layout safetensors checkpoint
+        (``checkpoint_io``): parameters at ``cfg.param_dtype`` on the
+        bundle's device, filled one HF tensor at a time, then fresh
+        optimizer state."""
+        from .checkpoint_io import load_llama_params
+        params = load_llama_params(self.cfg, ckpt_dir, self.device,
+                                   self.cfg.param_dtype)
         return self._state(_map(lambda p: p.requires_grad_(True), params))
 
     def state_from_numpy(self, params_tree):

@@ -14,6 +14,10 @@ so conversion is a walk over the tree. Two layout choices for serving:
   to float32 itself); ``embed`` is cast to the compute dtype, as the
   JAX forward does before its row gather.
 
+``serving_dtypes`` names these dtypes, leaf by leaf, for the checkpoint
+loader (``checkpoint_io.load_llama_params``), which fills the serving
+tree straight from the files.
+
 Training (``train_params_from_numpy``) keeps every leaf in the storage
 dtype instead: the optimizer updates float32 parameters, and the
 training forward casts them at each use, as the JAX one does.
@@ -46,23 +50,35 @@ def _to(a, dtype, device) -> torch.Tensor:
     return _host(a).to(device=device, dtype=dtype).contiguous()
 
 
+def _layer_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    return cfg.dtype if name in _MATMULS else cfg.param_dtype
+
+
+def serving_dtypes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The serving layout's dtype of each leaf, as a tree mirroring
+    ``llama.init_params(cfg)``'s."""
+    mlp = ("router", "wi", "wg", "wd") if cfg.n_experts else \
+        ("wi", "wg", "wd")
+    names = ("wq", "wk", "wv", "wo") + mlp + ("ln1", "ln2")
+    return {
+        "embed": cfg.dtype,
+        "layers": {name: _layer_dtype(cfg, name) for name in names},
+        "final_norm": cfg.param_dtype,
+        "lm_head": torch.float32,
+    }
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
                       device="cuda") -> Dict[str, Any]:
     """The JAX package's parameter tree, as numpy arrays (or this
     package's own tree of tensors), -> the serving tree above on
     `device`. Tensors already in that layout on `device` are shared,
     not copied."""
-    dt = cfg.dtype
     device = torch.device(device)
-    layers = {}
-    for name, w in tree["layers"].items():
-        if name in _MATMULS:
-            layers[name] = _to(w, dt, device)
-        else:
-            layers[name] = _to(w, cfg.param_dtype, device)
     return {
-        "embed": _to(tree["embed"], dt, device),
-        "layers": layers,
+        "embed": _to(tree["embed"], cfg.dtype, device),
+        "layers": {name: _to(w, _layer_dtype(cfg, name), device)
+                   for name, w in tree["layers"].items()},
         "final_norm": _to(tree["final_norm"], cfg.param_dtype, device),
         "lm_head": _to(tree["lm_head"], torch.float32, device),
     }

@@ -370,7 +370,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet (ROADMAP.md, "
-            f"A11: ops/ring_attention.py and ops/ulysses.py)")
+            f"A5: ops/ring_attention.py and ops/ulysses.py wait for a "
+            f"machine with several cards)")
     if impl == "auto":
         impl = auto_impl(q.device.type, q.shape[1], k.shape[1], q.shape[-1])
     if impl == "pallas":

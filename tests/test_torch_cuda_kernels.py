@@ -1432,3 +1432,120 @@ def test_fleet_two_replicas_on_the_card_token_exact(dev):
             assert out[i] == want, i
     for e in (e0, e1):
         e.release_graphs()
+
+
+# -------------------------------------------------- MoE and checkpoints
+
+def _moe_cfg(**kw):
+    """A small MoE config whose attention takes the flash kernels (head
+    dim 64, sequences of 256)."""
+    from ray_tpu_torch.models import llama
+    return llama.config("debug_moe", vocab_size=512, hidden=256, n_heads=4,
+                        n_kv_heads=2, head_dim=64, ffn=512, max_seq=256,
+                        **kw)
+
+
+@pytest.mark.cuda
+def test_moe_grouped_mm_matches_expert_loop(dev):
+    """torch._grouped_mm (a library call the port does not use) against
+    the port's per-expert loop on the same expert-sorted bf16 rows,
+    forward and the gradients of rows and weights: two bf16 ulps
+    (relative 1.6e-2) plus 1e-3 of the largest element. Groups of 0 to
+    60 rows, one empty."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sizes = [37, 0, 60, 9, 22, 8, 48, 16]
+    x = _randn(gen, (sum(sizes), 128), dev, torch.bfloat16)
+    w = _randn(gen, (len(sizes), 128, 256), dev, torch.bfloat16)
+    g = _randn(gen, (sum(sizes), 256), dev, torch.bfloat16)
+    offs = torch.cumsum(torch.tensor(sizes, device=dev), 0).to(torch.int32)
+
+    def loop(x, w):
+        return torch.cat([r @ w[e] for e, r in enumerate(x.split(sizes))])
+
+    def grouped(x, w):
+        return torch._grouped_mm(x, w, offs=offs)
+    res = []
+    for fn in (loop, grouped):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = fn(xg, wg)
+        out.backward(g)
+        res.append((out.float(), xg.grad.float(), wg.grad.float()))
+    for what, a, b in zip(("out", "dx", "dw"), *res):
+        tol = 1.6e-2 * a.abs() + 1e-3 * a.abs().max()
+        assert ((b - a).abs() <= tol).all(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["capacity", "dropless"])
+def test_moe_bf16_step_matches_xla_attention(dev, dropless):
+    """A small bf16 MoE step through the flash kernels against the same
+    step on attention_impl="xla": loss within 5e-3 and grad norm within
+    5e-2 (chip_smoke's train tolerances: bf16 activations, rounded at
+    other places); flash launches as remat implies."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import TrainStepBundle
+    cfg = _moe_cfg(moe_dropless=dropless)
+    out = {}
+    for impl in ("auto", "xla"):
+        tb = TrainStepBundle(llama.config(cfg, attention_impl=impl))
+        state = tb.init_state(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        _kernels.reset_launch_counts()
+        _, m = tb.step(state, toks)
+        out[impl] = {k: v.item() for k, v in m.items()}
+        counts = _kernels.launch_counts()
+        if impl == "auto":
+            assert counts["flash_fwd"] == 2 * cfg.n_layers
+            assert counts["flash_dq"] == counts["flash_dkv"] == cfg.n_layers
+        else:
+            assert counts["flash_fwd"] == 0
+    a, b = out["auto"], out["xla"]
+    assert abs(a["loss"] - b["loss"]) <= 5e-3 * abs(b["loss"])
+    assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"]
+    assert a["moe_aux"] > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
+    """A bf16 tree on the card written and read back onto the card (the
+    default device): bit-equal; the trainer's state from it at float32
+    equals the upcast tree; an engine from it serves."""
+    import dataclasses
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request
+    from ray_tpu_torch import SamplingParams
+    from ray_tpu_torch.models import checkpoint_io, llama
+    from ray_tpu_torch.models.training import TrainStepBundle
+    cfg = llama.config("tiny")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = llama.init_params(
+        dataclasses.replace(cfg, param_dtype=torch.bfloat16), gen, dev)
+    checkpoint_io.save_llama_checkpoint(cfg, tree, str(tmp_path),
+                                        max_shard_bytes=8 << 20)
+    checkpoint_io.save_config(cfg, str(tmp_path))
+    back = checkpoint_io.load_llama_params(cfg, str(tmp_path),
+                                           dtype=torch.bfloat16)
+
+    def flat(t, p=""):
+        if isinstance(t, dict):
+            return {k2: v2 for k, v in t.items()
+                    for k2, v2 in flat(v, f"{p}/{k}").items()}
+        return {p: t}
+    src = flat(tree)
+    for path, t in flat(back).items():
+        assert t.is_cuda and torch.equal(t, src[path]), path
+    state = TrainStepBundle(cfg).init_state_from_checkpoint(str(tmp_path))
+    for path, t in flat(state[0]).items():
+        assert t.dtype == torch.float32 and torch.equal(
+            t, src[path].float()), path
+    eng = InferenceEngine(EngineConfig(model=None,
+                                       checkpoint=str(tmp_path)))
+    assert eng.model_cfg == cfg
+    req = Request("c", list(range(5, 40)), SamplingParams(max_tokens=8))
+    eng.add_request(req)
+    while eng.has_work():
+        eng.step()
+    assert len(req.output_tokens) == 8
+    eng.release_graphs()

@@ -1,5 +1,6 @@
 """ray_tpu_torch stands alone: it imports neither jax nor anything of
-ray_tpu, and its engine runs on CUDA unless told otherwise."""
+ray_tpu (nor ml_dtypes: bfloat16 travels as raw uint16 bits), and its
+engine runs on CUDA unless told otherwise."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import torch
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(REPO, "ray_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "ml_dtypes")
 
 
 def _sources():
@@ -27,14 +28,15 @@ def _forbidden(name: str) -> bool:
 
 
 def test_import_pulls_in_no_jax_and_no_ray_tpu():
+    """Nor ml_dtypes."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import ray_tpu_torch\n"
         "for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "
         "'ray_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ray_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)

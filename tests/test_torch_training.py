@@ -22,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import llama as jl
 from ray_tpu.models import training as jtr
@@ -75,24 +76,39 @@ def test_forward_logits_match_jax(preset, impl):
                                atol=1e-5)
 
 
-# preset, impl, S, loss_chunk, remat, masked
+# preset, impl, S, loss_chunk, remat, masked, config overrides
+NOTHING = {"remat_policy": "nothing"}
+DROPLESS = {"moe_dropless": True}
 LOSS_CASES = [
-    ("debug", "xla", 64, 16, True, False),     # chunked (4 chunks)
-    ("debug", "xla", 60, 16, True, False),     # awkward S: chunk 15
-    ("debug", "xla", 64, 0, True, False),      # unchunked
-    ("debug", "xla", 64, 16, False, True),     # no remat, with a mask
-    ("debug", "pallas", 64, 16, True, False),
-    ("tiny", "xla", 64, 16, True, False),
-    ("tiny", "pallas", 64, 32, True, False),
+    ("debug", "xla", 64, 16, True, False, {}),     # chunked (4 chunks)
+    ("debug", "xla", 60, 16, True, False, {}),     # awkward S: chunk 15
+    ("debug", "xla", 64, 0, True, False, {}),      # unchunked
+    ("debug", "xla", 64, 16, False, True, {}),     # no remat, with a mask
+    ("debug", "pallas", 64, 16, True, False, {}),
+    ("tiny", "xla", 64, 16, True, False, {}),
+    ("tiny", "pallas", 64, 32, True, False, {}),
+    ("debug", "pallas", 64, 16, True, False, NOTHING),
+    # MoE layers: capacity (128 tokens, capacity 80) and dropless
+    ("debug_moe", "xla", 64, 16, True, False, {}),
+    ("debug_moe", "pallas", 64, 16, False, True, {}),
+    ("debug_moe", "xla", 64, 16, True, False, NOTHING),
+    ("debug_moe", "pallas", 64, 16, True, False, DROPLESS),
+    ("debug_moe", "xla", 64, 16, False, False, DROPLESS),
+    ("debug_moe", "xla", 60, 16, True, True, dict(DROPLESS, **NOTHING)),
 ]
 
 
-@pytest.mark.parametrize("preset,impl,s,chunk,remat,masked", LOSS_CASES,
-                         ids=[f"{c[0]}_{c[1]}_s{c[2]}_chunk{c[3]}_"
-                              f"remat{int(c[4])}_mask{int(c[5])}"
-                              for c in LOSS_CASES])
-def test_loss_and_grads_match_jax(preset, impl, s, chunk, remat, masked):
-    jc, tc = _configs(preset, impl, loss_chunk=chunk, remat=remat)
+def _case_id(c):
+    extra = "".join(f"_{k}-{v}" for k, v in sorted(c[6].items()))
+    return (f"{c[0]}_{c[1]}_s{c[2]}_chunk{c[3]}_remat{int(c[4])}_"
+            f"mask{int(c[5])}{extra}")
+
+
+@pytest.mark.parametrize("preset,impl,s,chunk,remat,masked,extra",
+                         LOSS_CASES, ids=[_case_id(c) for c in LOSS_CASES])
+def test_loss_and_grads_match_jax(preset, impl, s, chunk, remat, masked,
+                                  extra):
+    jc, tc = _configs(preset, impl, loss_chunk=chunk, remat=remat, **extra)
     p = _params(jc, seed=1)
     toks = _tokens(jc.vocab_size, 2, s, seed=1)
     mask = None
@@ -110,7 +126,9 @@ def test_loss_and_grads_match_jax(preset, impl, s, chunk, remat, masked):
         mask=None if mask is None else torch.from_numpy(mask))
     loss_t.backward()
     np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
-    for k in ("loss", "tokens", "ppl_proxy"):
+    assert set(met_t) == set(met_j)
+    assert ("moe_aux" in met_t) == bool(jc.n_experts)
+    for k in met_j:
         np.testing.assert_allclose(met_t[k].item(), float(met_j[k]),
                                    rtol=1e-5, err_msg=k)
     for path, gj, pt in _pairs(g_j, tp):
@@ -164,16 +182,117 @@ def test_flops_per_token_matches_jax():
     assert tl.config("8b").num_params() == jl.config("8b").num_params()
 
 
-def test_moe_and_sequence_parallel_attention_raise():
-    tc = tl.config("debug_moe", dtype=torch.float32)
-    params = tl.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.loss_fn(tc, params, torch.zeros((1, 8), dtype=torch.int32))
+def test_moe_layer_matches_jax():
+    """One MoE decoder layer (capacity dispatch, bf16-free float32) on
+    the same inputs: output and load-balance loss."""
+    jc, tc = _configs("debug_moe", "xla")
+    p = _params(jc, seed=4)
+    layer = {k: v[0] for k, v in p["layers"].items()}
+    x = np.random.default_rng(4).standard_normal(
+        (2, 16, jc.hidden)).astype(np.float32)
+    cos, sin = jl.rope_frequencies(jc, jnp.arange(16))
+    out_j, aux_j = jl.decoder_layer(
+        jc, jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, layer),
+        cos, sin, None)
+    tcos, tsin = tl.rope_frequencies(tc, torch.arange(16))
+    out_t, aux_t = tl.decoder_layer(
+        tc, torch.from_numpy(x),
+        {k: torch.tensor(v) for k, v in layer.items()}, tcos, tsin)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(aux_t.item(), float(aux_j), rtol=1e-6)
+    assert aux_t.item() > 0
+
+
+def test_sequence_parallel_attention_raises():
     for impl in ("ring", "ulysses"):
         tc = tl.config("debug", dtype=torch.float32, attention_impl=impl)
         params = tl.init_params(tc, torch.Generator().manual_seed(0), "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tl.loss_fn(tc, params, torch.zeros((1, 8), dtype=torch.int32))
+
+
+class _WeightProducts(TorchDispatchMode):
+    """Counts aten.mm calls with a layer weight among their operands or
+    as their result (a dW), by shape: `weights` holds the 2-D shapes of
+    the weights counted and their transposes, `grouped` those of the
+    dropless experts' slices (the grouped products)."""
+
+    def __init__(self, weights, grouped):
+        super().__init__()
+        self.weights, self.grouped = weights, grouped
+        self.n = self.n_grouped = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.mm.default:
+            shapes = {tuple(a.shape) for a in args[:2]} | {tuple(out.shape)}
+            self.n += bool(shapes & self.weights)
+            self.n_grouped += bool(shapes & self.grouped)
+        return out
+
+
+def _shapes(*shapes):
+    return set(shapes) | {s[::-1] for s in shapes}
+
+
+@pytest.mark.parametrize("policy", ["dots_no_batch", "nothing"])
+@pytest.mark.parametrize("preset,extra", [("debug", {}),
+                                          ("debug_moe", {}),
+                                          ("debug_moe", DROPLESS)],
+                         ids=["dense", "moe_capacity", "moe_dropless"])
+def test_remat_policy_recomputes_no_saved_product(preset, extra, policy):
+    """The layers' weight products run in the backward: two each (dx and
+    dW) under "dots_no_batch", which keeps their outputs, as the JAX
+    policy keeps a dot_general's with no batch dimension; three under
+    "nothing" (the recompute adds the forward product), but for the
+    layer's last product, whose output no gradient needs: the
+    non-reentrant checkpoint stops recomputing before it. The dropless
+    experts' grouped products are recomputed under both policies, as
+    JAX recomputes a ragged_dot. Shapes are chosen so that no
+    activation has a weight's shape (B*S 96, vocab 200, ffn 320)."""
+    cfg = tl.config(preset, dtype=torch.float32, attention_impl="pallas",
+                    vocab_size=200, ffn=320, remat_policy=policy, **extra)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    leaves = ttr._leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    h, q, kv, f = cfg.hidden, cfg.q_dim, cfg.kv_dim, cfg.ffn
+    if cfg.n_experts:
+        # attention and the router; the experts' products are batched
+        # (capacity) or grouped (dropless), never a weight's aten.mm
+        weights = _shapes((h, q), (h, kv), (q, h), (h, cfg.n_experts))
+        per_layer, last_needed = 5, True
+    else:
+        weights = _shapes((h, q), (h, kv), (q, h), (h, f), (f, h))
+        per_layer, last_needed = 7, False
+    count = _WeightProducts(
+        weights, _shapes((h, f), (f, h)) if cfg.n_experts else set())
+    toks = torch.from_numpy(_tokens(200, 2, 48, seed=6))
+    with count:
+        loss, _ = tl.loss_fn(cfg, params, toks)
+    fwd, fwd_grouped = count.n, count.n_grouped
+    assert fwd == per_layer * cfg.n_layers
+    assert (fwd_grouped > 0) == bool(extra)
+    count.n = count.n_grouped = 0
+    with count:
+        torch.autograd.grad(loss, leaves)
+    if policy == "dots_no_batch":
+        want = 2 * fwd
+    else:
+        want = 3 * fwd - (0 if last_needed else cfg.n_layers)
+    assert count.n == want
+    assert count.n_grouped == 3 * fwd_grouped
+
+
+def test_unknown_remat_policy_raises():
+    cfg = tl.config("debug", dtype=torch.float32, remat_policy="bogus")
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(KeyError, match="bogus"):
+        tl.loss_fn(cfg, params, torch.zeros((1, 8), dtype=torch.int32))
+    # remat off: the policy is not read, as in the JAX package
+    tl.loss_fn(tl.config(cfg, remat=False), params,
+               torch.zeros((1, 8), dtype=torch.int32))
 
 
 # ------------------------------------------------------------- optimizer
@@ -267,7 +386,18 @@ def test_train_step_bundle_matches_jax_bundle(impl):
     bundle from the JAX bundle's initial parameters, against the JAX
     bundle on a one-device CPU mesh: loss and grad_norm at every step,
     every parameter leaf after the third."""
-    jc, tc = _configs("debug", impl, loss_chunk=16)
+    _bundles_agree("debug", impl, {})
+
+
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["capacity", "dropless"])
+def test_moe_train_step_bundle_matches_jax_bundle(dropless):
+    """The same three steps on debug_moe: moe_aux among the metrics."""
+    _bundles_agree("debug_moe", "pallas", {"moe_dropless": dropless})
+
+
+def _bundles_agree(preset, impl, extra):
+    jc, tc = _configs(preset, impl, loss_chunk=16, **extra)
     mesh = MeshSpec(dp=1, fsdp=1, sp=1, tp=1).build([jax.devices()[0]])
     kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
     jb = jtr.TrainStepBundle(jc, mesh,
@@ -283,8 +413,10 @@ def test_train_step_bundle_matches_jax_bundle(impl):
     for i in range(3):
         st, mj = jb.step(st, jt)
         ts, mt = tb.step(ts, tt)
-        assert set(mt) == set(mj) == {"loss", "tokens", "ppl_proxy",
-                                      "grad_norm"}
+        keys = {"loss", "tokens", "ppl_proxy", "grad_norm"}
+        if jc.n_experts:
+            keys.add("moe_aux")
+        assert set(mt) == set(mj) == keys
         for k in mj:
             assert mt[k].dim() == 0
             np.testing.assert_allclose(mt[k].item(), float(mj[k]),
@@ -302,8 +434,10 @@ def test_train_step_bundle_matches_jax_bundle(impl):
     assert ts[1]["count"] == 3
     ev = tb.eval_loss(ts, tt)
     evj = jb.eval_loss(st, jt)
-    np.testing.assert_allclose(ev["loss"].item(), float(evj["loss"]),
-                               rtol=1e-5)
+    assert set(ev) == set(evj)
+    for k in evj:
+        np.testing.assert_allclose(ev[k].item(), float(evj[k]), rtol=1e-5,
+                                   err_msg=k)
 
 
 def test_train_params_from_numpy_keeps_storage_dtype():
