@@ -216,6 +216,21 @@ Phases (any failure raises and exits non-zero):
      against an engine on the source tensors; init_state_from_checkpoint
      at float32: parameters bit-equal to the upcast source, and one step
      the same loss as a bundle from state_from_numpy on those values;
+  6d. RLlib's single-learner path (ray_tpu_torch.rllib), runner and
+     learner on the card: (a) PPO on CartPole-v1 at the CPU tests'
+     learning gate's configuration (16 envs x 128, minibatch 256, 4
+     epochs, seed 0): best return > 120 within 25 iterations, and its
+     first fragment against a CPU runner's of the same seed and weights
+     by the runner test's near-tie rule; (b) PPO at 4096 envs x 128
+     (524 288 env steps an iteration, minibatch 16384, 4 epochs): a warm
+     iteration, then 3 timed: sample, update and iteration ms, env
+     steps/s, kernel launches a rollout step (profiler), the step loop
+     run under set_sync_debug_mode("error") (0 host syncs), an
+     iteration's device idle share, peak memory; (c) 5 iterations each
+     of IMPALA, APPO and DQN on CartPole and 3 of CNN PPO on the pixel
+     catch env at their tests' configurations: finite losses, returns;
+     (d) the kernels' launch counters unchanged (the path launches
+     none of them);
   7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
 
@@ -5366,6 +5381,264 @@ def run_checkpoint(dev):
                 tokens=outs["checkpoint"], loss=m_ck["loss"])
 
 
+RL_GATE_ITERS = 25      # tests' test_ppo_learns_cartpole: best > 120 within
+RL_GATE = 120.0         # 25 iterations (the first and 24 more)
+RL_WIDE_ENVS = 4096     # 6d(b): 4096 envs x 128 steps, minibatch 16384,
+RL_WIDE_T = 128         # 4 epochs: 524 288 env steps an iteration
+RL_WIDE_MB = 16384
+RL_TIMED = 3            # timed iterations after a warm one
+RL_OBS_TOL = 1e-4       # card vs CPU obs: float32 physics, other libm
+RL_NEAR_TIE = 1e-4      # top-two Gumbel-perturbed score gap of a near tie
+
+
+def rl_fragment(runner):
+    """A runner's next fragment through its stages, and each step's gap
+    between the two best Gumbel-perturbed scores [T, B] (host)."""
+    draws = runner._draw()
+    out = runner._finish(runner._steps(draws))
+    with torch.no_grad():
+        logits = runner.module(torch.as_tensor(
+            out["batch"]["obs"], device=runner.device))["action_dist_inputs"]
+    top = (logits + draws["act"][0]).topk(2, dim=-1).values
+    return out, (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+def rl_near_tie(out, ref, gaps, label):
+    """The card's fragment against the CPU's by the runner test's rule:
+    each env up to its first step whose gap is <= RL_NEAR_TIE, actions and
+    dones equal, obs within RL_OBS_TOL; the stats equal when no env met a
+    near tie. Returns the envs that met one."""
+    b, rb = out["batch"], ref["batch"]
+    T, B = gaps.shape
+    tied = 0
+    for e in range(B):
+        for t in range(T):
+            where = f"{label}: step {t}, env {e}, gap {gaps[t, e]:.3g}"
+            d = float(abs(b["obs"][t, e] - rb["obs"][t, e]).max())
+            if d > RL_OBS_TOL:
+                raise AssertionError(f"{where}: obs {d:.3g} apart")
+            if gaps[t, e] <= RL_NEAR_TIE:
+                tied += 1
+                break
+            if (b["actions"][t, e] != rb["actions"][t, e]
+                    or b["dones"][t, e] != rb["dones"][t, e]):
+                raise AssertionError(f"{where}: another action or done")
+    if not tied and out["stats"] != ref["stats"]:
+        raise AssertionError(f"{label}: stats {out['stats']} against "
+                             f"{ref['stats']}")
+    return tied
+
+
+def rl_gate(dev):
+    """6d(a): PPO on CartPole at the gate's configuration on the card."""
+    from ray_tpu_torch.rllib import PPOConfig, SingleAgentEnvRunner
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_envs_per_env_runner=16,
+                         rollout_fragment_length=128)
+            .training(lr=3e-4, minibatch_size=256, num_epochs=4)
+            .debugging(seed=0).build())
+    group = algo.env_runner_group
+    runner = group._local
+    if {runner.device.type, algo.learner_group.device.type} != {dev.type}:
+        raise AssertionError(f"6d(a): runner on {runner.device}, learner "
+                             f"on {algo.learner_group.device}, not {dev}")
+    cpu = SingleAgentEnvRunner("CartPole-v1", num_envs=16, rollout_length=128,
+                               seed=0, device="cpu")
+    cpu.set_weights({k: v.cpu() for k, v in runner.get_weights().items()})
+    ref, gaps = rl_fragment(cpu)
+    first = {}
+
+    def first_sample():
+        # the algorithm's first fragment, through the runner's stages
+        first["out"], _ = rl_fragment(runner)
+        del group.sample
+        return first["out"]
+    group.sample = first_sample
+    t0 = time.perf_counter()
+    rets = []
+    for _ in range(RL_GATE_ITERS):
+        rets.append(algo.train()["episode_return_mean"])
+        if max(rets) > RL_GATE:
+            break
+    wall = time.perf_counter() - t0
+    tied = rl_near_tie(first["out"], ref, gaps, "6d(a) first fragment")
+    log(f"[rllib] (a) PPO CartPole-v1, 16 envs x 128, minibatch 256, 4 "
+        f"epochs, seed 0, on {runner.device}: returns "
+        f"{[round(r, 1) for r in rets]} in {wall:.2f} s; first fragment "
+        f"against the CPU's: {16 - tied} of 16 envs step-exact for 128 "
+        f"steps, {tied} cut at a near tie")
+    if not max(rets) > RL_GATE:
+        raise AssertionError(f"6d(a): PPO best {max(rets):.1f} within "
+                             f"{RL_GATE_ITERS} iterations, not > {RL_GATE}")
+    return dict(returns=rets, iterations=len(rets), wall_s=wall,
+                near_tie_envs=tied)
+
+
+def rl_wide(dev):
+    """6d(b): PPO on CartPole, 4096 envs x 128 steps: sample and update
+    ms, env steps/s, launches a rollout step, host syncs in the step
+    loop, the iteration's device idle share, peak memory."""
+    from ray_tpu_torch.rllib import PPOConfig
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_envs_per_env_runner=RL_WIDE_ENVS,
+                         rollout_fragment_length=RL_WIDE_T)
+            .training(minibatch_size=RL_WIDE_MB, num_epochs=4)
+            .debugging(seed=0).build())
+    group, learners = algo.env_runner_group, algo.learner_group
+    runner = group._local
+    times = dict(sample=[], update=[])
+
+    def timed(name, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)            # both end in a readback
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+    group.sample = timed("sample", group.sample)
+    learners.update = timed("update", learners.update)
+    algo.train()                                    # warm
+    for v in times.values():
+        v.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = []
+    for _ in range(RL_TIMED):
+        t0 = time.perf_counter()
+        m = algo.train()
+        iters.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(m["learner/total_loss"]):
+            raise AssertionError(f"6d(b): loss {m['learner/total_loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del group.sample, learners.update
+    steps = RL_WIDE_ENVS * RL_WIDE_T
+    # the step loop under the sync guard: any host sync raises
+    draws = runner._draw()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = runner._steps(draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    runner._finish(batch)
+    draws = runner._draw()
+
+    def nonempty(evs):
+        return None if evs else "no device kernel"
+    prof, loop_wall = profiled(lambda: runner._steps(draws),
+                               "rllib rollout steps", check=nonempty)
+    evs = device_events(prof)
+    launches = sum(e.count for e in evs) / RL_WIDE_T
+    loop_busy = sum(dev_us(e) for e in evs) / 1e3
+    prof, it_wall = profiled(algo.train, "rllib iteration", check=nonempty)
+    evs = device_events(prof)
+    it_busy = sum(dev_us(e) for e in evs) / 1e3
+    it_launches = sum(e.count for e in evs)
+    n_opt = 4 * (steps // RL_WIDE_MB)
+    opt_launches = (it_launches - launches * RL_WIDE_T) / n_opt
+    groups = {g: round(r["ms"], 3) for g, r in kernel_groups(evs).items()}
+    res = dict(envs=RL_WIDE_ENVS, T=RL_WIDE_T, minibatch=RL_WIDE_MB,
+               env_steps=steps, sample_ms=statistics.median(times["sample"]),
+               update_ms=statistics.median(times["update"]),
+               iteration_ms=statistics.median(iters), iterations_ms=iters,
+               samples_ms=times["sample"], updates_ms=times["update"],
+               launches_a_step=launches, loop_wall_ms=loop_wall,
+               loop_busy_ms=loop_busy, host_syncs_in_loop=0,
+               iteration_wall_ms=it_wall, iteration_busy_ms=it_busy,
+               iteration_launches=it_launches,
+               launches_an_optimizer_step=opt_launches,
+               idle_share=max(0.0, 1 - it_busy / it_wall),
+               groups=groups, peak_gib=peak)
+    res["env_steps_per_s"] = steps / res["iteration_ms"] * 1e3
+    res["sample_env_steps_per_s"] = steps / res["sample_ms"] * 1e3
+    log(f"[rllib] (b) PPO CartPole-v1, {RL_WIDE_ENVS} envs x {RL_WIDE_T} "
+        f"steps ({steps} env steps), minibatch {RL_WIDE_MB}, 4 epochs: "
+        f"sample {res['sample_ms']:.2f} ms, update {res['update_ms']:.2f} "
+        f"ms, iteration {res['iteration_ms']:.2f} ms (medians of "
+        f"{RL_TIMED}; {[round(x, 2) for x in iters]}); "
+        f"{res['env_steps_per_s']:.0f} env steps/s an iteration, "
+        f"{res['sample_env_steps_per_s']:.0f} sampling")
+    log(f"[rllib] (b) rollout step loop: {launches:.1f} kernel launches a "
+        f"step (profiler), 0 host syncs (set_sync_debug_mode('error')); "
+        f"{RL_WIDE_T} steps {loop_wall:.2f} ms under the profiler, kernels "
+        f"{loop_busy:.2f} ms")
+    log(f"[rllib] (b) one iteration under the profiler: wall {it_wall:.2f} "
+        f"ms, {it_launches} kernel launches (~{opt_launches:.0f} an "
+        f"optimizer step of {n_opt}, beside the rollout's), kernels "
+        f"{it_busy:.2f} ms, device idle "
+        f"{100 * res['idle_share']:.1f}%; kernel ms by group {groups}; "
+        f"peak memory {peak:.3f} GiB")
+    return res
+
+
+def rl_others(dev):
+    """6d(c): IMPALA, APPO and DQN on CartPole at their tests'
+    configurations (5 iterations each) and CNN PPO on the pixel catch env
+    (3): finite losses, the return metric."""
+    from ray_tpu_torch.rllib import (APPOConfig, CNNRLModule, DQNConfig,
+                                     IMPALAConfig, PPOConfig)
+    runs = {
+        "IMPALA": (IMPALAConfig().environment("CartPole-v1")
+                   .env_runners(num_envs_per_env_runner=16,
+                                rollout_fragment_length=64)
+                   .training(lr=2e-3, entropy_coeff=0.005), 5),
+        "APPO": (APPOConfig().environment("CartPole-v1")
+                 .env_runners(num_envs_per_env_runner=16,
+                              rollout_fragment_length=64)
+                 .training(lr=2e-3, entropy_coeff=0.005, num_epochs=2,
+                           minibatch_size=512), 5),
+        "DQN": (DQNConfig().environment("CartPole-v1")
+                .env_runners(num_envs_per_env_runner=16,
+                             rollout_fragment_length=64)
+                .training(lr=1e-3, buffer_size=20_000, train_batch_size=128,
+                          num_updates_per_iter=16,
+                          num_steps_before_learning=500,
+                          target_network_update_freq=50, epsilon=0.15), 5),
+        "PPO CNN CatchPixels": (
+            PPOConfig().environment("CatchPixels-v0")
+            .env_runners(num_envs_per_env_runner=16,
+                         rollout_fragment_length=80)
+            .training(lr=1e-3, minibatch_size=320, num_epochs=4,
+                      entropy_coeff=0.01)
+            .rl_module(module_class=CNNRLModule), 3),
+    }
+    res = {}
+    for name, (cfg, n) in runs.items():
+        algo = cfg.debugging(seed=0).build()
+        t0 = time.perf_counter()
+        ms = [algo.train() for _ in range(n)]
+        wall = time.perf_counter() - t0
+        losses = [m["learner/total_loss"] for m in ms
+                  if "learner/total_loss" in m]
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"6d(c) {name}: losses {losses}")
+        rets = [round(m["episode_return_mean"], 2) for m in ms]
+        res[name] = dict(iterations=n, returns=rets, losses=losses,
+                         wall_s=wall)
+        log(f"[rllib] (c) {name}: {n} iterations {wall:.2f} s, "
+            f"episode_return_mean {rets}, total_loss "
+            f"{[round(x, 4) for x in losses]}")
+        del algo
+    return res
+
+
+def run_rllib(dev):
+    """Phase 6d: RLlib's single-learner path on the card."""
+    from ray_tpu_torch.ops import _kernels
+    before = _kernels.launch_counts()
+    res = dict(gate=rl_gate(dev), wide=rl_wide(dev), others=rl_others(dev))
+    after = _kernels.launch_counts()
+    if after != before:
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        raise AssertionError(f"6d: kernel launch counters moved: {moved}")
+    log(f"[rllib] (d) the launch counters of the {len(after)} kernels "
+        f"unchanged across 6d")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
@@ -5507,6 +5780,9 @@ def main():
     t0 = time.perf_counter()
     checkpoint = run_checkpoint(dev)
     phase_s["6c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rllib = run_rllib(dev)
+    phase_s["6d"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
         f"{PROFILES['lost']} of them lost records and were taken again")
@@ -5579,6 +5855,7 @@ def main():
                            engine=engine,
                            quant_engine=quant_engine, train=train,
                            train_moe=train_moe, checkpoint=checkpoint,
+                           rllib=rllib,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
                            lora=lora, spec=spec, fleet=fleet,

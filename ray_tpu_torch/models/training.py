@@ -130,12 +130,12 @@ def default_optimizer(learning_rate=3e-4, weight_decay=0.1,
                  b1=b1, b2=b2, grad_clip=grad_clip, mu_dtype=mu_dtype)
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, owner: str = "TrainStepBundle") -> torch.device:
     """None means the card; without one that raises unless the caller
-    asks for the CPU."""
+    asks for the CPU. `owner` names the caller in the error."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("TrainStepBundle runs on CUDA and no CUDA "
+        raise RuntimeError(f"{owner} runs on CUDA and no CUDA "
                            "device is available; pass device='cpu' to "
                            "run on the CPU")
     return dev

@@ -27,6 +27,7 @@ raise.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -101,8 +102,9 @@ def uniform(key: Key, n: int, minval: float = 0.0,
     bits = random_bits(key, n)
     f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
          - 1.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    # filled on the device: no host-to-device copy, so no host sync
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -112,11 +114,75 @@ def gumbel(key: Key, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(key, n, TINY, 1.0)))
 
 
+def split(key: Key, num: int = 2) -> Key:
+    """``jax.random.split(key, num)``: key's shape + (num,) keys, key i
+    the hash of the iota counter (hi 0, lo i), its two words kept apart
+    (prng.py ``_threefry_split_foldlike``)."""
+    k1, k2 = key
+    lo = torch.arange(num, dtype=torch.int64, device=k1.device)
+    return threefry2x32(k1[..., None], k2[..., None], torch.zeros_like(lo),
+                        lo)
+
+
+# M. Giles' single-precision erfinv, the polynomial that StableHLO's
+# erf_inv lowering evaluates (``materializeErfInvF32``): coefficients for
+# w < 5, then for w >= 5, highest power first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv as XLA computes it (Giles' approximation, in its
+    order of operations); ``torch.erfinv`` differs from it by up to
+    ~1e-4 near |x| = 1."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, w.sqrt() - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: Key, n: int) -> torch.Tensor:
+    """``jax.random.normal(key, (n,), float32)``: sqrt(2) x erfinv of a
+    uniform in [nextafter(-1, 0), 1) (random.py ``_normal_real``). The
+    uniform is bit-equal to JAX's; the two backends' log1p and sqrt may
+    round apart in the last bit (``tests/test_torch_rllib_core.py``
+    states the bound)."""
+    u = uniform(key, n, -1.0 + 2.0 ** -24, 1.0)
+    return erfinv(u) * math.sqrt(2.0)
+
+
+def randint(key: Key, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` (int32), as
+    int64 values: two 32-bit draws from the halves of ``split(key)``
+    folded into [minval, maxval) with the multiplier (2^16 mod span)^2
+    mod span (random.py ``_randint``). Spans of int32 only."""
+    span = maxval - minval if maxval > minval else 1
+    if span >= 2 ** 31:
+        raise ValueError(f"randint: span {span} exceeds int32")
+    k1, k2 = split(key)
+    higher = random_bits((k1[..., 0], k2[..., 0]), n)
+    lower = random_bits((k1[..., 1], k2[..., 1]), n)
+    mult = ((2 ** 16 % span) ** 2 & M32) % span     # uint32 products wrap
+    off = ((higher % span) * mult & M32) + lower % span
+    return minval + (off & M32) % span
+
+
 def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis, with
     replacement: argmax of Gumbel noise plus logits (random.py
-    ``categorical``)."""
-    return torch.argmax(gumbel(key, logits.shape[-1]) + logits, dim=-1)
+    ``categorical``). Keys batch over the leading axes of `logits`; one
+    key's noise covers the rest of them flat, as one JAX key draws a
+    whole (B, A) array."""
+    n = math.prod(logits.shape[key[0].dim():])
+    noise = gumbel(key, n).reshape(logits.shape)
+    return torch.argmax(noise + logits, dim=-1)
 
 
 def row_keys(seeds: torch.Tensor, index: torch.Tensor) -> Key:

@@ -1549,3 +1549,79 @@ def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
         eng.step()
     assert len(req.output_tokens) == 8
     eng.release_graphs()
+
+
+def _rllib_fragment(runner):
+    """A runner's next fragment through its stages, with each step's gap
+    between the two best Gumbel-perturbed scores [T, B] (on the CPU)."""
+    draws = runner._draw()
+    out = runner._finish(runner._steps(draws))
+    with torch.no_grad():
+        logits = runner.module(torch.as_tensor(
+            out["batch"]["obs"], device=runner.device))["action_dist_inputs"]
+    top = (logits + draws["act"][0]).topk(2, dim=-1).values
+    return draws, out, (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_rllib_runner_on_the_card_matches_cpu(dev):
+    """CartPole, 64 envs x 128 steps, seed 0, the same weights: the card's
+    first fragment against the port's on the CPU by the near-tie rule of
+    tests/test_torch_rllib_runner.py (each env compared up to its first
+    step whose top-two gap is <= 1e-4: actions and dones equal, obs
+    within 1e-4); the step loop makes no host sync; the keys and reset
+    draws are bit-equal, the Gumbel noise within 2^-22 x max(1, |g|)."""
+    from ray_tpu_torch.rllib import SingleAgentEnvRunner
+    kw = dict(num_envs=64, rollout_length=128, seed=0)
+    cpu = SingleAgentEnvRunner("CartPole-v1", device="cpu", **kw)
+    card = SingleAgentEnvRunner("CartPole-v1", device=dev, **kw)
+    card.set_weights(cpu.get_weights())
+    cdraws, cout, gaps = _rllib_fragment(cpu)
+    draws = card._draw()
+    torch.testing.assert_close(draws["reset"].cpu(), cdraws["reset"],
+                               rtol=0, atol=0)
+    g, cg = draws["act"][0].cpu(), cdraws["act"][0]
+    assert ((g - cg).abs() <= 2.0 ** -22 * cg.abs().clamp(min=1)).all()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev_batch = card._steps(draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = card._finish(dev_batch)
+    b, cb = out["batch"], cout["batch"]
+    tied = 0
+    for e in range(64):
+        for t in range(128):
+            where = f"step {t}, env {e}, gap {gaps[t, e]:.3g}"
+            assert abs(b["obs"][t, e] - cb["obs"][t, e]).max() <= 1e-4, where
+            if gaps[t, e] <= 1e-4:
+                tied += 1
+                break
+            assert b["actions"][t, e] == cb["actions"][t, e], where
+            assert b["dones"][t, e] == cb["dones"][t, e], where
+    if not tied:
+        assert out["stats"] == cout["stats"]
+    assert out["stats"]["num_episodes"] > 64
+
+
+@pytest.mark.cuda
+def test_rllib_ppo_iteration_on_the_card(dev):
+    """One PPO iteration with the default device: runner and learner on
+    the card, the weights synced tensor to tensor, finite metrics."""
+    import math
+    from ray_tpu_torch.rllib import PPOConfig
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_envs_per_env_runner=16,
+                         rollout_fragment_length=128)
+            .training(minibatch_size=256, num_epochs=4).build())
+    m = algo.train()
+    assert m["num_env_steps_sampled"] == 16 * 128
+    assert all(math.isfinite(v) for k, v in m.items()
+               if k.startswith("learner/"))
+    learner = algo.learner_group._local
+    assert all(p.is_cuda for p in learner.params)
+    assert learner.opt_state["count"] == 4 * 8
+    runner_w = algo.env_runner_group.get_weights()
+    for k, v in learner.get_weights().items():
+        assert runner_w[k].is_cuda and torch.equal(runner_w[k], v), k
