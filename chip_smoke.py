@@ -181,6 +181,19 @@ Phases (any failure raises and exits non-zero):
      sampled one); launches of #1/#2 = layers x mixed / decode ticks
      summed over both replicas in each drive; fleet tokens/s, TTFT,
      TPOT, peak memory, the ships' ms split by stage and their GB/s;
+  5i. the thread sanitizer on the main path: the `8b` engine (phase 5's
+     bf16 weights, full depth) serves phase 5's six prompts greedily,
+     240 tokens each, disarmed and then built and driven with the
+     sanitizer armed (its step lock the device's traced re-entrant lock,
+     engine._step_lock[cuda:N], over the device's RLock); in each, 16
+     timed steady decode ticks, then 200 graph-replayed decode ticks in
+     dispatch_guard windows of 8 (armed: while 3 threads call stats,
+     lane_counts, session_ids, fleet_counters, has_work, and abort,
+     preempt and export_session of unknown ids): 1 dispatch a tick, no
+     compile, upload or capture, 1 readback a tick, paged_decode layers x
+     200 launches, all pipelined; armed: no violation, tokens equal to
+     the disarmed engine's; the decode tick ms armed against disarmed
+     and the lock's re-entries by the function that made them;
   6. train: TrainStepBundle on the `8b` preset at full width, 4 layers
      (random f32 parameters from a seeded generator, bf16 compute,
      remat, loss chunk 512), batch 4 x 2048 tokens: a warm-up step and
@@ -231,6 +244,25 @@ Phases (any failure raises and exits non-zero):
      catch env at their tests' configurations: finite losses, returns;
      (d) the kernels' launch counters unchanged (the path launches
      none of them);
+  6e. the rest of RLlib on the card: (a) SAC on Pendulum-v1 at
+     test_sac_learns_pendulum's configuration (16 envs x 64, batch 256,
+     32 updates, seed 0) from the JAX learner's initial weights
+     (chip_smoke_data/, as the CPU test starts): best of the returns
+     after the fifth > the first + 150 within 25 iterations; (b) SAC at
+     1024 envs x 64 steps, train batch 4096, 32 updates: sample, update
+     and iteration ms, kernel launches an update step (profiler), 0 host
+     syncs in it (set_sync_debug_mode("error")), an iteration's device
+     idle share; (c) BC (loss falls over 2 iterations) and MARWIL (value
+     loss falls, mean weight != 1, 5 iterations) from CartPole shards
+     fresh PPO runners record on the card at the tests' configurations; (d) CQL (penalty falls over 7
+     iterations) from Pendulum transitions the trained SAC records on the
+     card; (e) DreamerV3 on CartPole at its test's configuration and the
+     default widths (deter 256, stoch 8 x 8, units 128): best > 120
+     within 120 iterations after the first, then one update's observe,
+     imagine and whole ms and kernel launches; (f) multi-agent PPO on
+     DualCartPole, two policies, 16 envs x 128: both agents' best > 60
+     within 24 iterations after the first; (g) the kernels' launch
+     counters unchanged across 6e;
   7. summary: one {"kernels": [...]} line, the card line, then the
      {"ok": true, "device": ...} line last.
 
@@ -255,6 +287,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -5639,6 +5672,512 @@ def run_rllib(dev):
     return res
 
 
+SAN_TOKENS = 240        # output tokens a request: live through the window
+SAN_TIMED = 16          # steady decode ticks timed, armed and disarmed
+SAN_TICKS = 200         # graph-replayed decode ticks hammered and guarded
+SAN_WINDOW = 8          # ticks a dispatch_guard window (it holds the lock)
+
+
+def san_engine(params, prompts, label, hammer=None):
+    """An `8b` engine on `params` (built now: armed, if the sanitizer is)
+    serving phase 5's prompts greedily, SAN_TOKENS each, all admitted at
+    once: prefill, 3 decode ticks (the capture), SAN_TIMED timed steady
+    ticks, then SAN_TICKS ticks in dispatch_guard windows of SAN_WINDOW
+    (with `hammer` threads running, if given), then to the end. Returns
+    (tokens, tick ms, the window's numbers)."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine, Request
+    from ray_tpu_torch import SamplingParams
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    eng = InferenceEngine(EngineConfig(decode_impl="kernel", **ENGINE_KW),
+                          params=params)
+    reqs = [Request(f"san{i}", list(p), SamplingParams(max_tokens=SAN_TOKENS))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    while eng.waiting or any(s.request is not None and not s.ready
+                             for s in eng.slots):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    walls = []
+    for _ in range(SAN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    threads, stop = [], threading.Event()
+    if hammer is not None:
+        threads = [threading.Thread(target=hammer, args=(eng, stop),
+                                    daemon=True) for _ in range(3)]
+        for t in threads:
+            t.start()
+    _kernels.reset_launch_counts()
+    d0, c0 = eng.dispatches, eng.compiles
+    reports = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(SAN_TICKS // SAN_WINDOW):
+            with dispatch_guard(engine=eng) as rep:
+                for _ in range(SAN_WINDOW):
+                    eng.step()
+            reports.append(rep)
+            time.sleep(0.001)       # the hammers take the lock here
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    counts = _kernels.launch_counts()
+    n = eng.model_cfg.n_layers * SAN_TICKS
+    if eng.dispatches - d0 != SAN_TICKS or eng.compiles != c0:
+        raise AssertionError(f"5i {label}: {eng.dispatches - d0} dispatches "
+                             f"and {eng.compiles - c0} compiles over "
+                             f"{SAN_TICKS} ticks")
+    for rep in reports:
+        if rep.uploads or rep.captures or rep.readbacks != SAN_WINDOW:
+            raise AssertionError(f"5i {label}: a guarded window saw uploads "
+                                 f"{rep.uploads}, captures {rep.captures}, "
+                                 f"{rep.readbacks} readbacks")
+    if counts["paged_decode"] != n or counts["ragged_paged"]:
+        raise AssertionError(f"5i {label}: launches {counts} over "
+                             f"{SAN_TICKS} decode ticks, expected "
+                             f"paged_decode {n}")
+    check_decode_route(_kernels, "paged_decode", n)
+    while eng.has_work():
+        eng.step()
+    out = [list(r.output_tokens) for r in reqs]
+    if any(len(o) != SAN_TOKENS for o in out):
+        raise AssertionError(f"5i {label}: stream lengths "
+                             f"{[len(o) for o in out]}")
+    res = dict(tick_ms=statistics.median(walls), ticks_ms=walls,
+               window_s=window_s, paged_decode=counts["paged_decode"])
+    lock = eng._step_lock
+    eng.release_graphs()
+    return out, res, lock
+
+
+def run_sanitizer(dev, params):
+    """Phase 5i: the 8b engine with the thread sanitizer armed, its
+    lock-taking host entry points hammered from three threads while it
+    steps 200 guarded graph-replayed decode ticks."""
+    from ray_tpu_torch import ByteTokenizer
+    from ray_tpu_torch.util import thread_sanitizer as ts
+    tok = ByteTokenizer(128256)
+    prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+    want, plain, plain_lock = san_engine(params, prompts, "disarmed")
+    if not isinstance(plain_lock, type(threading.RLock())):
+        raise AssertionError(f"5i: a disarmed engine's lock is "
+                             f"{type(plain_lock)}, not the device's RLock")
+    calls = dict(n=0)
+    errors = []
+
+    def hammer(eng, stop):
+        try:
+            while not stop.is_set():
+                eng.stats()
+                eng.lane_counts()
+                eng.session_ids()
+                eng.fleet_counters()
+                eng.has_work()
+                if eng.abort("no-such-id") is not False \
+                        or eng.preempt("no-such-id") is not False \
+                        or eng.export_session("no-such-id") is not None:
+                    raise AssertionError("an unknown id was found")
+                calls["n"] += 1
+        except BaseException as e:      # reported by the main thread
+            errors.append(e)
+
+    with ts.sanitized():
+        got, armed, lock = san_engine(params, prompts, "armed", hammer)
+    if errors:
+        raise AssertionError(f"5i: a hammer thread failed: {errors[0]!r}")
+    ts.assert_clean()
+    if not isinstance(lock, ts._TracedRLock) or lock._lock is not plain_lock:
+        raise AssertionError(f"5i: the armed engine's lock {lock!r} is not "
+                             f"the device's traced lock")
+    if calls["n"] < 1:
+        raise AssertionError("5i: the hammer threads never got the lock")
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"5i: armed tokens differ from the disarmed "
+                             f"engine's in requests {bad}")
+    sites = dict(lock.reentry_sites)
+    log(f"[sanitizer] 5i: 8b bf16 engine, 6 prompts x {SAN_TOKENS} tokens; "
+        f"{SAN_TICKS} graph-replayed decode ticks in guarded windows of "
+        f"{SAN_WINDOW}, 3 threads hammering stats/lane_counts/session_ids/"
+        f"fleet_counters/has_work/abort/preempt/export_session "
+        f"({calls['n']} rounds): 1 dispatch a tick, 0 compiles, 0 uploads, "
+        f"0 captures, 1 readback a tick, paged_decode "
+        f"{armed['paged_decode']} launches (pipelined), 0 violations, "
+        f"tokens equal to the disarmed engine's")
+    log(f"[sanitizer] 5i: decode tick median armed "
+        f"{armed['tick_ms']:.3f} ms against disarmed {plain['tick_ms']:.3f} "
+        f"ms over {SAN_TIMED} ticks (armed "
+        f"{[round(x, 3) for x in armed['ticks_ms']]}; disarmed "
+        f"{[round(x, 3) for x in plain['ticks_ms']]}); the hammered "
+        f"window {armed['window_s']:.2f} s against {plain['window_s']:.2f} "
+        f"s; lock {lock.name}, re-entries by site {sites}, order edges "
+        f"{ts.order_edges()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(armed=armed, disarmed=plain, hammer_rounds=calls["n"],
+                reentry_sites=sites, lock=lock.name,
+                order_edges=[list(e) for e in ts.order_edges()])
+
+
+SAC_GATE_ITERS = 25     # test_sac_learns_pendulum: best of returns[5:] >
+SAC_GATE = 150.0        # returns[0] + 150 within 25 iterations
+SAC_WIDE_ENVS = 1024    # 6e(b): 1024 envs x 64 steps, train batch 4096,
+SAC_WIDE_T = 64         # 32 updates an iteration
+SAC_WIDE_BATCH = 4096
+SAC_WIDE_UPDATES = 32
+DREAMER_GATE_ITERS = 120    # test_dreamer_learns_cartpole_in_imagination:
+DREAMER_GATE = 120.0        # best > 120 within the first and 120 more
+MA_GATE_ITERS = 24      # test_multi_agent_ppo_two_policies_learn: both
+MA_GATE = 60.0          # agents' best > 60 within the first and 24 more
+SAC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chip_smoke_data",
+                           "sac_pendulum_jax_init_seed0.npz")
+
+
+def load_fixture_tree(path):
+    """An .npz of "layer/leaf" arrays as a flax-shaped tree."""
+    import numpy as np
+    tree = {}
+    with np.load(path) as z:
+        for k in z.files:
+            layer, leaf = k.split("/")
+            tree.setdefault(layer, {})[leaf] = z[k]
+    return tree
+
+
+def sac_gate(dev):
+    """6e(a): SAC on Pendulum at test_sac_learns_pendulum's configuration
+    from the JAX learner's initial weights (the committed fixture, as
+    the CPU test starts); returns the trained algorithm too."""
+    import numpy as np
+    from ray_tpu_torch.rllib import SACConfig
+    from ray_tpu_torch.rllib.core.rl_module import params_from_flax
+    algo = (SACConfig().environment("Pendulum-v1")
+            .env_runners(num_envs_per_env_runner=16,
+                         rollout_fragment_length=64)
+            .training(lr=3e-3, buffer_size=50_000, train_batch_size=256,
+                      num_updates_per_iter=32,
+                      num_steps_before_learning=1_000, action_scale=2.0)
+            .debugging(seed=0).build())
+    learner = algo.learner_group._local
+    if learner.device.type != dev.type:
+        raise AssertionError(f"6e(a): learner on {learner.device}")
+    init = load_fixture_tree(SAC_FIXTURE)
+    params_from_flax(learner.module, init)
+    params_from_flax(learner.target, init)
+    algo.env_runner_group.sync_weights(learner.get_weights())
+    rets = []
+    t0 = time.perf_counter()
+    for _ in range(SAC_GATE_ITERS):
+        m = algo.train()
+        if not np.isnan(m["episode_return_mean"]):
+            rets.append(m["episode_return_mean"])
+    wall = time.perf_counter() - t0
+    log(f"[rllib] 6e(a) SAC Pendulum-v1, 16 envs x 64, batch 256, 32 "
+        f"updates an iteration, from the JAX init: returns "
+        f"{[round(r, 1) for r in rets]} in {wall:.2f} s; alpha "
+        f"{m['learner/alpha']:.4f}")
+    if not rets or not max(rets[5:]) > rets[0] + SAC_GATE:
+        raise AssertionError(f"6e(a): SAC best of returns[5:] "
+                             f"{max(rets[5:] or [float('nan')]):.1f} not > "
+                             f"first {rets[:1]} + {SAC_GATE}")
+    return algo, dict(returns=rets, wall_s=wall)
+
+
+def sac_wide(dev):
+    """6e(b): SAC at 1024 envs x 64 steps, train batch 4096, 32 updates:
+    sample and update ms, launches an update, host syncs in the update
+    step, the iteration's device idle share."""
+    from ray_tpu_torch.rllib import SACConfig
+    algo = (SACConfig().environment("Pendulum-v1")
+            .env_runners(num_envs_per_env_runner=SAC_WIDE_ENVS,
+                         rollout_fragment_length=SAC_WIDE_T)
+            .training(train_batch_size=SAC_WIDE_BATCH,
+                      num_updates_per_iter=SAC_WIDE_UPDATES,
+                      action_scale=2.0)
+            .debugging(seed=0).build())
+    group, learners = algo.env_runner_group, algo.learner_group
+    learner = learners._local
+    times = dict(sample=[], update=[])
+
+    def timed(name, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)            # both end in a readback
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+    group.sample = timed("sample", group.sample)
+    learners.update = timed("update", learners.update)
+    algo.train()                                    # warm
+    for v in times.values():
+        v.clear()
+    iters = []
+    for _ in range(RL_TIMED):
+        t0 = time.perf_counter()
+        algo.train()
+        iters.append((time.perf_counter() - t0) * 1e3)
+    del group.sample, learners.update
+    # one update's step under the sync guard: any host sync raises
+    batch = learner._to_device(algo.replay.sample(SAC_WIDE_BATCH))
+    key = learner._next_key()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        learner._sac_step(batch, key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def nonempty(evs):
+        return None if evs else "no device kernel"
+    prof, _ = profiled(lambda: learner._sac_step(batch, learner._next_key()),
+                       "sac update step", check=nonempty)
+    launches = sum(e.count for e in device_events(prof))
+    prof, it_wall = profiled(algo.train, "sac iteration", check=nonempty)
+    it_busy = sum(dev_us(e) for e in device_events(prof)) / 1e3
+    steps = SAC_WIDE_ENVS * SAC_WIDE_T
+    res = dict(envs=SAC_WIDE_ENVS, T=SAC_WIDE_T, batch=SAC_WIDE_BATCH,
+               updates=SAC_WIDE_UPDATES,
+               sample_ms=statistics.median(times["sample"]),
+               update_ms=statistics.median(times["update"]),
+               iteration_ms=statistics.median(iters), iterations_ms=iters,
+               launches_an_update=launches, host_syncs_in_step=0,
+               readbacks_an_update=1, iteration_wall_ms=it_wall,
+               iteration_busy_ms=it_busy,
+               idle_share=max(0.0, 1 - it_busy / it_wall))
+    res["env_steps_per_s"] = steps / res["iteration_ms"] * 1e3
+    log(f"[rllib] 6e(b) SAC Pendulum-v1, {SAC_WIDE_ENVS} envs x "
+        f"{SAC_WIDE_T} ({steps} env steps), batch {SAC_WIDE_BATCH}, "
+        f"{SAC_WIDE_UPDATES} updates: sample {res['sample_ms']:.2f} ms, "
+        f"update {res['update_ms']:.3f} ms each, iteration "
+        f"{res['iteration_ms']:.2f} ms (medians of {RL_TIMED}; "
+        f"{[round(x, 2) for x in iters]}), {res['env_steps_per_s']:.0f} env "
+        f"steps/s; {launches} kernel launches an update step, 0 host syncs "
+        f"in it (set_sync_debug_mode('error')) and 1 metrics readback an "
+        f"update; one iteration under the profiler: wall {it_wall:.2f} ms, "
+        f"kernels {it_busy:.2f} ms, device idle "
+        f"{100 * res['idle_share']:.1f}%")
+    return res
+
+
+def offline_phase(dev, sac_algo):
+    """6e(c, d): BC and MARWIL from CartPole shards recorded on the card
+    by a PPO runner (reward-to-go at gamma 0.99), the reference's gates;
+    CQL from Pendulum transitions the trained SAC records on the card."""
+    import numpy as np
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, MARWILConfig,
+                                     PPOConfig, record_samples)
+    from ray_tpu_torch.rllib.algorithms.dqn import _to_transitions
+    root = tempfile.mkdtemp(prefix="rllib_offline_")
+    try:
+        # each test's recording: 3 fragments of a fresh PPO runner, BC's
+        # 8 envs x 32 as they are, MARWIL's 8 x 64 with reward-to-go
+        for name, T, gamma in (("bc", 32, None), ("marwil", 64, 0.99)):
+            ppo = (PPOConfig().environment("CartPole-v1")
+                   .env_runners(num_envs_per_env_runner=8,
+                                rollout_fragment_length=T).build())
+            for i in range(3):
+                record_samples(ppo.env_runner_group.sample()["batch"],
+                               os.path.join(root, name), shard_index=i,
+                               gamma=gamma)
+            del ppo
+        res = {}
+        bc = (BCConfig().environment("CartPole-v1")
+              .env_runners(num_envs_per_env_runner=4,
+                           rollout_fragment_length=32)
+              .offline_data(input_path=os.path.join(root, "bc"))
+              .training(lr=1e-3, num_updates_per_iter=8).build())
+        m1, m2 = bc.step(), bc.step()
+        res["bc"] = [m1["learner/total_loss"], m2["learner/total_loss"]]
+        if not m2["learner/total_loss"] < m1["learner/total_loss"]:
+            raise AssertionError(f"6e(c) BC: loss {res['bc']} did not drop")
+        marwil = (MARWILConfig().environment("CartPole-v1")
+                  .env_runners(num_envs_per_env_runner=4,
+                               rollout_fragment_length=32)
+                  .offline_data(input_path=os.path.join(root, "marwil"))
+                  .training(lr=1e-3, num_updates_per_iter=8)
+                  .debugging(seed=0).build())
+        ms = [marwil.step() for _ in range(5)]
+        res["marwil"] = dict(
+            vf_loss=[m["learner/vf_loss"] for m in ms],
+            mean_weight=ms[-1]["learner/mean_weight"])
+        if not (np.isfinite(ms[-1]["learner/total_loss"])
+                and ms[-1]["learner/vf_loss"] < ms[0]["learner/vf_loss"]
+                and abs(ms[-1]["learner/mean_weight"] - 1.0) > 1e-3):
+            raise AssertionError(f"6e(c) MARWIL: {res['marwil']}")
+        for i in range(4):
+            sac_algo.step()
+            batch = sac_algo.env_runner_group.sample()["batch"]
+            os.makedirs(os.path.join(root, "pendulum"), exist_ok=True)
+            np.savez(os.path.join(root, "pendulum", f"shard-{i:05d}.npz"),
+                     **_to_transitions(batch))
+        cfg = (CQLConfig().environment("Pendulum-v1")
+               .env_runners(num_envs_per_env_runner=4,
+                            rollout_fragment_length=64)
+               .offline_data(input_path=os.path.join(root, "pendulum"))
+               .training(lr=1e-3, num_updates_per_iter=16,
+                         train_batch_size=256, action_scale=2.0)
+               .debugging(seed=0))
+        cfg.cql_alpha = 2.0
+        cql = cfg.build()
+        pens = [cql.step()["learner/cql_penalty"] for _ in range(7)]
+        res["cql_penalty"] = pens
+        if not (np.isfinite(pens).all() and pens[-1] < pens[0]):
+            raise AssertionError(f"6e(d) CQL: penalty {pens}")
+        log(f"[rllib] 6e(c) BC total_loss {[round(x, 4) for x in res['bc']]};"
+            f" MARWIL vf_loss {[round(x, 3) for x in res['marwil']['vf_loss']]}"
+            f", mean_weight {res['marwil']['mean_weight']:.4f} (shards "
+            f"recorded on the card); 6e(d) CQL penalty "
+            f"{[round(x, 3) for x in pens]} (Pendulum transitions recorded "
+            f"on the card)")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dreamer_phase(dev):
+    """6e(e): DreamerV3 on CartPole at test_rllib_dreamer.py's
+    configuration and the module's default widths: best return > 120
+    within its 120 iterations; world-model, imagine and update ms and
+    launches an update."""
+    from ray_tpu_torch.rllib import DreamerV3Config
+    from ray_tpu_torch.rllib.algorithms.dreamer_v3 import symlog
+    algo = (DreamerV3Config().environment("CartPole-v1")
+            .env_runners(num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+            .debugging(seed=0).build())
+    learner = algo.learner_group._local
+    t0 = time.perf_counter()
+    first = algo.train()["episode_return_mean"]
+    rets = [first]
+    for _ in range(DREAMER_GATE_ITERS):
+        rets.append(algo.train()["episode_return_mean"])
+        if max(rets) > DREAMER_GATE:
+            break
+    wall = time.perf_counter() - t0
+    # one update's parts, timed with a synchronise around each
+    batch = learner._to_device(algo.replay.sample(algo._config.batch_seqs))
+    scale = torch.ones((), device=dev)
+    B, L = batch["actions"].shape
+
+    def part(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+    noise = learner._draw(learner._next_key(), B, L)
+    (hs, zs, _, _), wm_ms = part(lambda: learner._observe(
+        symlog(batch["obs"]), batch["actions"], batch["is_first"],
+        noise[0]))
+    _, img_ms = part(lambda: learner._imagine(
+        hs.detach().reshape(B * L, -1), zs.detach().reshape(B * L, -1),
+        noise[1]))
+    ups = [part(lambda: learner._dreamer_step(batch, learner._next_key(),
+                                              scale))[1] for _ in range(3)]
+
+    def nonempty(evs):
+        return None if evs else "no device kernel"
+    prof, _ = profiled(lambda: learner._dreamer_step(
+        batch, learner._next_key(), scale), "dreamer update",
+        check=nonempty)
+    launches = sum(e.count for e in device_events(prof))
+    res = dict(returns=rets, iterations=len(rets) - 1, wall_s=wall,
+               observe_ms=wm_ms, imagine_ms=img_ms,
+               update_ms=statistics.median(ups), updates_ms=ups,
+               launches_an_update=launches)
+    log(f"[rllib] 6e(e) DreamerV3 CartPole-v1, 8 envs x 64, deter 256, "
+        f"stoch 8 x 8, units 128: returns {[round(r, 1) for r in rets]} in "
+        f"{wall:.2f} s ({len(rets) - 1} iterations after the first); an "
+        f"update of {B} x {L}: observe {wm_ms:.2f} ms, imagine "
+        f"{img_ms:.2f} ms, the whole update {res['update_ms']:.2f} ms "
+        f"({[round(x, 2) for x in ups]}), {launches} kernel launches")
+    if not max(rets) > DREAMER_GATE:
+        raise AssertionError(f"6e(e): DreamerV3 best {max(rets):.1f} not > "
+                             f"{DREAMER_GATE} within {DREAMER_GATE_ITERS} "
+                             f"iterations")
+    return res
+
+
+def multi_agent_phase(dev):
+    """6e(f): multi-agent PPO on DualCartPole at
+    test_multi_agent_ppo_two_policies_learn's configuration."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+    algo = (MultiAgentPPOConfig().environment("DualCartPole")
+            .multi_agent(policies={"p0": None, "p1": None},
+                         policy_mapping_fn=lambda aid: {
+                             "cart_0": "p0", "cart_1": "p1"}[aid])
+            .env_runners(num_envs_per_env_runner=16,
+                         rollout_fragment_length=128)
+            .training(lr=3e-4, num_epochs=4, minibatch_size=256)
+            .debugging(seed=0).build())
+    t0 = time.perf_counter()
+    first = algo.train()["agent_episode_returns"]
+    best = {aid: -math.inf for aid in ("cart_0", "cart_1")}
+    n = 0
+    for _ in range(MA_GATE_ITERS):
+        rets = algo.train()["agent_episode_returns"]
+        n += 1
+        for aid in best:
+            best[aid] = max(best[aid], rets.get(aid, -math.inf))
+        if all(v > MA_GATE for v in best.values()):
+            break
+    wall = time.perf_counter() - t0
+    log(f"[rllib] 6e(f) multi-agent PPO DualCartPole, two policies, 16 envs "
+        f"x 128: first {first}, best {best} after {n} iterations, "
+        f"{wall:.2f} s")
+    if not (all(v > MA_GATE for v in best.values())
+            and all(best[a] > first.get(a, 0) for a in best)):
+        raise AssertionError(f"6e(f): multi-agent PPO first {first} best "
+                             f"{best}")
+    return dict(first=first, best=best, iterations=n, wall_s=wall)
+
+
+def run_rllib_more(dev):
+    """Phase 6e: SAC, offline BC/MARWIL, CQL, DreamerV3 and multi-agent
+    PPO on the card; the kernels' launch counters unchanged."""
+    from ray_tpu_torch.ops import _kernels
+    before = _kernels.launch_counts()
+    phase_s = {}
+    t0 = time.perf_counter()
+    sac_algo, gate = sac_gate(dev)
+    phase_s["sac_gate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = sac_wide(dev)
+    phase_s["sac_wide"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    offline = offline_phase(dev, sac_algo)
+    del sac_algo
+    phase_s["offline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dreamer = dreamer_phase(dev)
+    phase_s["dreamer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multi = multi_agent_phase(dev)
+    phase_s["multi_agent"] = time.perf_counter() - t0
+    after = _kernels.launch_counts()
+    if after != before:
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        raise AssertionError(f"6e: kernel launch counters moved: {moved}")
+    log(f"[rllib] 6e(g) the launch counters of the {len(after)} kernels "
+        f"unchanged across 6e; seconds by part "
+        f"{({k: round(v, 1) for k, v in phase_s.items()})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(sac_gate=gate, sac_wide=wide, offline=offline,
+                dreamer=dreamer, multi_agent=multi, seconds=phase_s)
+
+
 def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
@@ -5760,10 +6299,15 @@ def main():
     phase_s["5g"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fleet = run_fleet(dev, params)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_s["5h"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sanitizer = run_sanitizer(dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["5i"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     server = run_server()
     gc.collect()
@@ -5783,6 +6327,9 @@ def main():
     t0 = time.perf_counter()
     rllib = run_rllib(dev)
     phase_s["6d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rllib_more = run_rllib_more(dev)
+    phase_s["6e"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
         f"{PROFILES['lost']} of them lost records and were taken again")
@@ -5843,6 +6390,10 @@ def main():
         base = k["name"].replace("_narrow_table", "")
         if base in FLEET_LAUNCHES:
             k["launches_fleet"] = FLEET_LAUNCHES[base]
+    # phase 5i's main path (the armed engine's guarded window) launches
+    for k in kernels:
+        if k["name"] in ("paged_decode", "paged_decode_narrow_table"):
+            k["launches_sanitizer"] = sanitizer["armed"]["paged_decode"]
     # phase 6b's main path (MoE training) launches
     for k in kernels:
         if k["name"] in MOE_LAUNCHES:
@@ -5855,7 +6406,8 @@ def main():
                            engine=engine,
                            quant_engine=quant_engine, train=train,
                            train_moe=train_moe, checkpoint=checkpoint,
-                           rllib=rllib,
+                           rllib=rllib, rllib_more=rllib_more,
+                           sanitizer=sanitizer,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,
                            lora=lora, spec=spec, fleet=fleet,

@@ -126,6 +126,7 @@ from ...ops import _kernels, kv_quant
 from ...ops.threefry import row_gumbel
 from ...util import metrics as metrics_api
 from ...util import profiling
+from ...util import thread_sanitizer
 from .anomaly import AnomalyConfig, TickAnomalyDetector
 from .attribution import ReceiptLedger
 from .blackbox import BlackboxSpool, default_spool_dir
@@ -417,8 +418,10 @@ def _resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
-# one re-entrant lock per CUDA device, shared by every engine on it
+# one re-entrant lock per CUDA device, shared by every engine on it,
+# and, while the thread sanitizer is armed, one traced wrapper of it
 _DEVICE_LOCKS: Dict[int, Any] = {}
+_TRACED_LOCKS: Dict[int, Any] = {}
 _DEVICE_LOCKS_GUARD = threading.Lock()
 # the engine whose tick ran last on each CUDA device (id(engine)): a
 # tick after another engine's waits for that engine's queued work and
@@ -427,21 +430,45 @@ _LAST_ON_DEVICE: Dict[int, int] = {}
 
 
 def make_lock(device: torch.device):
-    """An engine's step lock: on a CUDA device the device's one
-    re-entrant lock, shared by every engine there; elsewhere a lock of
-    the engine's own (CPU engines share no device state)."""
+    """An engine's step lock, through the thread sanitizer: on a CUDA
+    device the device's one re-entrant lock, shared by every engine
+    there (armed, one traced wrapper of it a device,
+    ``engine._step_lock[cuda:<index>]``, over the same lock, so engines
+    built disarmed still exclude it); elsewhere a lock of the engine's
+    own (CPU engines share no device state), traced when armed."""
     if device.type != "cuda":
-        return threading.Lock()
+        return thread_sanitizer.make_lock("engine._step_lock")
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _DEVICE_LOCKS_GUARD:
         lock = _DEVICE_LOCKS.get(idx)
         if lock is None:
             lock = _DEVICE_LOCKS[idx] = threading.RLock()
-        return lock
+        if not thread_sanitizer.armed():
+            return lock
+        traced = _TRACED_LOCKS.get(idx)
+        if traced is None:
+            traced = _TRACED_LOCKS[idx] = thread_sanitizer.make_lock(
+                f"engine._step_lock[cuda:{idx}]", reentrant=True,
+                inner=lock)
+        return traced
 
 
 class InferenceEngine:
+    # thread-sanitizer-guarded state (plain attributes unless the
+    # sanitizer is armed, as in the concurrency stress tests): the
+    # tick-times deque is read AND written only under _step_lock
+    # (dump_blackbox's sanctioned lock-free read runs inside
+    # thread_sanitizer.unguarded()); `waiting` and `_pending_touched`
+    # are write-guarded only: bare boolean/len reads of the published
+    # list references are part of the design (has_work, blackbox).
+    # The constructor assigns them before it creates _step_lock, when
+    # the descriptor has no lock to check.
+    _tick_times = thread_sanitizer.guarded_by("_step_lock")
+    waiting = thread_sanitizer.guarded_by("_step_lock", writes_only=True)
+    _pending_touched = thread_sanitizer.guarded_by(
+        "_step_lock", writes_only=True)
+
     def __init__(self, config: EngineConfig,
                  params: Optional[Dict[str, Any]] = None):
         self.config = config
@@ -1380,6 +1407,14 @@ class InferenceEngine:
                    for st in self._lora_stacks.values()
                    for t in (st["a"], st["b"]))
 
+    def lane_counts(self) -> Dict[str, int]:
+        """Batch-lane occupancy, snapshotted under the step lock: the
+        pump rebinds `waiting` mid-step, and an unlocked sum over it can
+        double-count or skip entries. Lock-averse readers use
+        fleet_counters() instead."""
+        with self._step_lock:
+            return self._lane_counts_locked()
+
     def _lane_counts_locked(self) -> Dict[str, int]:
         """Batch-lane occupancy: queued, active and parked priority-0
         bulk requests, and the device pages batch slots hold."""
@@ -1655,12 +1690,17 @@ class InferenceEngine:
             return None
         try:
             ticks: List[Any] = []
-            for _ in range(4):
-                try:
-                    ticks = list(self._tick_times)[-64:]  # racelint: disable=RL004 -- lock-free by contract: the crash path holds _step_lock; a bounded retry absorbs a concurrent append
-                    break
-                except RuntimeError:      # a concurrent append
-                    continue
+            # sanctioned bare read of a _step_lock-guarded field:
+            # unguarded() tells the runtime sanitizer this scope is
+            # lock-free on purpose, and the inline racelint disable
+            # records the same contract for the static analyzer
+            with thread_sanitizer.unguarded():
+                for _ in range(4):
+                    try:
+                        ticks = list(self._tick_times)[-64:]  # racelint: disable=RL004 -- lock-free by contract: the crash path holds _step_lock; a bounded retry absorbs a concurrent append
+                        break
+                    except RuntimeError:      # a concurrent append
+                        continue
             try:
                 cfg = json.loads(json.dumps(
                     dataclasses.asdict(self.config), default=repr))

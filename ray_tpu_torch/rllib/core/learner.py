@@ -108,7 +108,10 @@ class Learner:
     def _apply(self, minibatch) -> Dict[str, torch.Tensor]:
         """One gradient step; its metrics, detached on the device."""
         loss, aux = self.compute_loss(minibatch)
-        grads = torch.autograd.grad(loss, self.params)
+        # a parameter the loss does not reach (BC's value torso) gets a
+        # zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True,
+                                    materialize_grads=True)
         self.optimizer.step_(self.params, list(grads), self.opt_state)
         return {k: v.detach() for k, v in aux.items()}
 

@@ -8,7 +8,9 @@ owns its parameters: ``module(obs)`` returns ``{"action_dist_inputs",
 device) with flax's initializer families: lecun-normal (a truncated
 normal) kernels, zero biases, orthogonal logits (gain 0.01) and value
 heads (gain 1.0). ``params_from_flax`` carries a flax param tree, as
-numpy, into a module.
+numpy, into a module; a module of nested flax trees (DreamerV3's) names
+its layers by path ("wm/enc/Dense_0"), and a GRU cell takes flax's six
+gate layers (``GRUCell``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ class RLModule(nn.Module):
 
     def flax_layers(self) -> List[Tuple[str, nn.Module, Any]]:
         """``(flax name, layer, kernel init)`` in ``@nn.compact``
-        creation order; init is "lecun" or an orthogonal gain."""
+        creation order; init is "lecun", an orthogonal gain, or "gru"
+        (a ``GRUCell``: lecun input kernels, orthogonal recurrent ones).
+        Names of nested trees are "/"-joined paths."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -48,15 +52,10 @@ class RLModule(nn.Module):
         (drawn on the CPU, copied to where the module lives)."""
         gen = torch.Generator().manual_seed(seed)
         for _, layer, init in self.flax_layers():
-            w = torch.empty(layer.weight.shape)
-            if init == "lecun":
-                fan_in = math.prod(w.shape[1:])
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
-            else:
-                nn.init.orthogonal_(w, gain=init, generator=gen)
-            layer.weight.copy_(w)
+            if init == "gru":
+                layer.init_parameters(gen)
+                continue
+            layer.weight.copy_(_init_kernel(layer.weight.shape, init, gen))
             layer.bias.zero_()
         return self
 
@@ -84,6 +83,69 @@ class RLModule(nn.Module):
 
     def forward_train(self, obs):
         return self(obs)
+
+
+def _init_kernel(shape, init, gen) -> torch.Tensor:
+    """A (out, in) kernel of flax's family `init`: lecun-normal or an
+    orthogonal gain."""
+    w = torch.empty(shape)
+    if init == "lecun":
+        fan_in = math.prod(w.shape[1:])
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+    else:
+        nn.init.orthogonal_(w, gain=init, generator=gen)
+    return w
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` on ``torch.gru_cell`` (``torch.nn.GRUCell``'s
+    op): gates stacked r, z, n; flax's input biases are the input bias
+    (``b_ih``), its one recurrent bias (``hn``) the n part of the hidden
+    bias, whose r and z parts are zero and not parameters. Both
+    formulas are then the same: r = sigmoid(W_ir x + b_ir + W_hr h),
+    z likewise, n = tanh(W_in x + b_in + r (W_hn h + b_hn)),
+    h' = (1 - z) n + z h."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden_size,
+                                                  input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden_size,
+                                                  hidden_size))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * hidden_size))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden_size))
+
+    def forward(self, h, x):
+        zero = torch.zeros(2 * self.hidden_size, dtype=h.dtype,
+                           device=h.device)
+        return torch.gru_cell(x, h, self.weight_ih, self.weight_hh,
+                              self.bias_ih, torch.cat([zero, self.bias_hn]))
+
+    @torch.no_grad()
+    def init_parameters(self, gen) -> None:
+        """flax's GRUCell families: lecun input kernels, orthogonal
+        recurrent kernels (each gate's own), zero biases."""
+        h, i = self.hidden_size, self.weight_ih.shape[1]
+        self.weight_ih.copy_(torch.cat([_init_kernel((h, i), "lecun", gen)
+                                        for _ in range(3)]))
+        self.weight_hh.copy_(torch.cat([_init_kernel((h, h), 1.0, gen)
+                                        for _ in range(3)]))
+        self.bias_ih.zero_()
+        self.bias_hn.zero_()
+
+    @torch.no_grad()
+    def load_flax(self, tree: Dict[str, Any]) -> None:
+        """Copy flax's ``ir, iz, in, hr, hz, hn`` dense layers in."""
+        k = {g: torch.from_numpy(np.array(tree[g]["kernel"], np.float32)).T
+             for g in ("ir", "iz", "in", "hr", "hz", "hn")}
+        b = {g: torch.from_numpy(np.array(tree[g]["bias"], np.float32))
+             for g in ("ir", "iz", "in", "hn")}
+        self.weight_ih.copy_(torch.cat([k["ir"], k["iz"], k["in"]]))
+        self.weight_hh.copy_(torch.cat([k["hr"], k["hz"], k["hn"]]))
+        self.bias_ih.copy_(torch.cat([b["ir"], b["iz"], b["in"]]))
+        self.bias_hn.copy_(b["hn"])
 
 
 def _dense(i: int, o: int) -> nn.Linear:
@@ -194,19 +256,38 @@ class CNNRLModule(RLModule):
                 "vf": self.vf(hid)[..., 0].reshape(lead)}
 
 
+def _flax_layer_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """A flax tree's layers by "/"-joined path, its "params" levels
+    skipped: a node with a "kernel" is a layer, one with "ir" a GRU
+    cell."""
+    out = {}
+    for k, v in tree.items():
+        if k == "params":
+            out.update(_flax_layer_paths(v, prefix))
+        elif "kernel" in v or "ir" in v:
+            out[prefix + k] = v
+        else:
+            out.update(_flax_layer_paths(v, f"{prefix}{k}/"))
+    return out
+
+
 @torch.no_grad()
 def params_from_flax(module: RLModule, tree: Dict[str, Any]) -> RLModule:
     """Copy a flax param tree (``{"params": {"Dense_0": {"kernel",
-    "bias"}, ...}}`` or its inner dict; numpy or array-likes) into
-    `module`'s parameters, in place: dense kernels (in, out) into
-    ``nn.Linear`` weights (out, in), conv kernels (kh, kw, in, out) into
-    ``nn.Conv2d`` weights (out, in, kh, kw)."""
-    tree = tree.get("params", tree)
+    "bias"}, ...}}`` or its inner dict, or a tree of such trees; numpy
+    or array-likes) into `module`'s parameters, in place: dense kernels
+    (in, out) into ``nn.Linear`` weights (out, in), conv kernels (kh,
+    kw, in, out) into ``nn.Conv2d`` weights (out, in, kh, kw), GRU cells
+    by ``GRUCell.load_flax``."""
+    tree = _flax_layer_paths(tree)
     layers = module.flax_layers()
     if sorted(tree) != sorted(name for name, _, _ in layers):
         raise ValueError(f"flax tree has {sorted(tree)}, the module "
                          f"{[name for name, _, _ in layers]}")
-    for name, layer, _ in layers:
+    for name, layer, init in layers:
+        if init == "gru":
+            layer.load_flax(tree[name])
+            continue
         kernel = torch.from_numpy(np.array(tree[name]["kernel"],
                                            np.float32))
         kernel = (kernel.permute(3, 2, 0, 1) if kernel.dim() == 4

@@ -16,7 +16,10 @@ jitted ``lax.scan``. Here a fragment is three stages, each a method:
    episode stats from the read-back arrays.
 
 ``sample()`` runs the three; the batch and ``stats`` keys are the JAX
-runner's.
+runner's. A recurrent module (one with ``initial_state``, DreamerV3's)
+threads its state through the step loop (``explore_with(obs, noise,
+state)``), across fragments too, and a finished env's state restarts
+from ``initial_state``, as in the JAX runner's scan.
 """
 
 from __future__ import annotations
@@ -95,6 +98,10 @@ class SingleAgentEnvRunner:
         if self.framestack > 1:
             self._stack = self._obs[:, None].repeat(
                 1, self.framestack, *([1] * (self._obs.dim() - 1)))
+        # recurrent policies (world models) carry their state across
+        # steps and fragments
+        self._mstate = (self.module.initial_state(num_envs)
+                        if hasattr(self.module, "initial_state") else None)
         self._ep_ret = torch.zeros(num_envs, device=self.device)
         self._ep_len = torch.zeros(num_envs, dtype=torch.int32,
                                    device=self.device)
@@ -155,6 +162,7 @@ class SingleAgentEnvRunner:
             return torch.where(done.reshape((B,) + (1,) * (a.dim() - 1)),
                                a, b)
         state, obs = self._env_state, self._obs
+        mstate = self._mstate
         stack = self._stack if N > 1 else None
         ep_ret, ep_len = self._ep_ret, self._ep_len
         fsum = torch.zeros(obs.shape[1:], device=self.device)
@@ -164,8 +172,12 @@ class SingleAgentEnvRunner:
         rec = {k: [] for k in keys}
         for t in range(T):
             net_in = filt(stack).reshape(B, -1) if N > 1 else filt(obs)
-            action, logp, vf = module.explore_with(
-                net_in, tuple(n[t] for n in draws["act"]))
+            noise_t = tuple(n[t] for n in draws["act"])
+            if mstate is not None:
+                action, logp, vf, mstate = module.explore_with(
+                    net_in, noise_t, mstate)
+            else:
+                action, logp, vf = module.explore_with(net_in, noise_t)
             noise = draws["step"][t] if draws["step"] is not None else None
             next_state, next_obs, reward, done = env.step_from(
                 state, action, noise)
@@ -191,6 +203,10 @@ class SingleAgentEnvRunner:
                 rec[k].append(v)
             ep_ret = torch.where(done, 0.0, ep_ret)
             ep_len = torch.where(done, 0, ep_len)
+            if mstate is not None:
+                # done envs restart their recurrent state
+                mstate = tuple(sel(done, f, m) for f, m in zip(
+                    module.initial_state(B), mstate))
             if self.obs_filter:
                 # raw-obs moments: two obs-shaped tensors leave the
                 # device, not [T, B, obs]
@@ -198,6 +214,7 @@ class SingleAgentEnvRunner:
                 fsq = fsq + (obs * obs).sum(dim=0)
             obs = next_obs
         self._env_state, self._obs = state, obs
+        self._mstate = mstate
         self._ep_ret, self._ep_len = ep_ret, ep_len
         if N > 1:
             self._stack = stack

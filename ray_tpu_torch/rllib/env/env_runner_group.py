@@ -3,8 +3,8 @@
 Counterpart of ``ray_tpu/rllib/env/env_runner_group.py``'s local path
 (``num_env_runners=0``): one in-process SingleAgentEnvRunner on the
 group's device. Remote runners need an actor runtime, which the port
-does not have yet (ROADMAP.md §A8), so ``num_env_runners > 0`` is
-refused rather than sampled locally.
+does not have yet (ROADMAP.md §A5; RLlib's remote paths on it are §A6),
+so ``num_env_runners > 0`` is refused rather than sampled locally.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ class EnvRunnerGroup:
             raise ValueError(
                 f"num_env_runners={num_env_runners}: remote env runners "
                 f"wait for an actor runtime in ray_tpu_torch (ROADMAP.md "
-                f"§A8); use num_env_runners=0 for the local runner")
+                f"§A5, then RLlib's remote paths, §A6); use "
+                f"num_env_runners=0 for the local runner")
         self.num_env_runners = num_env_runners
         self.obs_filter = obs_filter
         self._local = SingleAgentEnvRunner(

@@ -1625,3 +1625,189 @@ def test_rllib_ppo_iteration_on_the_card(dev):
     runner_w = algo.env_runner_group.get_weights()
     for k, v in learner.get_weights().items():
         assert runner_w[k].is_cuda and torch.equal(runner_w[k], v), k
+
+
+def _adam_first_step_close(card, cpu, lr, eps, what):
+    """Parameters after one Adam step from the same weights: 1e-6 plus
+    what lr g / (|g| + eps) makes of gradients 1e-4 (of themselves and
+    of the largest) apart where |g| is small (g from the CPU side's first
+    moment, a tenth of the clipped gradient)."""
+    mus = [m.abs() / 0.1 for m in cpu["mu"]]
+    top = max(float(m.max()) for m in mus)
+    for (name, p), pc, g in zip(card["named"], cpu["params"], mus):
+        tol = 1e-6 + lr * 2e-4 * (g + 10 * top) / (g + eps)
+        err = (p.detach().cpu() - pc.detach()).abs()
+        assert (err <= tol).all(), (what, name, float((err - tol).max()))
+
+
+@pytest.mark.cuda
+def test_rllib_sac_update_on_the_card_matches_cpu(dev):
+    """One SAC update (critic + actor backward, clipped Adam, the
+    temperature's step, the polyak targets) on the card against the
+    CPU's from the same weights, batch and key: metrics 1e-4 relative
+    plus 1e-4, first moments 2e-4 relative plus 2e-4 of the largest,
+    parameters by Adam's first-step bound, targets and log_alpha 1e-6;
+    the step itself makes no host sync."""
+    import numpy as np
+    from ray_tpu_torch.rllib import SACConfig
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
+    from ray_tpu_torch.rllib.env.torch_env import Pendulum
+    sides = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        cfg = SACConfig().training(lr=3e-3, action_scale=2.0)
+        sides[name] = SACLearner(Pendulum().spec, cfg, device=d)
+    cpu, card = sides["cpu"], sides["card"]
+    card.set_state(cpu.get_state())
+    rng = np.random.default_rng(0)
+    f = np.float32
+    batch = dict(obs=rng.normal(size=(256, 3)).astype(f),
+                 actions=rng.uniform(-2, 2, (256, 1)).astype(f),
+                 rewards=rng.normal(size=256).astype(f),
+                 dones=(rng.random(256) < 0.1).astype(f),
+                 next_obs=rng.normal(size=(256, 3)).astype(f))
+    want = cpu.update(batch)
+    tb, key = card._to_device(batch), card._next_key()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = card._sac_step(tb, key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: v.item() for k, v in aux.items()}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    top = max(float(m.abs().max()) for m in cpu.opt_state["mu"])
+    for m, mc in zip(card.opt_state["mu"], cpu.opt_state["mu"]):
+        torch.testing.assert_close(m.cpu(), mc, rtol=2e-4, atol=2e-4 * top)
+    _adam_first_step_close(
+        dict(named=list(card.module.named_parameters())),
+        dict(params=cpu.params, mu=cpu.opt_state["mu"]), 3e-3, 1e-5, "sac")
+    for t, tc in zip(card.target.parameters(), cpu.target.parameters()):
+        torch.testing.assert_close(t.cpu(), tc, rtol=0, atol=1e-6)
+    assert abs(card.log_alpha.item() - cpu.log_alpha.item()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_rllib_dreamer_update_on_the_card_matches_cpu(dev):
+    """One DreamerV3 update at small widths on the card against the
+    CPU's from the same weights, batch and key: the same Gumbel samples
+    (argmax of draws 2^-22 apart), metrics 1e-4 relative plus 1e-5,
+    each group's first moments and parameters as in the SAC case, the
+    return-scale EMA 1e-5; the step makes no host sync."""
+    import numpy as np
+    from ray_tpu_torch.rllib import DreamerV3Config
+    from ray_tpu_torch.rllib.algorithms import dreamer_v3 as pd
+    from ray_tpu_torch.rllib.env.torch_env import CartPole
+    sides = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        cfg = DreamerV3Config()
+        cfg.module_class = pd.DreamerV3Module
+        cfg.model_config = dict(deter=32, stoch=4, classes=4, units=32,
+                                embed=24, twohot_bins=15)
+        cfg.seq_len, cfg.imagine_horizon = 8, 6
+        sides[name] = pd.DreamerV3Learner(CartPole().spec, cfg, device=d)
+    cpu, card = sides["cpu"], sides["card"]
+    card.set_state(cpu.get_state())
+    rng = np.random.default_rng(1)
+    f = np.float32
+    dones = (rng.random((6, 8)) < 0.15).astype(f)
+    isf = np.concatenate([np.ones((6, 1), f), dones[:, :-1]], 1)
+    batch = dict(obs=(rng.normal(size=(6, 8, 4)) * 2).astype(f),
+                 actions=rng.integers(0, 2, (6, 8)).astype(np.int32),
+                 rewards=np.ones((6, 8), f), dones=dones, is_first=isf)
+    want = cpu.update(batch)
+    tb, key = card._to_device(batch), card._next_key()
+    scale = torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = card._dreamer_step(tb, key, scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: v.item() for k, v in aux.items()}
+    spread = got.pop("ret_spread")
+    card.ret_scale = 0.99 + 0.01 * max(spread, 1e-8)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    assert abs(card.ret_scale - cpu.ret_scale) <= 1e-5
+    lrs = {"wm": 4e-4, "actor": 1e-4, "critic": 1e-4}
+    named = dict(card.module.named_parameters())
+    ids = {id(p): k for k, p in named.items()}
+    for g, ps in card.groups.items():
+        cps = cpu.groups[g]
+        cmu = cpu.opt_states[g]["mu"]
+        top = max(float(m.abs().max()) for m in cmu)
+        for m, mc in zip(card.opt_states[g]["mu"], cmu):
+            torch.testing.assert_close(m.cpu(), mc, rtol=1e-4,
+                                       atol=1e-4 * top)
+        _adam_first_step_close(dict(named=[(ids[id(p)], p) for p in ps]),
+                               dict(params=cps, mu=cmu), lrs[g], 1e-8,
+                               f"dreamer {g}")
+
+
+@pytest.mark.cuda
+def test_sanitizer_traced_device_lock_two_engines(dev):
+    """With the thread sanitizer armed, two `tiny` engines on the card
+    share one traced re-entrant lock named after the device (over the
+    device's own RLock), step from two threads at once and under a
+    dispatch guard, which holds the lock while step() re-enters it: no
+    violation, tokens equal to the same engines' disarmed, and the
+    re-entries counted by the function that made them."""
+    import threading
+    from ray_tpu_torch.util import thread_sanitizer as ts
+    from ray_tpu_torch.util.dispatch_guard import dispatch_guard
+    gen = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(2, 2000, (n,), generator=gen).tolist()
+               for n in (33, 5, 70, 12)]
+    alone = _fleet_engines(2)
+    want = [_run_engine(e, _fleet_requests("a", prompts, i == 1))
+            for i, e in enumerate(alone)]
+    for e in alone:
+        e.release_graphs()
+    idx = torch.cuda.current_device()
+    with ts.sanitized():
+        pair = _fleet_engines(2)
+        lock = pair[0]._step_lock
+        assert isinstance(lock, ts._TracedRLock)
+        assert lock is pair[1]._step_lock
+        assert lock.name == f"engine._step_lock[cuda:{idx}]"
+        assert lock._lock is alone[0]._step_lock
+        start = threading.Barrier(2)
+        got, errors = [None, None], []
+
+        def worker(i):
+            try:
+                got[i] = _run_engine(pair[i], _fleet_requests(
+                    "b", prompts, i == 1), start)
+            except BaseException as e:
+                errors.append(e)
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert errors == [] and got == want
+        # a guarded window holds the lock; step() re-enters it
+        eng = pair[0]
+        reqs = _fleet_requests("c", prompts[:2], False)
+        for r in reqs:
+            eng.add_request(r)
+        while any(s.request is not None and not s.ready for s in eng.slots) \
+                or eng.waiting:
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        before = lock.reentries
+        with dispatch_guard(max_captures=1, engine=eng):
+            for _ in range(4):
+                eng.step()
+        assert lock.reentries - before >= 4
+        assert "InferenceEngine.step" in lock.reentry_sites
+        while eng.has_work():
+            eng.step()
+        ts.assert_clean()
+    for e in pair:
+        e.release_graphs()
