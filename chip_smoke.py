@@ -263,8 +263,32 @@ Phases (any failure raises and exits non-zero):
      DualCartPole, two policies, 16 envs x 128: both agents' best > 60
      within 24 iterations after the first; (g) the kernels' launch
      counters unchanged across 6e;
-  7. summary: one {"kernels": [...]} line, the card line, then the
-     {"ok": true, "device": ...} line last.
+  6f. the actor runtime with the GPU as a pinned resource: (a)
+     ray_tpu_torch.init() with no resource arguments detects GPU 1 and
+     the GPU-<type> resource; (b) a num_gpus=1 task returns its
+     CUDA_VISIBLE_DEVICES, the card's name (equal to this process's) and
+     a CUDA tensor that arrives on the CPU bit-equal to the same
+     elementwise computation here on the card; (c) a num_gpus=1
+     actor builds the `8b` engine at full width and depth (phase 5's
+     configuration: the same seeded bf16 weights) from the kernels
+     phase 2 built (no compile, its cwd outside the checkout) and
+     serves phase 5's warm-up and six prompts greedily through actor
+     method calls: tokens equal phase 5's (near-tie rule, the actor's
+     teacher logits), its own launch counters #1 = layers x mixed
+     ticks and #2/#3 = layers x decode ticks; actor creation to engine
+     ready, first request to first token and the tick median against
+     phase 5's, peak memory of both processes; (d) while it holds the
+     card a second num_gpus=1 actor stays pending, and after kill of
+     the first it starts in a fresh fork of the zygote with no CUDA
+     context and initializes CUDA; (e) host numbers of the runtime
+     beside this card: tasks/s of 2 000 empty tasks, the round trip of
+     1 000 empty actor calls (p50, p99 us), put and get GB/s of a 1 GiB
+     bf16 CPU tensor, and the ms of a 256 MiB CUDA tensor returned
+     from a GPU task; (f) this process's launch counters unchanged
+     across 6f; the runtime shuts down before phase 7;
+  7. summary: one {"kernels": [...]} line (each row with the actor's
+     launches of phase 6f), the card line, then the {"ok": true,
+     "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
 prints them instead of the result line. `--only profiler` (development)
@@ -6178,6 +6202,327 @@ def run_rllib_more(dev):
                 dreamer=dreamer, multi_agent=multi, seconds=phase_s)
 
 
+# ------------------------------------------------- the actor runtime (6f)
+
+RT_TASKS = 2000           # empty tasks timed for tasks/s
+RT_CALLS = 1000           # empty actor calls timed one at a time
+RT_PUT_BYTES = 1 << 30    # the bf16 CPU tensor put and got
+RT_GPU_RETURN_BYTES = 256 << 20
+
+
+def expect(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def rt_probe(seed, n):
+    """A num_gpus=1 task's view: its pin, the card's name, and a CUDA
+    tensor from seeded elementwise work (the main process repeats it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, device="cuda", generator=g)
+    y = (x.sin() * 3 + x.cos()).to(torch.bfloat16)
+    return dict(visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                name=torch.cuda.get_device_name(), pid=os.getpid(),
+                tensor=y)
+
+
+class EngineActor:
+    """Phase 6f's GPU actor: the `8b` engine served through method
+    calls. Facts only: the main process checks them."""
+
+    def __init__(self, engine_kw, cwd):
+        self.cuda_at_start = torch.cuda.is_initialized()
+        os.chdir(cwd)                 # kernels load by absolute path
+        from ray_tpu_torch import EngineConfig, InferenceEngine
+        from ray_tpu_torch.ops import _kernels
+        self.kernels = _kernels
+        self.build = dict(_kernels.build())
+        self.build.pop("ptxas", None)
+        self.eng = InferenceEngine(EngineConfig(decode_impl="kernel",
+                                                **engine_kw))
+        torch.cuda.synchronize()
+
+    def facts(self):
+        return dict(pid=os.getpid(), ppid=os.getppid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    cuda_at_start=self.cuda_at_start,
+                    cuda_now=torch.cuda.is_initialized(),
+                    name=torch.cuda.get_device_name(), build=self.build,
+                    n_layers=self.eng.model_cfg.n_layers)
+
+    def first_token(self, prompt):
+        """Phase 5's warm-up request (prompt 4, 2 tokens): the first
+        request of this engine."""
+        from ray_tpu_torch import SamplingParams
+        return self.eng.generate([prompt],
+                                 SamplingParams(max_tokens=2))[0].output_tokens
+
+    def serve(self, prompts, max_tokens):
+        """Phase 5's greedy drive: 3 requests, then one more a tick."""
+        from ray_tpu_torch import Request, SamplingParams
+        self.kernels.reset_launch_counts()
+        r0, d0 = self.eng.ragged_ticks, self.eng.decode_ticks
+        reqs = [Request(f"a{i}", list(p), SamplingParams(max_tokens=max_tokens))
+                for i, p in enumerate(prompts)]
+        for r in reqs[:3]:
+            self.eng.add_request(r)
+        pending, ticks, mixed = reqs[3:], [], []
+        while self.eng.has_work() or pending:
+            r1 = self.eng.ragged_ticks
+            t0 = time.perf_counter()
+            self.eng.step()
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            mixed.append(self.eng.ragged_ticks > r1)
+            if pending:
+                self.eng.add_request(pending.pop(0))
+        return dict(out=[r.output_tokens for r in reqs], ticks_ms=ticks,
+                    tick_is_mixed=mixed,
+                    launches={k: n for k, n in
+                              self.kernels.launch_counts().items() if n},
+                    routes=self.kernels.route_counts(),
+                    mixed_ticks=self.eng.ragged_ticks - r0,
+                    decode_ticks=self.eng.decode_ticks - d0)
+
+    def teacher(self, tokens):
+        return teacher_logits(self.eng, tokens).float().cpu()
+
+    def memory(self):
+        from ray_tpu_torch.util.profiling import memory_summary
+        return memory_summary()
+
+
+class FreshActor:
+    """Phase 6f (d): what a fresh fork of the zygote finds and does."""
+
+    def __init__(self):
+        self.cuda_at_start = torch.cuda.is_initialized()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+    def facts(self):
+        return dict(pid=os.getpid(), ppid=os.getppid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    cuda_at_start=self.cuda_at_start,
+                    cuda_now=torch.cuda.is_initialized())
+
+
+def rt_serve(rt, tok_prompts, out5, ticks5):
+    """6f (c) and (d). Returns the numbers and the actor's launches.
+    `ticks5`: phase 5's greedy tick times, the same tick sequence."""
+    res = {}
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(EngineActor).remote(
+        ENGINE_KW, tempfile.gettempdir())
+    facts = rt.get(actor.facts.remote(), timeout=600)
+    res["create_to_ready_s"] = time.perf_counter() - t0
+    log(f"[runtime] engine actor pid {facts['pid']} (parent "
+        f"{facts['ppid']}), CUDA_VISIBLE_DEVICES={facts['visible']}, "
+        f"CUDA at start {facts['cuda_at_start']}; kernels from "
+        f"{facts['build']['dir']}, compiled {facts['build']['compiled']}; "
+        f"creation to engine ready {res['create_to_ready_s']:.2f} s")
+    expect(not facts["cuda_at_start"], "the actor's worker forked with CUDA")
+    expect(facts["build"]["compiled"] == [],
+           f"the actor compiled {facts['build']['compiled']}: it must load "
+           f"phase 2's build")
+    expect(facts["visible"] == "0", f"pin {facts['visible']!r}")
+    t0 = time.perf_counter()
+    rt.get(actor.first_token.remote(tok_prompts[4]), timeout=600)
+    res["first_request_to_first_token_ms"] = (time.perf_counter() - t0) * 1e3
+    served = rt.get(actor.serve.remote(tok_prompts, 16), timeout=600)
+    L = facts["n_layers"]
+    want = {"ragged_paged": L * served["mixed_ticks"],
+            "paged_decode": L * served["decode_ticks"]}
+    expect(len(ticks5) == len(served["ticks_ms"]),
+           f"{len(served['ticks_ms'])} ticks in the actor, phase 5 "
+           f"{len(ticks5)}")
+    decode = [i for i, m in enumerate(served["tick_is_mixed"]) if not m]
+    res["decode_tick_ms"] = statistics.median(
+        served["ticks_ms"][i] for i in decode)
+    res["decode_tick_ms_phase5"] = statistics.median(ticks5[i]
+                                                     for i in decode)
+    log(f"[runtime] actor served {served['mixed_ticks']} mixed and "
+        f"{served['decode_ticks']} decode ticks, launches "
+        f"{served['launches']}; decode tick median "
+        f"{res['decode_tick_ms']:.2f} ms (phase 5 "
+        f"{res['decode_tick_ms_phase5']:.2f}), all ticks "
+        f"{statistics.median(served['ticks_ms']):.2f} (phase 5 "
+        f"{statistics.median(ticks5):.2f}); first request to first "
+        f"token {res['first_request_to_first_token_ms']:.1f} ms")
+    expect(served["launches"] == want and min(want.values()) > 0,
+           f"actor launches {served['launches']}, expected {want}")
+    expect(served["routes"].get("paged_decode") ==
+           {"pipelined": want["paged_decode"]},
+           f"decode routes {served['routes'].get('paged_decode')}")
+    exact = served["out"] == out5
+    log(f"[runtime] actor greedy streams identical to phase 5's: {exact}")
+    for i, (a, b) in enumerate(zip(served["out"], out5)):
+        if a == b:
+            continue
+        j = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+        lg = rt.get(actor.teacher.remote(tok_prompts[i] + a[:j]))
+        gap = abs(lg[a[j]].item() - lg[b[j]].item())
+        log(f"[runtime] request {i} diverges at output {j}: actor {a[j]}, "
+            f"phase 5 {b[j]}, gap {gap:.4f} (margin {NEAR_TIE})")
+        expect(len(a) == len(b) and gap <= NEAR_TIE,
+               f"request {i}: the actor's stream differs beyond a near tie")
+    mem = rt.get(actor.memory.remote())
+    res.update(exact=exact, ticks_ms=served["ticks_ms"],
+               tick_ms=statistics.median(served["ticks_ms"]),
+               tick_ms_phase5=statistics.median(ticks5),
+               mixed_ticks=served["mixed_ticks"],
+               decode_ticks=served["decode_ticks"],
+               actor_peak_bytes=mem["cuda_max_allocated_bytes"],
+               actor_rss_bytes=mem["rss_bytes"], actor_pid=facts["pid"])
+    # (d) a second GPU actor waits for the card, then starts fresh
+    other = rt.remote(num_gpus=1)(FreshActor).remote()
+    ready, _ = rt.wait([other.facts.remote()], timeout=3.0)
+    expect(not ready, "a second num_gpus=1 actor started beside the first")
+    t0 = time.perf_counter()
+    rt.kill(actor)
+    fresh = rt.get(other.facts.remote(), timeout=300)
+    res["second_actor_after_kill_s"] = time.perf_counter() - t0
+    log(f"[runtime] second GPU actor pending while the first held the "
+        f"card; after kill it started in {res['second_actor_after_kill_s']:.2f}"
+        f" s: pid {fresh['pid']} (parent {fresh['ppid']}), CUDA at start "
+        f"{fresh['cuda_at_start']}, after init {fresh['cuda_now']}, "
+        f"CUDA_VISIBLE_DEVICES={fresh['visible']}")
+    expect(fresh["pid"] != facts["pid"] and fresh["ppid"] == facts["ppid"]
+           and fresh["ppid"] != os.getpid(),
+           "the second actor is not a fresh fork of the zygote")
+    expect(not fresh["cuda_at_start"] and fresh["cuda_now"]
+           and fresh["visible"] == "0", f"second actor: {fresh}")
+    rt.kill(other)
+    return res, served["launches"]
+
+
+def rt_host_numbers(rt):
+    """6e (e): the runtime's host costs on this machine."""
+    @rt.remote
+    def noop():
+        return None
+
+    @rt.remote
+    class Pinger:
+        def ping(self):
+            return None
+
+    rt.get([noop.remote() for _ in range(200)], timeout=300)   # warm
+    t0 = time.perf_counter()
+    rt.get([noop.remote() for _ in range(RT_TASKS)], timeout=600)
+    tasks_s = RT_TASKS / (time.perf_counter() - t0)
+    p = Pinger.remote()
+    for _ in range(50):
+        rt.get(p.ping.remote())
+    rtt = []
+    for _ in range(RT_CALLS):
+        t0 = time.perf_counter()
+        rt.get(p.ping.remote())
+        rtt.append((time.perf_counter() - t0) * 1e6)
+    rtt.sort()
+    rt.kill(p)
+    big = torch.ones(RT_PUT_BYTES // 2, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    ref = rt.put(big)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = rt.get(ref)
+    get_s = time.perf_counter() - t0
+    expect(back.dtype == torch.bfloat16 and torch.equal(back, big),
+           "the 1 GiB bf16 tensor came back changed")
+    del back, ref, big
+    # the host's own rate into fresh pages (one thread), which bounds a
+    # put (into a new segment) and a get (into a new tensor)
+    t0 = time.perf_counter()
+    fresh = torch.empty(RT_PUT_BYTES, dtype=torch.uint8)
+    fresh.numpy()[:] = 1
+    fill_s = time.perf_counter() - t0
+    del fresh
+
+    @rt.remote(num_gpus=1)
+    def gpu_tensor(nbytes):
+        return torch.full((nbytes // 4,), 3.0, device="cuda")
+
+    rt.get(gpu_tensor.remote(1 << 20), timeout=300)     # warm the worker
+    t0 = time.perf_counter()
+    out = rt.get(gpu_tensor.remote(RT_GPU_RETURN_BYTES), timeout=300)
+    gpu_ms = (time.perf_counter() - t0) * 1e3
+    expect(out.device.type == "cpu" and out.numel() * 4 ==
+           RT_GPU_RETURN_BYTES and bool((out == 3.0).all()),
+           "the GPU task's tensor did not arrive whole on the CPU")
+    res = dict(tasks_per_s=tasks_s,
+               actor_call_us_p50=rtt[len(rtt) // 2],
+               actor_call_us_p99=rtt[int(len(rtt) * 0.99) - 1],
+               put_gb_s=RT_PUT_BYTES / put_s / 1e9,
+               get_gb_s=RT_PUT_BYTES / get_s / 1e9,
+               fresh_fill_gb_s=RT_PUT_BYTES / fill_s / 1e9,
+               gpu_return_256mib_ms=gpu_ms)
+    log(f"[runtime] host (this card's machine): {tasks_s:.0f} empty tasks/s "
+        f"over {RT_TASKS}; actor call round trip p50 "
+        f"{res['actor_call_us_p50']:.0f} us, p99 "
+        f"{res['actor_call_us_p99']:.0f} us over {RT_CALLS}; 1 GiB bf16 "
+        f"put {res['put_gb_s']:.2f} GB/s, get {res['get_gb_s']:.2f} GB/s "
+        f"(1 GiB into fresh pages, one thread: "
+        f"{res['fresh_fill_gb_s']:.2f} GB/s); "
+        f"256 MiB CUDA tensor from a GPU task {gpu_ms:.1f} ms")
+    return res
+
+
+def run_runtime(dev, out5, ticks5):
+    """Phase 6f: the actor runtime on the card. Returns its numbers and
+    the engine actor's launch counts by kernel."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ByteTokenizer
+    from ray_tpu_torch.ops import _kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _kernels.launch_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        res = dict(init_s=time.perf_counter() - t0,
+                   resources=rt.cluster_resources(), main_held_bytes=held)
+        types = {k: v for k, v in res["resources"].items()
+                 if k.startswith("GPU-")}
+        log(f"[runtime] init {res['init_s']:.2f} s; cluster resources "
+            f"{res['resources']}")
+        expect(res["resources"].get("GPU") == 1.0 and list(types.values())
+               == [1.0], f"GPU detection: {res['resources']}")
+        tok = ByteTokenizer(128256)
+        prompts = [tok.encode(t) for t in PROMPT_TEXTS]
+        served, actor_launches = rt_serve(rt, prompts, out5, ticks5)
+        res.update(served)
+        # (b) a GPU task's view and its tensor
+        probe = rt.get(rt.remote(num_gpus=1)(rt_probe).remote(7, 1 << 20),
+                       timeout=300)
+        mine = rt_probe(7, 1 << 20)["tensor"].cpu()
+        log(f"[runtime] GPU task: CUDA_VISIBLE_DEVICES={probe['visible']}, "
+            f"{probe['name']}; its tensor on {probe['tensor'].device}, "
+            f"bit-equal to this process's: "
+            f"{torch.equal(probe['tensor'], mine)}")
+        expect(probe["visible"] == "0" and probe["name"] ==
+               torch.cuda.get_device_name(0), f"GPU task saw {probe}")
+        expect(probe["tensor"].device.type == "cpu"
+               and torch.equal(probe["tensor"].view(torch.int16),
+                               mine.view(torch.int16)),
+               "the GPU task's tensor differs from this process's")
+        res["host"] = rt_host_numbers(rt)
+        res["main_peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[runtime] device memory: this process held "
+            f"{held / 2**30:.3f} GiB at 6f's start, peak "
+            f"{res['main_peak_bytes'] / 2**30:.3f} "
+            f"GiB in 6f; engine actor peak "
+            f"{res['actor_peak_bytes'] / 2**30:.3f} GiB")
+    finally:
+        rt.shutdown()
+    after = _kernels.launch_counts()
+    expect(after == before, f"this process's launch counters moved in 6f: "
+           f"{before} -> {after}")
+    return res, actor_launches
+
+
 def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
@@ -6330,6 +6675,10 @@ def main():
     t0 = time.perf_counter()
     rllib_more = run_rllib_more(dev)
     phase_s["6e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime, actor_launches = run_runtime(dev, out_bf16,
+                                          engine["ticks_ms_kernel"])
+    phase_s["6f"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
         f"{PROFILES['lost']} of them lost records and were taken again")
@@ -6398,6 +6747,11 @@ def main():
     for k in kernels:
         if k["name"] in MOE_LAUNCHES:
             k["launches_moe"] = MOE_LAUNCHES[k["name"]]
+    # phase 6f's main path (the engine in the GPU actor) launches, counted
+    # in the actor's process
+    for k in kernels:
+        k["launches_actor"] = actor_launches.get(
+            k["name"].replace("_narrow_table", ""), 0)
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -6407,6 +6761,7 @@ def main():
                            quant_engine=quant_engine, train=train,
                            train_moe=train_moe, checkpoint=checkpoint,
                            rllib=rllib, rllib_more=rllib_more,
+                           runtime=runtime,
                            sanitizer=sanitizer,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,

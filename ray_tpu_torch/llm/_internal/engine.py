@@ -1585,9 +1585,11 @@ class InferenceEngine:
         (tick entry, the lock held; its synchronise is sanctioned). Each
         profiled tick is its own session, started and stopped inside one
         step() call: torch.profiler must stop on the thread that started
-        it, and the server steps the engine from executor threads."""
+        it, and the server steps the engine from executor threads. While
+        another session runs in the process (a caller's profile, another
+        engine's capture) the capture waits, armed, for a later tick."""
         ps = self._profile
-        if ps is None:
+        if ps is None or profiling.session_active():
             return
         cm = profiling.trace(ps["dir"])
         try:

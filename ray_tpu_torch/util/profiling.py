@@ -5,9 +5,10 @@ JAX package's runs ``jax.profiler`` and writes a TensorBoard directory,
 this one runs ``torch.profiler`` over the host's operators and, on a
 CUDA device, the card's kernels, copies and runtime calls, and writes
 one Chrome trace JSON into ``log_dir`` (``chrome://tracing``,
-Perfetto); with helpers to find, merge and count what it wrote. (The
-JAX module's stack dump, memory summary and ``profile_step`` serve its
-dashboard and have no caller here.)
+Perfetto); with helpers to find, merge and count what it wrote. Also
+the JAX module's stack dump and memory summary, which the runtime's
+daemon and workers answer with (``node_stacks``, ``dump_stacks``,
+``memory_summary``); its ``profile_step`` has no caller here.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import contextlib
 import itertools
 import json
 import os
+import sys
+import threading
 import time
+import traceback
 from typing import Any, Dict, Iterator, List, Optional
 
 import torch
@@ -40,6 +44,47 @@ SETTLE_S = 0.05
 LEAD_KERNEL = "spin_kernel"
 
 
+def dump_stacks() -> str:
+    """All threads' current stacks, py-spy style."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for ident, frame in sorted(sys._current_frames().items()):
+        out.append(f"--- thread {names.get(ident, '?')} ({ident}) ---")
+        out.extend(line.rstrip()
+                   for line in traceback.format_stack(frame))
+    return "\n".join(out)
+
+
+def memory_summary() -> dict:
+    """Process memory: RSS from /proc plus tracemalloc top allocations
+    when tracing is active (start with tracemalloc.start()), and, only
+    where this process has already initialized CUDA, the caching
+    allocator's current and peak bytes on its device. It never
+    initializes CUDA to report."""
+    import tracemalloc
+
+    summary = {"rss_bytes": None, "top_allocations": []}
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    summary["rss_bytes"] = int(line.split()[1]) * 1024
+                    break
+    except OSError:
+        pass
+    if tracemalloc.is_tracing():
+        snap = tracemalloc.take_snapshot()
+        for stat in snap.statistics("lineno")[:20]:
+            summary["top_allocations"].append(
+                {"where": str(stat.traceback), "bytes": stat.size,
+                 "count": stat.count})
+    if torch.cuda.is_initialized():
+        summary["cuda_allocated_bytes"] = torch.cuda.memory_allocated()
+        summary["cuda_max_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated())
+    return summary
+
+
 def lead_in() -> None:
     """Open a device trace: a spin kernel, a synchronise, idle time."""
     torch.cuda._sleep(LEAD_CYCLES)
@@ -53,6 +98,19 @@ def settle() -> None:
     time.sleep(SETTLE_S)
 
 
+# held while a trace() checks for and starts its session
+_session_lock = threading.Lock()
+
+
+def session_active() -> bool:
+    """Whether a torch.profiler session runs in this process, on any
+    thread. Kineto holds one session a process: a second one started
+    beside it ends both when it stops ("Can't disable Kineto profiler
+    when it's not running" in the first one's stop)."""
+    from torch.autograd import profiler
+    return bool(getattr(profiler, "_is_profiler_enabled", False))
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, *, create_perfetto_link: bool = False
           ) -> Iterator[None]:
@@ -62,7 +120,9 @@ def trace(log_dir: str, *, create_perfetto_link: bool = False
     closes with ``settle`` (work enqueued inside the scope lands in the
     trace), then one Chrome trace JSON lands in `log_dir`
     (``trace-<pid>-<n>.json``). `create_perfetto_link` is kept for the
-    JAX package's signature; a Chrome trace opens in Perfetto as is."""
+    JAX package's signature; a Chrome trace opens in Perfetto as is.
+    Raises RuntimeError, and starts nothing, while another session runs
+    in the process (``session_active``)."""
     from torch.profiler import ProfilerActivity, profile
 
     del create_perfetto_link
@@ -73,7 +133,11 @@ def trace(log_dir: str, *, create_perfetto_link: bool = False
     if cuda:
         torch.cuda.synchronize()
     prof = profile(activities=acts)
-    prof.__enter__()
+    with _session_lock:
+        if session_active():
+            raise RuntimeError("a torch.profiler session is already "
+                               "running in this process")
+        prof.__enter__()
     try:
         if cuda:
             lead_in()

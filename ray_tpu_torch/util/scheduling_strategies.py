@@ -1,0 +1,42 @@
+"""Scheduling strategies (reference parity:
+python/ray/util/scheduling_strategies.py:15-135)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class PlacementGroupSchedulingStrategy:
+    def __init__(self, placement_group,
+                 placement_group_bundle_index: int = -1,
+                 placement_group_capture_child_tasks: bool = False):
+        self.placement_group = placement_group
+        self.placement_group_bundle_index = placement_group_bundle_index
+        self.placement_group_capture_child_tasks = \
+            placement_group_capture_child_tasks
+
+    def to_dict(self) -> dict:
+        pg = self.placement_group
+        return {"type": "placement_group",
+                "placement_group": getattr(pg, "id", pg),
+                "bundle_index": self.placement_group_bundle_index}
+
+
+class NodeAffinitySchedulingStrategy:
+    def __init__(self, node_id: str, soft: bool = False):
+        self.node_id = node_id
+        self.soft = soft
+
+    def to_dict(self) -> dict:
+        return {"type": "node_affinity", "node_id": self.node_id,
+                "soft": self.soft}
+
+
+class NodeLabelSchedulingStrategy:
+    def __init__(self, hard: Optional[dict] = None,
+                 soft: Optional[dict] = None):
+        self.hard = hard or {}
+        self.soft = soft or {}
+
+    def to_dict(self) -> dict:
+        return {"type": "node_label", "hard": self.hard, "soft": self.soft}

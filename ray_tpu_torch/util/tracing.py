@@ -6,9 +6,9 @@ Chrome trace events ("traceEvents" JSON); enable with RAY_TPU_TRACE=1
 or ``enable()``. Timestamps come from the monotonic clock, rendered as
 epoch time through one per-process anchor (``mono_to_epoch``), so
 events of several processes align and a step of the wall clock moves
-no duration. Left out: ``flush_to_kv`` and ``collect_cluster``, which
-publish through a cluster controller this package does not have;
-``export_chrome_trace`` writes this process's ring.
+no duration. ``flush_to_kv`` publishes a worker's new events to the
+controller KV of the port's runtime (``ray_tpu_torch.init``), and
+``collect_cluster`` merges them into the driver's trace.
 """
 
 from __future__ import annotations
@@ -254,13 +254,82 @@ def ring_stats() -> Dict[str, int]:
 
 
 def clear() -> None:
+    global _flushed_upto
     _ring.clear()
+    _flushed_upto = 0
 
 
-def export_chrome_trace(path: Optional[str] = None) -> str:
-    """Write (or return) this process's ring as Chrome trace JSON."""
-    doc = json.dumps({"traceEvents": get_events(),
-                      "displayTimeUnit": "ms"})
+_last_flush = 0.0
+_flushed_upto = 0
+_flush_seq = 0
+
+
+def flush_to_kv(min_interval_s: float = 1.0) -> None:
+    """Publish this process's NEW events to the controller KV so the
+    driver can assemble a CLUSTER trace. Incremental: each flush ships
+    only the events recorded since the last one (chunked keys
+    __trace__/{wid}/{seq}), so cost is O(new), not O(ring). Workers
+    call this after traced executions (rate-limited), on a trailing
+    timer, and at shutdown with min_interval_s=0."""
+    global _last_flush, _flushed_upto, _flush_seq
+    now = time.monotonic()
+    if now - _last_flush < min_interval_s:
+        return
+    from .._private import state as _state
+    client = _state.current_client_or_none()
+    if client is None:
+        return
+    # NEW events addressed by the ring's monotone append counter —
+    # events displaced before a flush are simply gone (counted in
+    # ring_stats()["dropped"])
+    new, total = _ring.tail_since(_flushed_upto)
+    if not new:
+        return
+    _flushed_upto = total
+    _flush_seq += 1
+    seq = _flush_seq
+    _last_flush = now
+    wid = getattr(client, "worker_id", None) or f"pid{os.getpid()}"
+    key = f"__trace__/{wid}/{seq:06d}"
+    blob = json.dumps(new).encode()
+    try:
+        if client.loop_runner.on_loop_thread():
+            # worker RPC handlers run ON the loop: fire-and-forget the
+            # put (the sync kv_put would deadlock-guard and raise)
+            client.loop_runner.call_soon(client._controller().call(
+                "kv_put", key=key, value=blob, overwrite=True))
+        else:
+            client.kv_put(key, blob)
+    except Exception:
+        pass
+
+
+def collect_cluster() -> List[Dict[str, Any]]:
+    """This process's events merged with every flushed worker ring —
+    the cross-process trace (flow arrows pair up across pids because
+    timestamps are epoch-based)."""
+    from .._private import state as _state
+    events = get_events()
+    client = _state.current_client_or_none()
+    if client is None:
+        return events
+    try:
+        for key in client.controller_rpc("kv_keys", prefix="__trace__/"):
+            blob = client.kv_get(key)
+            if blob:
+                events.extend(json.loads(blob))
+    except Exception:
+        pass
+    return events
+
+
+def export_chrome_trace(path: Optional[str] = None,
+                        cluster: bool = False) -> str:
+    """Write (or return) the Chrome trace JSON — this process's ring,
+    or (cluster=True) merged with every flushed worker's."""
+    doc = json.dumps({
+        "traceEvents": collect_cluster() if cluster else get_events(),
+        "displayTimeUnit": "ms"})
     if path:
         with open(path, "w") as f:
             f.write(doc)
@@ -269,7 +338,7 @@ def export_chrome_trace(path: Optional[str] = None) -> str:
 
 __all__ = ["enable", "disable", "is_enabled", "span", "get_events",
            "clear", "export_chrome_trace", "inject_context",
-           "current_context",
+           "current_context", "flush_to_kv", "collect_cluster",
            "complete_event", "instant_event", "ring_stats",
            "new_span_id", "wall_anchor", "mono_to_epoch",
            "BoundedRing"]

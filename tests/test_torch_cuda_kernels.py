@@ -1811,3 +1811,59 @@ def test_sanitizer_traced_device_lock_two_engines(dev):
         ts.assert_clean()
     for e in pair:
         e.release_graphs()
+
+
+@pytest.mark.cuda
+def test_runtime_gpu_task_tensor_comes_back_to_the_host(dev):
+    """A num_gpus=1 task computes on the card; its CUDA tensor arrives
+    in the driver as a CPU tensor, bit-equal to the same work here."""
+    import ray_tpu_torch as rt
+
+    def work(seed):
+        import os
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(1 << 16, device="cuda", generator=g)
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), (x.sin() * 2).bfloat16()
+
+    rt.init(num_cpus=2)
+    try:
+        visible, got = rt.get(rt.remote(num_gpus=1)(work).remote(3),
+                              timeout=300)
+    finally:
+        rt.shutdown()
+    assert visible == "0"
+    assert got.device.type == "cpu" and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16),
+                       work(3)[1].cpu().view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_runtime_two_gpu_actors_in_turn(dev):
+    """The second num_gpus=1 actor waits while the first holds the card,
+    then starts in a fresh fork that initializes CUDA."""
+    import ray_tpu_torch as rt
+
+    class Holder:
+        def __init__(self):
+            import os
+            self.fresh = not torch.cuda.is_initialized()
+            self.x = torch.ones(1, device="cuda")
+            self.pid = os.getpid()
+
+        def facts(self):
+            return self.pid, self.fresh, torch.cuda.is_initialized()
+
+    rt.init(num_cpus=2)
+    try:
+        cls = rt.remote(num_gpus=1)(Holder)
+        a = cls.remote()
+        pa = rt.get(a.facts.remote(), timeout=300)
+        b = cls.remote()
+        ready, _ = rt.wait([b.facts.remote()], timeout=2.0)
+        assert not ready
+        rt.kill(a)
+        pb = rt.get(b.facts.remote(), timeout=300)
+    finally:
+        rt.shutdown()
+    assert pa[1:] == (True, True) and pb[1:] == (True, True)
+    assert pa[0] != pb[0]

@@ -351,6 +351,39 @@ def test_profile_disarms_on_mid_tick_exception(monkeypatch):
                  te.SamplingParams(max_tokens=2))
 
 
+def test_capture_waits_while_another_profiler_session_runs():
+    """A capture armed while a caller's torch.profiler session runs in
+    another thread stays armed and starts no session of its own (a
+    second session's stop would end the caller's); it runs once the
+    caller's session is over. trace() itself refuses to start beside
+    another session."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.util import profiling
+    eng = make_engine()
+    rng = np.random.default_rng(4)
+    d = eng.profile_next_ticks(1)
+    prompt = rng.integers(2, 200, 8).tolist()
+    with profile(activities=[ProfilerActivity.CPU]) as caller:
+        assert profiling.session_active()
+        with pytest.raises(RuntimeError, match="already running"):
+            with profiling.trace(d):
+                pass
+        t = threading.Thread(target=lambda: eng.generate(
+            [list(prompt)], te.SamplingParams(max_tokens=3)))
+        t.start()
+        t.join()
+        assert eng._profile is not None and profiling.trace_files(d) == []
+        torch.ones(4).sum()
+    # the caller's session stopped cleanly and kept its records
+    assert any(e.key == "aten::sum" for e in caller.key_averages())
+    assert not profiling.session_active()
+    eng.generate([list(prompt)], te.SamplingParams(max_tokens=2))
+    kinds = [e["event"] for e in eng.telemetry.recorder.events()]
+    assert "profile_error" not in kinds and "profile_done" in kinds
+    assert eng._profile is None and len(profiling.trace_files(d)) == 1
+
+
 # ----------------------------------------------------------------- parity
 
 _PARAMS = {}
