@@ -107,7 +107,7 @@ Phases (any failure raises and exits non-zero):
      wq/wk/wv/wo (seeded numpy: strong, mild, zero) registered (compiles
      +1, graph captures +0; a later registration of the same ranks +0,
      +0, and no capture after it); 8 requests at once (2 base, 2 on each
-     adapter, prompts of 14-1535 tokens, 64 tokens), greedy and sampled,
+     adapter, prompts of 14-1535 tokens, 32 tokens), greedy and sampled,
      on bf16, int8 and fp8 pages: the default engine against
      cuda_graph=False, async_readback=False token-exact, against the
      gather engine within phase 5's near tie (greedy) or phase 5d's
@@ -285,10 +285,39 @@ Phases (any failure raises and exits non-zero):
      1 000 empty actor calls (p50, p99 us), put and get GB/s of a 1 GiB
      bf16 CPU tensor, and the ms of a 256 MiB CUDA tensor returned
      from a GPU task; (f) this process's launch counters unchanged
-     across 6f; the runtime shuts down before phase 7;
+     across 6f; the runtime stays up for 6g;
+  6g. the libraries on 6f's runtime: (a)
+     TorchTrainer with ScalingConfig(num_workers=1, use_gpu=True) runs
+     phase 6's configuration (the `8b` preset at full width,
+     TRAIN_LAYERS layers, seed 0, the same tokens, a warm-up and
+     TRAIN_STEPS timed steps) in a TrainWorker pinned to the card, each
+     step reported through train.report: losses equal phase 6's step
+     for step within TRAIN_LOSS_RTOL (bit-equality printed); the
+     worker's launch counters flash_fwd 2 x layers x steps, flash_dq
+     and flash_dkv layers x steps, no other kernel; this process's
+     counters unchanged; the step median against phase 6's here and PR
+     14's 337.85 ms, tokens/s, fit() to the first report, the worker's
+     peak memory; (b) a resume drill at LIB_DRILL's configuration (the
+     `tiny` preset, 2 layers, no remat; FailureConfig(max_failures=1),
+     CheckpointConfig(num_to_keep=2)): every step saves parameters and
+     AdamW's state with Checkpoint.save_pytree and reports them, the
+     first attempt raises once after step LIB_DRILL_FAIL_AFTER, the
+     second resumes from train.get_checkpoint(): every loss bit-equal to
+     an uninterrupted run of the same loop on the card, two checkpoint
+     directories kept; parameter count, checkpoint bytes and the ms to
+     pack one in an actor and fetch it; (c) PPO on CartPole-v1 at 6d(a)'s
+     configuration with num_env_runners=2 and num_learners=2 (runner and
+     learner actors on the card, their device and CUDA_VISIBLE_DEVICES
+     printed): best return > 120 within 25 iterations; sample, update
+     and iteration ms against 6d(a)'s local path, timed here; IMPALA
+     with 2 async remote runners, LIB_IMPALA_ITERS iterations, finite
+     losses; (d) Tuner over a GPU TorchTrainer at (b)'s configuration,
+     lr grid_search over LIB_TUNE_LRS, LIB_TUNE_STEPS steps a trial,
+     max_concurrent_trials 1: 2 results, no errors, the larger lr best,
+     each trial's wall; the runtime shuts down before phase 7;
   7. summary: one {"kernels": [...]} line (each row with the actor's
-     launches of phase 6f), the card line, then the {"ok": true,
-     "device": ...} line last.
+     launches of phase 6f and the TrainWorker's of 6g), the card line,
+     then the {"ok": true, "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
 prints them instead of the result line. `--only profiler` (development)
@@ -345,8 +374,13 @@ TRAIN_GNORM_RTOL = 5e-2  # bf16 activations; the reference rounds its
 #                          the kernels keep them in float32
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the script's
+    start (where the run's time goes)."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -422,16 +456,35 @@ def device_ms(fn, keys, calls=10, by_kernel=False):
     warm-up): the kernels' own time, without the wrapper's host work
     that the CUDA-event time of a single call also holds when the
     device waits on the host. With by_kernel, also {kernel: ms a call}.
-    Fails when the profile holds no such kernel, or a kernel's launches
-    are not a whole number a call (a record the profiler lost)."""
+    A profile that holds no such kernel, or whose launches are not a
+    whole number a call, lost records (profiled takes it again); where
+    every window lost records, the time is CUDA events' over `calls`
+    calls enqueued back to back (kernels queued behind each other, so
+    the wrapper's host work hides behind the device's), and by_kernel
+    gives that time under one row."""
     fn()
 
     def short(evs):
         mine = [e for e in evs if any(k in e.key for k in keys)]
         return [(e.key[:40], e.count) for e in mine
                 if e.count % calls] or (not mine and "no launch")
-    prof, _ = profiled(lambda: repeat(fn, calls), f"device_ms {keys}",
-                       check=short)
+    try:
+        prof, _ = profiled(lambda: repeat(fn, calls), f"device_ms {keys}",
+                           check=short)
+    except ProfileLost:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        repeat(fn, calls)
+        e.record()
+        e.synchronize()
+        total = s.elapsed_time(e) / calls
+        PROFILES["event_timed"].append(str(keys))
+        log(f"[profiler] device_ms {keys}: CUDA events over {calls} calls "
+            f"back to back instead: {total:.4f} ms a call")
+        row = {f"{'/'.join(keys)} (CUDA events, a whole call)": total}
+        return (total, row) if by_kernel else total
     evs = [e for e in device_events(prof) if any(k in e.key for k in keys)]
     rows = {e.key: dev_us(e) / 1e3 / calls for e in evs}
     total = sum(rows.values())
@@ -1377,22 +1430,36 @@ def lost_records(evs, before):
     return out
 
 
-# profile windows this run, and those that lost a record
-PROFILES = dict(windows=0, lost=0)
+# profile windows this run, those that lost a record, the report-only
+# windows that kept a short profile, and the device_ms calls timed with
+# CUDA events instead
+PROFILES = dict(windows=0, lost=0, short_kept=[], event_timed=[])
 PROFILE_ATTEMPTS = 3
+PROFILE_PAUSE_S = 0.5   # idle time before a profile is taken again
 
 
-def profiled(window, label, host=False, check=None):
+class ProfileLost(AssertionError):
+    """Every window of a profiled() call lost records."""
+
+
+def profiled(window, label, host=False, check=None, report=False):
     """traced(window) with a check of the records: by default every
     hand-written kernel's launches against the launch counters
     (lost_records); `check(evs)` returns what is missing instead. A
-    profile that lost records is taken again over the next call of
-    `window` (equivalent work: more steady ticks, another train step,
-    the same kernel calls), at most PROFILE_ATTEMPTS windows; then the
-    run fails. Every loss is printed (ROADMAP §C: the profiler at times
-    loses a whole session)."""
+    profile that lost records is taken again, after PROFILE_PAUSE_S of
+    idle time, over the next call of `window` (equivalent work: more
+    steady ticks, another train step, the same kernel calls), at most
+    PROFILE_ATTEMPTS windows; then ProfileLost fails the run. With
+    `report` (a window whose profile only gives printed numbers: busy
+    time, idle share, launches), the last profile is kept instead, named
+    in PROFILES["short_kept"]: its device times are lower bounds. Every
+    loss is printed (ROADMAP §C: the profiler at times loses records,
+    and on one card lost a short window's in several sessions in a
+    row)."""
     from ray_tpu_torch.ops import _kernels
     for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S)
         before = _kernels.launch_counts()
         prof, wall = traced(window, host=host)
         evs = device_events(prof)
@@ -1403,8 +1470,12 @@ def profiled(window, label, host=False, check=None):
         PROFILES["lost"] += 1
         log(f"[profiler] {label}: the profile lost records {lost} "
             f"(window {attempt + 1} of {PROFILE_ATTEMPTS})")
-    raise AssertionError(f"{label}: {PROFILE_ATTEMPTS} profiles lost "
-                         f"records")
+    if report:
+        PROFILES["short_kept"].append(label)
+        log(f"[profiler] {label}: every window lost records; the last "
+            f"profile is kept and its device times are lower bounds")
+        return prof, wall
+    raise ProfileLost(f"{label}: {PROFILE_ATTEMPTS} profiles lost records")
 
 
 def kernel_groups(evs):
@@ -1432,9 +1503,10 @@ def kernel_groups(evs):
 def profile_ticks(eng, prompts, n_ticks, label):
     """torch.profiler over `n_ticks` engine steps: the kernels with the
     most device time, and device time against wall time. The serving
-    kernels' launches in the profile must equal the launch counters'."""
+    kernels' launches in the profile are held to the launch counters'
+    (profiled's records check; a report window)."""
     prof, wall = profiled(lambda: repeat(eng.step, n_ticks),
-                          f"profile {label}")
+                          f"profile {label}", report=True)
     evs = device_events(prof)
     total = sum(dev_us(e) for e in evs) / 1e3
     top = sorted(evs, key=dev_us, reverse=True)[:10]
@@ -1595,7 +1667,7 @@ def steady_decode(eng, label, guard):
         res = dict(tick_ms=wall, ticks_ms=walls)
         if mode == "greedy":
             prof, _ = profiled(lambda: repeat(eng.step, PROFILED_TICKS),
-                               f"ticks {label} profile")
+                               f"ticks {label} profile", report=True)
             busy = sum(dev_us(e) for e in device_events(prof)) / 1e3 \
                 / PROFILED_TICKS
             res.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / wall))
@@ -2846,7 +2918,7 @@ def run_server():
 # ------------------------------------------- multi-LoRA and multi-step (5f)
 
 LORA_RANK = 16
-LORA_TOKENS = 64
+LORA_TOKENS = 32        # output tokens a request in the 8-request drives
 MULTI_K = 4
 MULTI_TOKENS = 62        # output tokens in the multi-step drives: not a
 #                          multiple of MULTI_K, so budgets clamp mid-round
@@ -3091,7 +3163,7 @@ def steady_lora(eng, loras, label, guard=False):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     prof, _ = profiled(lambda: repeat(eng.step, PROFILED_TICKS),
-                       f"lora {label} profile")
+                       f"lora {label} profile", report=True)
     evs = device_events(prof)
     busy = sum(dev_us(e) for e in evs) / 1e3 / PROFILED_TICKS
     launches = sum(e.count for e in evs) / PROFILED_TICKS
@@ -3150,7 +3222,8 @@ def mixed_lora(eng, loras, label):
     long_prefill()                      # the buckets' first use
     walls = []
     long_prefill(walls)
-    prof, _ = profiled(long_prefill, f"lora {label} mixed profile")
+    prof, _ = profiled(long_prefill, f"lora {label} mixed profile",
+                       report=True)
     evs = device_events(prof)
     r0 = eng.ragged_ticks
     busy = sum(dev_us(e) for e in evs) / 1e3 / 3
@@ -4887,7 +4960,7 @@ def profile_step(bundle, state, tokens):
 
     def step():
         out.append(bundle.step(out[-1][0] if out else state, tokens))
-    prof, wall = profiled(step, "profile train step")
+    prof, wall = profiled(step, "profile train step", report=True)
     state, m = out[-1]
     evs = device_events(prof)
     busy = sum(dev_us(e) for e in evs) / 1e3
@@ -5583,11 +5656,13 @@ def rl_wide(dev):
     def nonempty(evs):
         return None if evs else "no device kernel"
     prof, loop_wall = profiled(lambda: runner._steps(draws),
-                               "rllib rollout steps", check=nonempty)
+                               "rllib rollout steps", check=nonempty,
+                               report=True)
     evs = device_events(prof)
     launches = sum(e.count for e in evs) / RL_WIDE_T
     loop_busy = sum(dev_us(e) for e in evs) / 1e3
-    prof, it_wall = profiled(algo.train, "rllib iteration", check=nonempty)
+    prof, it_wall = profiled(algo.train, "rllib iteration", check=nonempty,
+                             report=True)
     evs = device_events(prof)
     it_busy = sum(dev_us(e) for e in evs) / 1e3
     it_launches = sum(e.count for e in evs)
@@ -5964,9 +6039,10 @@ def sac_wide(dev):
     def nonempty(evs):
         return None if evs else "no device kernel"
     prof, _ = profiled(lambda: learner._sac_step(batch, learner._next_key()),
-                       "sac update step", check=nonempty)
+                       "sac update step", check=nonempty, report=True)
     launches = sum(e.count for e in device_events(prof))
-    prof, it_wall = profiled(algo.train, "sac iteration", check=nonempty)
+    prof, it_wall = profiled(algo.train, "sac iteration", check=nonempty,
+                             report=True)
     it_busy = sum(dev_us(e) for e in device_events(prof)) / 1e3
     steps = SAC_WIDE_ENVS * SAC_WIDE_T
     res = dict(envs=SAC_WIDE_ENVS, T=SAC_WIDE_T, batch=SAC_WIDE_BATCH,
@@ -6113,7 +6189,7 @@ def dreamer_phase(dev):
         return None if evs else "no device kernel"
     prof, _ = profiled(lambda: learner._dreamer_step(
         batch, learner._next_key(), scale), "dreamer update",
-        check=nonempty)
+        check=nonempty, report=True)
     launches = sum(e.count for e in device_events(prof))
     res = dict(returns=rets, iterations=len(rets) - 1, wall_s=wall,
                observe_ms=wm_ms, imagine_ms=img_ms,
@@ -6470,7 +6546,8 @@ def rt_host_numbers(rt):
 
 def run_runtime(dev, out5, ticks5):
     """Phase 6f: the actor runtime on the card. Returns its numbers and
-    the engine actor's launch counts by kernel."""
+    the engine actor's launch counts by kernel; leaves the runtime up
+    for 6g (shuts it down if 6f fails)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import ByteTokenizer
     from ray_tpu_torch.ops import _kernels
@@ -6515,12 +6592,454 @@ def run_runtime(dev, out5, ticks5):
             f"{res['main_peak_bytes'] / 2**30:.3f} "
             f"GiB in 6f; engine actor peak "
             f"{res['actor_peak_bytes'] / 2**30:.3f} GiB")
-    finally:
+    except BaseException:
         rt.shutdown()
+        raise
     after = _kernels.launch_counts()
     expect(after == before, f"this process's launch counters moved in 6f: "
            f"{before} -> {after}")
     return res, actor_launches
+
+
+# ------------------------------------------- the libraries on the runtime
+
+PHASE6_PR14_STEP_MS = 337.85   # PERF.md: phase 6's step median in PR 14
+LIB_TRAIN_PRESET = "8b"  # phase 6's preset
+LIB_DEVICE = None       # the loops' device: None is each worker's card
+LIB_USE_GPU = True      # TrainWorkers reserve a GPU
+# 6g(b)'s resume drill and 6g(d)'s trials: the `tiny` preset cut to 2
+# layers (8.4M float32 parameters), batch 4 x 512, no remat (a fresh
+# worker's first remat step imports torch's checkpoint machinery, ~840
+# modules, and each of these runs starts a fresh worker)
+LIB_DRILL = dict(preset="tiny", layers=2, batch=4, seq=512, seed=0,
+                 lr=1e-3, warmup=0, remat=False)
+LIB_DRILL_STEPS = 6
+LIB_DRILL_FAIL_AFTER = 3
+LIB_TUNE_LRS = (1e-5, 1e-3)
+LIB_TUNE_STEPS = 3
+LIB_IMPALA_ITERS = 5
+
+
+def _lib_sync(device):
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lib_train_loop(config):
+    """6g(a)'s train_loop_per_worker: phase 6's configuration (the `8b`
+    preset at full width, TRAIN_LAYERS layers, seed 0, the same tokens,
+    a warm-up and TRAIN_STEPS timed steps) in a TrainWorker, each step
+    reported with its loss, grad norm, ms and the worker's launch
+    counters."""
+    import numpy as np
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (TrainStepBundle,
+                                               default_optimizer)
+    from ray_tpu_torch.ops import _kernels
+    t_enter = time.time()
+    dev = config["device"]
+    compiled = _kernels.build()["compiled"] if dev is None else []
+    cfg = llama.config(config["preset"], n_layers=config["layers"],
+                       max_seq=config["seq"])
+    bundle = TrainStepBundle(cfg, dev, optimizer=default_optimizer(
+        learning_rate=3e-4, warmup_steps=2, total_steps=100))
+    state = bundle.init_state(0)
+    rng = np.random.default_rng(0)
+    tokens = bundle.shard_batch(rng.integers(
+        0, cfg.vocab_size, (config["batch"], config["seq"])).astype(
+            np.int32))
+    _lib_sync(dev)
+    t_ready = time.time()
+    if bundle.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    for i in range(1 + config["steps"]):
+        t0 = time.perf_counter()
+        state, m = bundle.step(state, tokens)
+        _lib_sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rep = {k: v.item() for k, v in m.items()}
+        rep.update(step=i, ms=ms, launches=_kernels.launch_counts(),
+                   t_enter=t_enter, t_ready=t_ready,
+                   device=str(bundle.device), compiled=len(compiled),
+                   visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   peak_bytes=(torch.cuda.max_memory_allocated()
+                               if bundle.device.type == "cuda" else 0))
+        train.report(rep)
+
+
+def _requires_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _requires_grad(v) for k, v in tree.items()}
+    return tree.requires_grad_(True)
+
+
+def lib_drill_loop(config):
+    """6g(b) and (d)'s loop at LIB_DRILL's configuration: with
+    config["scratch"], every step saves parameters and AdamW's state
+    with Checkpoint.save_pytree and reports them; a checkpoint to start
+    from resumes the run after its step; with config["marker"], the
+    first attempt raises once after step LIB_DRILL_FAIL_AFTER."""
+    import numpy as np
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (TrainStepBundle,
+                                               default_optimizer)
+    from ray_tpu_torch.train import Checkpoint
+    t_enter = time.time()
+    dev = config["device"]
+    if dev is None:
+        from ray_tpu_torch.ops import _kernels
+        _kernels.build()
+    cfg = llama.config(config["preset"], n_layers=config["layers"],
+                       max_seq=config["seq"], remat=config["remat"])
+    bundle = TrainStepBundle(cfg, dev, optimizer=default_optimizer(
+        learning_rate=config["lr"], warmup_steps=config["warmup"],
+        total_steps=100))
+    start, resumed = 0, train.get_checkpoint()
+    if resumed is None:
+        state = bundle.init_state(config["seed"])
+    else:
+        tree = resumed.load_pytree(device=dev)
+        state = (_requires_grad(tree["params"]), tree["opt"])
+        start = tree["step"] + 1
+    rng = np.random.default_rng(config["seed"])
+    tokens = bundle.shard_batch(rng.integers(
+        0, cfg.vocab_size, (config["batch"], config["seq"])).astype(
+            np.int32))
+    for i in range(start, config["steps"]):
+        state, m = bundle.step(state, tokens)
+        rep = dict(step=i, loss=m["loss"].item(), resumed=start > 0,
+                   params=cfg.num_params(), t_enter=t_enter)
+        ckpt = None
+        if config.get("scratch"):
+            d = os.path.join(config["scratch"], f"{start}-{i}")
+            ckpt = Checkpoint.save_pytree(
+                {"params": state[0], "opt": state[1], "step": i}, d)
+        train.report(rep, checkpoint=ckpt)
+        marker = config.get("marker")
+        if (marker and i == config["fail_after"]
+                and not os.path.exists(marker)):
+            open(marker, "w").close()
+            raise RuntimeError(f"6g(b): the drill's failure after step {i}")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+class CheckpointHolder:
+    """6g(b): a worker-side checkpoint that the driver fetches, as a
+    TrainWorker's fetch_checkpoint packs and ships one."""
+
+    def __init__(self, path):
+        from ray_tpu_torch.train import Checkpoint
+        self.ckpt = Checkpoint(path)
+
+    def fetch(self):
+        return self.ckpt.pack()
+
+
+def lib_train(rt, storage, ref):
+    """6g(a): phase 6's training in a GPU TrainWorker. `ref`: phase 6's
+    numbers from this run."""
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    before = _kernels.launch_counts()
+    first = {}
+
+    def on_report(metrics, checkpoint=None):
+        first.setdefault("t", time.perf_counter())
+    t_fit = time.time()
+    trainer = TorchTrainer(
+        lib_train_loop,
+        train_loop_config=dict(device=LIB_DEVICE, preset=LIB_TRAIN_PRESET,
+                               layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, steps=TRAIN_STEPS),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=LIB_USE_GPU),
+        run_config=RunConfig(name="6g-train", storage_path=storage))
+    t0 = time.perf_counter()
+    result = trainer.fit(on_report=on_report)
+    wall = time.perf_counter() - t0
+    expect(result.error is None, f"6g(a): {result.error}")
+    steps = result.metrics_dataframe
+    want = [s["loss"] for s in ref["steps"]]
+    got = [s["loss"] for s in steps]
+    expect(len(got) == len(want), f"6g(a): {len(got)} reports, phase 6 "
+           f"ran {len(want)} steps")
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    bit_equal = got == want
+    last = steps[-1]
+    counts = last["launches"]
+    n = len(steps)
+    expected = dict(flash_fwd=2 * TRAIN_LAYERS * n,
+                    flash_dq=TRAIN_LAYERS * n, flash_dkv=TRAIN_LAYERS * n)
+    timed = [s["ms"] for s in steps[1:]]
+    step_ms = statistics.median(timed)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    res = dict(losses=got, phase6_losses=want, loss_rel=rel,
+               bit_equal=bit_equal, launches=counts, step_ms_median=step_ms,
+               steps_ms=timed, tokens_per_s=tok_s,
+               phase6_step_ms_median=ref["step_ms_median"],
+               create_to_first_report_s=first["t"] - t0, fit_wall_s=wall,
+               worker_peak_bytes=last["peak_bytes"], device=last["device"],
+               visible=last["visible"], compiled=last["compiled"],
+               fit_to_loop_s=last["t_enter"] - t_fit,
+               loop_to_ready_s=last["t_ready"] - last["t_enter"])
+    log(f"[libraries] (a) TorchTrainer, 1 GPU worker ({last['device']}, "
+        f"CUDA_VISIBLE_DEVICES={last['visible']}, {last['compiled']} "
+        f"sources compiled there): phase 6's 8b-width {TRAIN_LAYERS}-layer "
+        f"run; losses {[round(x, 5) for x in got]} against phase 6's "
+        f"{[round(x, 5) for x in want]}: largest rel {max(rel):.2e} (tol "
+        f"{TRAIN_LOSS_RTOL}), bit-equal {bit_equal}")
+    log(f"[libraries] (a) step median {step_ms:.2f} ms (phase 6 here "
+        f"{ref['step_ms_median']:.2f} ms, PR 14 {PHASE6_PR14_STEP_MS} ms); "
+        f"{tok_s:.0f} tokens/s; fit() to the first report "
+        f"{res['create_to_first_report_s']:.2f} s (to the loop's start "
+        f"{res['fit_to_loop_s']:.2f} s, then to its state on the card "
+        f"{res['loop_to_ready_s']:.2f} s), fit() {wall:.2f} s; "
+        f"worker peak memory {last['peak_bytes'] / 2**30:.2f} GiB; worker "
+        f"launches {({k: v for k, v in counts.items() if v})} (expected "
+        f"{expected})")
+    expect(max(rel) <= TRAIN_LOSS_RTOL, f"6g(a): losses apart: {rel}")
+    if LIB_DEVICE is None:
+        for k, w in expected.items():
+            expect(counts[k] == w, f"6g(a): worker {k} {counts[k]} != {w}")
+        expect(not any(v for k, v in counts.items()
+                       if not k.startswith("flash")),
+               f"6g(a): a serving kernel ran in the worker: {counts}")
+    after = _kernels.launch_counts()
+    expect(after == before, f"6g(a): this process's launch counters moved: "
+           f"{before} -> {after}")
+    return res, counts
+
+
+def lib_drill(rt, storage):
+    """6g(b): the resume drill, against an uninterrupted run."""
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+    scratch = tempfile.mkdtemp(prefix="6g-drill-", dir=storage)
+    marker = os.path.join(storage, "6g-drill-failed-once")
+    base = dict(LIB_DRILL, device=LIB_DEVICE, steps=LIB_DRILL_STEPS,
+                fail_after=LIB_DRILL_FAIL_AFTER)
+
+    def fit(name, **extra):
+        trainer = TorchTrainer(
+            lib_drill_loop, train_loop_config=dict(base, **extra),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=LIB_USE_GPU),
+            run_config=RunConfig(
+                name=name, storage_path=storage,
+                failure_config=FailureConfig(max_failures=1),
+                checkpoint_config=CheckpointConfig(num_to_keep=2)))
+        t0, t_fit = time.perf_counter(), time.time()
+        result = trainer.fit()
+        expect(result.error is None, f"6g(b) {name}: {result.error}")
+        entries = sorted({m["t_enter"] for m in result.metrics_dataframe})
+        starts[name] = [t - t_fit for t in entries]
+        return result, time.perf_counter() - t0
+    starts = {}
+    plain, plain_s = fit("6g-plain")
+    drill, drill_s = fit("6g-drill", scratch=scratch, marker=marker)
+    want = {m["step"]: m["loss"] for m in plain.metrics_dataframe}
+    hist = drill.metrics_dataframe
+    resumed = [m for m in hist if m["resumed"]]
+    expect(os.path.exists(marker) and resumed, "6g(b): the drill did not "
+           "fail and resume")
+    equal = all(m["loss"] == want[m["step"]] for m in hist)
+    kept = sorted(d for d in os.listdir(os.path.join(storage, "6g-drill"))
+                  if d.startswith("checkpoint_"))
+    last = drill.checkpoint.path
+    nbytes = dir_bytes(os.path.join(last, "pytree"))
+    holder = rt.remote(num_cpus=1)(CheckpointHolder).remote(last)
+    rt.get(holder.fetch.remote(), timeout=120)        # warm
+    fetch_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        packed = rt.get(holder.fetch.remote(), timeout=120)
+        fetch_ms.append((time.perf_counter() - t0) * 1e3)
+    rt.kill(holder)
+    res = dict(config=LIB_DRILL, params=hist[0]["params"],
+               checkpoint_bytes=nbytes, packed_bytes=len(packed.blob),
+               pack_fetch_ms=fetch_ms,
+               resumed_steps=[m["step"] for m in resumed],
+               losses=[m["loss"] for m in hist], plain=want,
+               bit_equal=equal, kept=kept, plain_s=plain_s, drill_s=drill_s,
+               loop_starts_s=starts)
+    log(f"[libraries] (b) resume drill: `{LIB_DRILL['preset']}` preset, "
+        f"{LIB_DRILL['layers']} layers, {hist[0]['params'] / 1e6:.2f}M "
+        f"params, batch {LIB_DRILL['batch']}x{LIB_DRILL['seq']}, "
+        f"{LIB_DRILL_STEPS} steps, a failure after step "
+        f"{LIB_DRILL_FAIL_AFTER}; steps reported {[m['step'] for m in hist]}"
+        f", resumed at {res['resumed_steps'][0]}; every loss bit-equal to "
+        f"the uninterrupted run's: {equal}; checkpoints kept {kept}; "
+        f"one checkpoint {nbytes / 2**20:.1f} MiB (tar "
+        f"{len(packed.blob) / 2**20:.1f} MiB), pack and fetch "
+        f"{[round(x, 1) for x in fetch_ms]} ms "
+        f"({nbytes / 1e6 / statistics.median(fetch_ms):.3f} GB/s); fits "
+        f"{plain_s:.1f} s uninterrupted, {drill_s:.1f} s with the restart; "
+        f"each attempt's loop started {starts} s after fit()")
+    expect(equal, "6g(b): resumed losses differ from the uninterrupted run")
+    expect(len(kept) == 2, f"6g(b): checkpoints kept {kept}")
+    return res
+
+
+def lib_rllib(rt, dev):
+    """6g(c): PPO with 2 remote runners and 2 learners at the gate's
+    configuration, then IMPALA with 2 async remote runners."""
+    from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
+
+    def ppo(remote):
+        cfg = (PPOConfig().environment("CartPole-v1")
+               .env_runners(num_env_runners=2 if remote else 0,
+                            num_envs_per_env_runner=16,
+                            rollout_fragment_length=128)
+               .training(lr=3e-4, minibatch_size=256, num_epochs=4)
+               .learners(num_learners=2 if remote else 0)
+               .debugging(seed=0))
+        return (cfg.resources(device=LIB_DEVICE) if LIB_DEVICE
+                else cfg).build()
+
+    def timed_iters(algo, n, gate=None):
+        times = dict(sample=[], update=[], iteration=[])
+        group, learners = algo.env_runner_group, algo.learner_group
+
+        def wrap(name, fn):
+            def call(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+        group.sample = wrap("sample", group.sample)
+        learners.update = wrap("update", learners.update)
+        rets = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            rets.append(algo.train()["episode_return_mean"])
+            times["iteration"].append((time.perf_counter() - t0) * 1e3)
+            if gate is not None and max(rets) > gate:
+                break
+        del group.sample, learners.update
+        return rets, times
+
+    algo = ppo(True)
+    placement = dict(runners=algo.env_runner_group.device_info(),
+                     learners=algo.learner_group.device_info())
+    log(f"[libraries] (c) PPO runners {placement['runners']}, learners "
+        f"{placement['learners']}")
+    t0 = time.perf_counter()
+    rets, times = timed_iters(algo, RL_GATE_ITERS, RL_GATE)
+    wall = time.perf_counter() - t0
+    algo.stop()
+    local = ppo(False)
+    _, ltimes = timed_iters(local, 3)
+    local.stop()
+    med = lambda v: statistics.median(v[1:]) if len(v) > 1 else v[0]
+    res = dict(returns=rets, iterations=len(rets), wall_s=wall,
+               placement=placement, times=times, local_times=ltimes,
+               remote_ms={k: med(v) for k, v in times.items()},
+               local_ms={k: med(v) for k, v in ltimes.items()})
+    log(f"[libraries] (c) PPO CartPole-v1, 2 remote runners x 16 envs x "
+        f"128, 2 learners (minibatch 256, 4 epochs, seed 0): returns "
+        f"{[round(r, 1) for r in rets]} in {wall:.2f} s; an iteration "
+        f"(median after the first) sample {res['remote_ms']['sample']:.2f}"
+        f" ms, update {res['remote_ms']['update']:.2f} ms, iteration "
+        f"{res['remote_ms']['iteration']:.2f} ms; 6d(a)'s local path here: "
+        f"sample {res['local_ms']['sample']:.2f} ms, update "
+        f"{res['local_ms']['update']:.2f} ms, iteration "
+        f"{res['local_ms']['iteration']:.2f} ms")
+    expect(max(rets) > RL_GATE, f"6g(c): PPO best {max(rets):.1f} within "
+           f"{RL_GATE_ITERS} iterations, not > {RL_GATE}")
+    want = "cpu" if LIB_DEVICE else "cuda"
+    expect(all(p["device"].startswith(want)
+               for p in placement["runners"] + placement["learners"]),
+           f"6g(c): placement {placement}")
+    cfg = (IMPALAConfig().environment("CartPole-v1")
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=16,
+                        rollout_fragment_length=64)
+           .training(lr=2e-3, entropy_coeff=0.005).debugging(seed=0))
+    imp = (cfg.resources(device=LIB_DEVICE) if LIB_DEVICE else cfg).build()
+    t0 = time.perf_counter()
+    ms = [imp.train() for _ in range(LIB_IMPALA_ITERS)]
+    res["impala"] = dict(
+        losses=[m["learner/total_loss"] for m in ms],
+        returns=[m["episode_return_mean"] for m in ms],
+        wall_s=time.perf_counter() - t0,
+        inflight=len(imp.env_runner_group._inflight))
+    imp.stop()
+    log(f"[libraries] (c) IMPALA, 2 async remote runners x 16 envs x 64: "
+        f"{LIB_IMPALA_ITERS} iterations {res['impala']['wall_s']:.2f} s, "
+        f"total_loss {[round(x, 4) for x in res['impala']['losses']]}, "
+        f"samples in flight {res['impala']['inflight']}")
+    expect(all(math.isfinite(x) for x in res["impala"]["losses"]),
+           "6g(c): IMPALA losses not finite")
+    return res
+
+
+def lib_tune(rt, storage):
+    """6g(d): Tune over a GPU TorchTrainer, trials in turn."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    trainer = TorchTrainer(
+        lib_drill_loop,
+        train_loop_config=dict(LIB_DRILL, device=LIB_DEVICE,
+                               steps=LIB_TUNE_STEPS),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=LIB_USE_GPU),
+        run_config=RunConfig(name="6g-tune", storage_path=storage))
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(LIB_TUNE_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1)).fit()
+    wall = time.perf_counter() - t0
+    best = grid.get_best_result()
+    res = dict(trials=[dict(lr=r.config["lr"], loss=r.metrics.get("loss"),
+                            wall_s=r.metrics.get("time_total_s"))
+                       for r in grid.results],
+               errors=grid.errors, best_lr=best.config["lr"], wall_s=wall)
+    log(f"[libraries] (d) Tune over TorchTrainer (1 GPU worker a trial, "
+        f"max_concurrent_trials 1, {LIB_TUNE_STEPS} steps): "
+        f"{res['trials']}; best lr {res['best_lr']}; errors {grid.errors}; "
+        f"{wall:.1f} s")
+    expect(len(grid) == 2 and not grid.errors, f"6g(d): {res}")
+    expect(res["best_lr"] == max(LIB_TUNE_LRS), f"6g(d): best {res}")
+    return res
+
+
+def run_libraries(dev, train_ref):
+    """Phase 6g: Train, RLlib's remote paths and Tune on the runtime 6f
+    left up (started here if none runs), shut down at the end.
+    `train_ref`: phase 6's numbers. Returns them and the TrainWorker's
+    launch counts by kernel."""
+    import ray_tpu_torch as rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[libraries] this process holds {held / 2**30:.3f} GiB on the "
+        f"card before 6g")
+    storage = tempfile.mkdtemp(prefix="chip_smoke_6g_")
+    if not rt.is_initialized():
+        rt.init()
+    try:
+        res = dict(main_held_bytes=held)
+        t0 = time.perf_counter()
+        res["train"], worker_counts = lib_train(rt, storage, train_ref)
+        res["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["drill"] = lib_drill(rt, storage)
+        res["drill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["rllib"] = lib_rllib(rt, dev)
+        res["rllib_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["tune"] = lib_tune(rt, storage)
+        res["tune_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return res, worker_counts
 
 
 def _clone_tree(tree):
@@ -6679,9 +7198,14 @@ def main():
     runtime, actor_launches = run_runtime(dev, out_bf16,
                                           engine["ticks_ms_kernel"])
     phase_s["6f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    libraries, worker_launches = run_libraries(dev, train)
+    phase_s["6g"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
-        f"{PROFILES['lost']} of them lost records and were taken again")
+        f"{PROFILES['lost']} of them lost records and were taken again; "
+        f"short profiles kept {PROFILES['short_kept']}; timed with CUDA "
+        f"events instead {PROFILES['event_timed']}")
     src = "ray_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="ragged_paged", route="cuda", source=src + "ragged_paged.cu",
@@ -6752,6 +7276,11 @@ def main():
     for k in kernels:
         k["launches_actor"] = actor_launches.get(
             k["name"].replace("_narrow_table", ""), 0)
+    # phase 6g's main path (phase 6's training in a GPU TrainWorker)
+    # launches, counted in the worker's process
+    for k in kernels:
+        k["launches_train_worker"] = worker_launches.get(
+            k["name"].replace("_narrow_table", ""), 0)
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -6761,7 +7290,7 @@ def main():
                            quant_engine=quant_engine, train=train,
                            train_moe=train_moe, checkpoint=checkpoint,
                            rllib=rllib, rllib_more=rllib_more,
-                           runtime=runtime,
+                           runtime=runtime, libraries=libraries,
                            sanitizer=sanitizer,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,

@@ -186,12 +186,26 @@ class WorkerHandle:
         # the GPUs (_pin_of) of the first GPU task or lease this worker
         # ran: CUDA_VISIBLE_DEVICES acts once, at the process's first
         # CUDA call, so a worker that may hold a CUDA context for these
-        # devices serves only CPU work and work pinned to the same ones
+        # devices serves only CPU work and work pinned to the same ones;
+        # UNPINNED_CUDA once unpinned work initialized CUDA in it (it
+        # then serves only CPU work)
         self.gpu_pin: Optional[str] = None
 
 
 def _pin_of(gpus) -> Optional[str]:
     return ",".join(str(g) for g in gpus) if gpus else None
+
+
+# WorkerHandle.gpu_pin of a worker whose unpinned work initialized CUDA
+# over every device of the node: it fits no pinned task or lease after
+UNPINNED_CUDA = "*"
+
+
+def _mark_cuda(handle: "WorkerHandle", cuda_unpinned) -> None:
+    """Record a worker's report that unpinned work initialized CUDA in
+    it (worker_main ``_cuda_unpinned``)."""
+    if cuda_unpinned and handle.gpu_pin is None:
+        handle.gpu_pin = UNPINNED_CUDA
 
 
 def _pin_fits(handle: "WorkerHandle", gpu_pin: Optional[str]) -> bool:
@@ -767,10 +781,12 @@ class NodeDaemon:
         if handle is not None:
             handle.batch_progress = max(handle.batch_progress, int(index))
 
-    async def rpc_leased_batch_done(self, worker_id: str) -> None:
+    async def rpc_leased_batch_done(self, worker_id: str,
+                                    cuda_unpinned: bool = False) -> None:
         handle = self.workers.get(worker_id)
         if handle is None:
             return
+        _mark_cuda(handle, cuda_unpinned)
         handle.current_batch = []
         handle.batch_progress = 0
         if handle.state == "lease_draining":
@@ -988,6 +1004,7 @@ class NodeDaemon:
         if reply.get("status") != "ok":
             # __init__ raised: worker already pushed the owner the
             # error; reusable worker goes back to the pool
+            _mark_cuda(handle, reply.get("cuda_unpinned"))
             self._local_actor_slots.pop(actor_id, None)
             self._lease_blocks[cpu] = self._lease_blocks.get(cpu, 0) + 1
             self._release_gpus(spec["task_id"])
@@ -1495,6 +1512,7 @@ class NodeDaemon:
             else:
                 handle.state = "busy"
                 handle.actor_id = None
+                _mark_cuda(handle, reply.get("cuda_unpinned"))
                 self._release_worker(handle)
                 self._release_gpus(spec["task_id"])
                 await controller.oneway(
@@ -1505,7 +1523,7 @@ class NodeDaemon:
                     node_id=self.node_id)
         else:
             try:
-                await self.pool.get(handle.addr).call(
+                reply = await self.pool.get(handle.addr).call(
                     "run_task", spec=spec)
             except Exception as e:
                 if self._closed:
@@ -1519,6 +1537,7 @@ class NodeDaemon:
                 if handle.state != "dead":
                     self._kill_proc(handle)
             else:
+                _mark_cuda(handle, reply.get("cuda_unpinned"))
                 self._release_worker(handle)
             self._release_gpus(spec["task_id"])
             await controller.oneway("task_finished", task_id=spec["task_id"],

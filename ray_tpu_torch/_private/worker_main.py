@@ -123,6 +123,8 @@ class WorkerRuntime:
         self.node_id = node_id
         self.actors: Dict[str, ActorState] = {}
         self.current_actor_id: Optional[str] = None
+        # set once a task or an actor pinned this process to its GPUs
+        self._gpu_pinned = False
         self.task_executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=4, thread_name_prefix="task")
         client.server.register("run_task", self.rpc_run_task)
@@ -345,11 +347,23 @@ class WorkerRuntime:
                 f"{have!r}; it cannot run a task pinned to {want!r}")
         GPUAcceleratorManager.set_current_process_visible_accelerators(
             gpus)
+        self._gpu_pinned = True
+
+    def _cuda_unpinned(self) -> bool:
+        """Whether unpinned work (a CPU task or actor) initialized CUDA
+        here: such a process holds a context over every device of the
+        node, so the daemon must never offer it a GPU pin after
+        (``WorkerHandle.gpu_pin``)."""
+        from ..accelerators.gpu import cuda_initialized
+        return not self._gpu_pinned and cuda_initialized()
 
     async def rpc_run_task(self, spec: dict) -> dict:
         if spec.get("_leased"):
             return await self.rpc_run_task_batch([spec])
-        return await self._execute_task(spec)
+        reply = await self._execute_task(spec)
+        if self._cuda_unpinned():
+            reply = dict(reply, cuda_unpinned=True)
+        return reply
 
     async def rpc_run_task_batch(self, specs: list) -> dict:
         """Lease-path batch dispatch: ONE wire frame carries K tasks and
@@ -422,7 +436,8 @@ class WorkerRuntime:
             states.append(st)
         try:
             await daemon.oneway(
-                "leased_batch_done", worker_id=self.worker_id)
+                "leased_batch_done", worker_id=self.worker_id,
+                cuda_unpinned=self._cuda_unpinned())
             await controller.oneway(
                 "task_event_push_batch", node_id=self.node_id,
                 events=[{"task_id": s["task_id"],
@@ -679,7 +694,10 @@ class WorkerRuntime:
                 ActorDiedError(actor_id,
                                f"__init__ failed:\n{tb}"),
                 task_id=spec["task_id"])
-            return {"status": "error", "error_tb": tb}
+            # the daemon pools this worker again: say if it now holds
+            # an unpinned CUDA context
+            return {"status": "error", "error_tb": tb,
+                    "cuda_unpinned": self._cuda_unpinned()}
         self.actors[actor_id] = ActorState(
             actor_id, instance, spec.get("max_concurrency"),
             spec.get("concurrency_groups"))

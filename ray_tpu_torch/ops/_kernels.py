@@ -34,8 +34,11 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "ray_tpu_torch")
+# --split-compile=0: nvcc runs a source's optimizer and ptxas work on
+# every CPU; one nvcc a source still, all started together
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

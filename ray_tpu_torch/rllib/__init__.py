@@ -1,4 +1,4 @@
-"""ray_tpu_torch.rllib: RLlib's single-process surface on PyTorch.
+"""ray_tpu_torch.rllib: RLlib on PyTorch.
 
 Counterpart of ``ray_tpu/rllib`` (the new-stack RLlib: EnvRunners +
 Connectors + RLModule + Learner): PPO, IMPALA, APPO, DQN, SAC, CQL,
@@ -7,10 +7,10 @@ batched tensor code (``env/torch_env.py``, ``env/multi_agent_env.py``),
 so a rollout steps every env on the device, and the learners' updates
 run there too.
 
-Not ported yet: remote env runners (``num_env_runners > 0``) and
-several learners (``num_learners > 1``) wait for the port's actor
-runtime (ROADMAP.md §A5) and then for RLlib's remote paths on it (§A6);
-so do Tune's searchers and schedulers over an Algorithm (§A6).
+Remote env runners (``num_env_runners > 0``) and several learners
+(``num_learners > 1``, PPO, IMPALA and APPO) run as actors of the
+port's runtime; an Algorithm is a Tune Trainable
+(``ray_tpu_torch.tune``).
 """
 
 from .algorithms.algorithm import Algorithm, AlgorithmConfig

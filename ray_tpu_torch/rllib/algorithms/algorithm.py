@@ -4,7 +4,9 @@ Counterpart of ``ray_tpu/rllib/algorithms/algorithm.py`` (reference
 parity: rllib/algorithms/algorithm.py:198, a Tune Trainable; the fluent
 algorithm_config.py). An Algorithm owns an EnvRunnerGroup (sampling)
 and a LearnerGroup (gradients), both on ``config.device``: "cuda" by
-default (raising without a card), "cpu" when asked.
+default (raising without a card), "cpu" when asked. With
+``num_env_runners > 0`` or ``num_learners > 1`` they are actors of the
+port's runtime, each on that device in its own process.
 """
 
 from __future__ import annotations

@@ -71,11 +71,6 @@ class MultiAgentPPO(Algorithm):
         cfg = self._config
         if cfg.env is None:
             raise ValueError("no environment configured")
-        if cfg.num_learners > 1:
-            raise ValueError(
-                f"num_learners={cfg.num_learners}: several learners wait "
-                f"for an actor runtime and a gradient collective in "
-                f"ray_tpu_torch (ROADMAP.md §A5); use num_learners<=1")
         env = make_multi_agent_env(cfg.env)
         mapping_fn = cfg.policy_mapping_fn
         if mapping_fn is None:
@@ -109,7 +104,8 @@ class MultiAgentPPO(Algorithm):
             rollout_length=cfg.rollout_fragment_length, seed=cfg.seed,
             module_classes=module_classes, model_configs=model_configs,
             device=cfg.device)
-        # one learner (own optimizer + hyperparams) per policy
+        # one local learner (own optimizer + hyperparams) per policy, as
+        # the JAX package builds them whatever num_learners says
         self.learners: Dict[str, PPOLearner] = {}
         self._pipelines = {}
         for pid, spec in self.env_runner_group.module_specs.items():

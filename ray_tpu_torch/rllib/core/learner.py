@@ -13,18 +13,24 @@ Minibatches are drawn with ``torch.randperm`` on a device generator
 seeded from the learner's seed; the JAX learner's
 ``jax.random.permutation`` order is not reproduced (ROADMAP.md §C).
 
-Several learners need an actor runtime and a collective, which the port
-does not have yet (ROADMAP.md §A5): ``LearnerGroup`` refuses
-``num_learners > 1``.
+Several learners (reference: learner_group.py:72,146-161, torch DDP over
+NCCL there) are N learner actors of the port's runtime: each takes a
+strided shard of the batch, and per minibatch its gradients cross the
+host collective (``util.collective.allreduce``, through the object
+store, rank order) and are averaged before the optimizer step, as the
+JAX package's split-phase update does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import uuid
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+import ray_tpu_torch as rt
 
 from ...models.training import global_norm, resolve_device
 from .rl_module import RLModule, build_module
@@ -105,15 +111,22 @@ class Learner:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _apply(self, minibatch) -> Dict[str, torch.Tensor]:
-        """One gradient step; its metrics, detached on the device."""
+    def _grads(self, minibatch) -> Tuple[List[torch.Tensor],
+                                          Dict[str, torch.Tensor]]:
+        """The minibatch's gradients and its metrics, detached on the
+        device (the JAX learner's ``_build_grads``)."""
         loss, aux = self.compute_loss(minibatch)
         # a parameter the loss does not reach (BC's value torso) gets a
         # zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(loss, self.params, allow_unused=True,
                                     materialize_grads=True)
-        self.optimizer.step_(self.params, list(grads), self.opt_state)
-        return {k: v.detach() for k, v in aux.items()}
+        return list(grads), {k: v.detach() for k, v in aux.items()}
+
+    def _apply(self, minibatch) -> Dict[str, torch.Tensor]:
+        """One gradient step; its metrics, detached on the device."""
+        grads, aux = self._grads(minibatch)
+        self.optimizer.step_(self.params, grads, self.opt_state)
+        return aux
 
     # -- public API ---------------------------------------------------------
     def update(self, train_batch: Dict[str, np.ndarray]) -> Dict[str, float]:
@@ -131,6 +144,42 @@ class Learner:
             for i in range(nmb):
                 idx = perm[i * mb:(i + 1) * mb]
                 aux = self._apply({k: v[idx] for k, v in batch.items()})
+                sums = ({k: sums[k] + v for k, v in aux.items()}
+                        if sums else aux)
+        keys = list(sums)
+        means = (torch.stack([sums[k] for k in keys])
+                 / (hps.num_epochs * nmb)).cpu().tolist()
+        return dict(zip(keys, means))
+
+    def update_with_allreduce(self, train_batch: Dict[str, np.ndarray],
+                              group_name: str, world_size: int
+                              ) -> Dict[str, float]:
+        """Epochs x shuffled minibatches of this learner's shard; each
+        minibatch's gradients are summed across the learner group
+        (host collective, on the CPU) and divided by `world_size`
+        before the optimizer step. The metrics' means over every step."""
+        from ...util import collective
+        hps = self.hps
+        batch = self._to_device(train_batch)
+        n = next(iter(batch.values())).shape[0]
+        if n == 0:
+            raise ValueError("empty train-batch shard")
+        mb = max(min(hps.minibatch_size, n), 1)
+        nmb = max(n // mb, 1)
+        sums: Dict[str, torch.Tensor] = {}
+        for _ in range(hps.num_epochs):
+            perm = torch.randperm(n, generator=self._gen,
+                                  device=self.device)
+            for i in range(nmb):
+                idx = perm[i * mb:(i + 1) * mb]
+                grads, aux = self._grads({k: v[idx]
+                                          for k, v in batch.items()})
+                total = collective.allreduce(
+                    [g.cpu() for g in grads], group_name=group_name)
+                self.optimizer.step_(
+                    self.params,
+                    [g.to(self.device) / world_size for g in total],
+                    self.opt_state)
                 sums = ({k: sums[k] + v for k, v in aux.items()}
                         if sums else aux)
         keys = list(sums)
@@ -164,33 +213,122 @@ class Learner:
         return {k: v.detach().clone()
                 for k, v in self.module.named_parameters()}
 
+    def ping(self) -> bool:
+        return True
+
+    def device_info(self) -> Dict[str, Optional[str]]:
+        """Where this learner steps: its device and the process's
+        CUDA_VISIBLE_DEVICES (a learner actor reports its own)."""
+        from ..env.env_runner import device_info
+        return device_info(self.device)
+
 
 class LearnerGroup:
-    """The local learner. `learner_factory(device)` builds it on the
-    group's device (None: the card)."""
+    """One local learner, or N learner actors averaging gradients
+    through a host collective group. `learner_factory(device)` builds a
+    learner on `device` (None: the card), in this process or in each
+    actor (`learner_resources`: the actors' options, one CPU each by
+    default, as the reference's)."""
 
     def __init__(self, learner_factory: Callable[[torch.device], Learner],
-                 num_learners: int = 0, device=None):
-        if num_learners > 1:
-            raise ValueError(
-                f"num_learners={num_learners}: several learners wait for "
-                f"an actor runtime and a gradient collective in "
-                f"ray_tpu_torch (ROADMAP.md §A5); use num_learners<=1")
+                 num_learners: int = 0, device=None,
+                 learner_resources: Optional[Dict[str, float]] = None):
         self.num_learners = num_learners
-        self.device = resolve_device(device, "LearnerGroup")
-        self._local = learner_factory(self.device)
+        self._actors: List = []
+        self._group = None
+        if num_learners <= 1:
+            self.device = resolve_device(device, "LearnerGroup")
+            self._local = learner_factory(self.device)
+            return
+        from ...util import collective
+        self.device = device
+        self._local = None
+        remote_cls = rt.remote(
+            **(learner_resources or {"num_cpus": 1}))(_LearnerActor)
+        self._actors = [remote_cls.remote(learner_factory, device)
+                        for _ in range(num_learners)]
+        rt.get([a.ping.remote() for a in self._actors])
+        # uuid, not a counter: group names rendezvous through GLOBAL
+        # named actors, so per-process counters collide across trials
+        self._group = f"learner_group_{uuid.uuid4().hex[:8]}"
+        collective.create_collective_group(
+            self._actors, num_learners, list(range(num_learners)),
+            group_name=self._group)
+        # all learners must start from identical params
+        state = rt.get(self._actors[0].get_state.remote())
+        rt.get([a.set_state.remote(state) for a in self._actors[1:]])
 
     def update(self, train_batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        return self._local.update(train_batch)
+        if self._local is not None:
+            return self._local.update(train_batch)
+        n = next(iter(train_batch.values())).shape[0]
+        futs = [a.update_with_allreduce.remote(
+                    {k: v[idx] for k, v in train_batch.items()},
+                    self._group, len(self._actors))
+                for idx, a in zip(shard_indices(n, len(self._actors)),
+                                  self._actors)]
+        all_metrics = rt.get(futs)
+        return {k: float(np.mean([m[k] for m in all_metrics]))
+                for k in all_metrics[0]}
+
+    def _call(self, method: str, *args):
+        """`method` on the local learner, or on learner 0."""
+        if self._local is not None:
+            return getattr(self._local, method)(*args)
+        return rt.get(getattr(self._actors[0], method).remote(*args))
 
     def get_weights(self):
-        return self._local.get_weights()
+        return self._call("get_weights")
 
     def get_state(self):
-        return self._local.get_state()
+        return self._call("get_state")
 
     def set_state(self, state) -> None:
-        self._local.set_state(state)
+        if self._local is not None:
+            self._local.set_state(state)
+            return
+        rt.get([a.set_state.remote(state) for a in self._actors])
+
+    def device_info(self) -> List[Dict[str, Optional[str]]]:
+        """Each learner's device and CUDA_VISIBLE_DEVICES."""
+        if self._local is not None:
+            return [self._local.device_info()]
+        return rt.get([a.device_info.remote() for a in self._actors])
 
     def stop(self) -> None:
-        pass
+        if not self._actors:
+            return
+        from ...util.collective.collective import _group_actor_name
+        for a in self._actors:
+            try:
+                rt.kill(a)
+            except Exception:
+                pass
+        self._actors = []
+        # learner actors are gone (no member will deregister), so the
+        # driver reclaims the detached rendezvous actor directly
+        try:
+            rt.kill(rt.get_actor(_group_actor_name(self._group)))
+        except Exception:
+            pass
+        self._group = None
+
+
+def shard_indices(n: int, num: int) -> List[np.ndarray]:
+    """Strided shards of n rows over `num` learners: every row is kept
+    and no learner is left empty-handed (each MUST contribute to the
+    allreduce); when n < num, a learner past the end wraps to row
+    i % n."""
+    return [np.arange(i, n, num) if i < n else np.array([i % n])
+            for i in range(num)]
+
+
+class _LearnerActor:
+    """Actor shell delegating to a Learner built in its own process, on
+    `device` (None: the card)."""
+
+    def __init__(self, learner_factory, device=None):
+        self._learner = learner_factory(resolve_device(device, "Learner"))
+
+    def __getattr__(self, name):
+        return getattr(self._learner, name)

@@ -24,6 +24,7 @@ from ``initial_state``, as in the JAX runner's scan.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -116,6 +117,9 @@ class SingleAgentEnvRunner:
             shape = tuple(self._obs.shape[1:])
             self._filt_state = (0.0, np.zeros(shape, np.float64),
                                 np.zeros(shape, np.float64))
+            # moments since the last get_filter_delta (a remote group
+            # merges only deltas across its runners)
+            self._filt_delta = self._filt_state
 
     # -- the rollout --------------------------------------------------------
     def _draw(self) -> Dict[str, Any]:
@@ -259,12 +263,14 @@ class SingleAgentEnvRunner:
 
     def _fold_filter_batch(self, fsum: np.ndarray, fsq: np.ndarray,
                            n: int) -> None:
-        """Fold one rollout's (sum, sumsq) into the running state."""
+        """Fold one rollout's (sum, sumsq) into BOTH the running state
+        and the since-last-sync delta."""
         fsum = fsum.astype(np.float64)
         mean = fsum / n
         m2 = np.maximum(fsq.astype(np.float64) - n * mean * mean, 0.0)
-        self._filt_state = merge_moments(self._filt_state,
-                                         (float(n), mean, m2))
+        batch = (float(n), mean, m2)
+        self._filt_state = merge_moments(self._filt_state, batch)
+        self._filt_delta = merge_moments(self._filt_delta, batch)
 
     def get_filter_state(self):
         if not self.obs_filter:
@@ -278,6 +284,16 @@ class SingleAgentEnvRunner:
         self._filt_state = (float(state[0]),
                             np.asarray(state[1], np.float64).copy(),
                             np.asarray(state[2], np.float64).copy())
+
+    def get_filter_delta(self):
+        """Moments accumulated since the last call — the group's sync
+        merges ONLY deltas, so history is never double-counted."""
+        if not self.obs_filter:
+            return None
+        delta, self._filt_delta = self._filt_delta, (
+            0.0, np.zeros_like(self._filt_delta[1]),
+            np.zeros_like(self._filt_delta[2]))
+        return delta
 
     def sample(self) -> Dict[str, Any]:
         return self._finish(self._steps(self._draw()))
@@ -299,3 +315,16 @@ class SingleAgentEnvRunner:
                              f"{sorted(params)}")
         for k, p in params.items():
             p.copy_(torch.as_tensor(weights[k]))
+
+    def ping(self) -> bool:
+        return True
+
+    def device_info(self) -> Dict[str, Optional[str]]:
+        """Where this runner samples: its device and the process's
+        CUDA_VISIBLE_DEVICES (a remote runner reports its own)."""
+        return device_info(self.device)
+
+
+def device_info(device) -> Dict[str, Optional[str]]:
+    return {"device": str(device),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}

@@ -13,16 +13,19 @@ batches).
 Policy mapping: evaluated once per agent at construction (self-play =
 map every agent to the same module id), as in the JAX runner.
 
-Only the local runner group is ported: remote runners wait for an
-actor runtime (ROADMAP.md §A5), and ``num_env_runners > 0`` raises.
+``MultiAgentEnvRunnerGroup`` holds the local runner, or N runner
+actors of the port's runtime whose per-module batches it concatenates
+along the env axis (the reference's remote group, :227-282).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+import ray_tpu_torch as rt
 
 from ...models.training import resolve_device
 from ...ops import threefry
@@ -215,44 +218,102 @@ class MultiAgentEnvRunner:
     def set_weights(self, weights) -> None:
         self.multi_module.set_weights(weights)
 
+    def ping(self) -> bool:
+        return True
+
+
+def _merge_ma(results: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Merge remote runners' results: concat per-module env axes,
+    weight-average stats."""
+    merged: Dict[str, Dict[str, np.ndarray]] = {}
+    for mid in results[0]["batches"]:
+        mb = {}
+        for k in results[0]["batches"][mid]:
+            axis = 0 if k in ("final_vf", "final_obs") else 1
+            mb[k] = np.concatenate(
+                [r["batches"][mid][k] for r in results], axis=axis)
+        merged[mid] = mb
+    n_eps = sum(r["stats"]["num_episodes"] for r in results)
+    agents = list(results[0]["stats"]["agent_episode_returns"])
+    agent_returns = {
+        aid: sum(r["stats"]["agent_episode_returns"][aid]
+                 * r["stats"]["num_episodes"] for r in results)
+        / max(n_eps, 1)
+        for aid in agents}
+    stats = {
+        "num_episodes": n_eps,
+        "episode_len_mean": sum(
+            r["stats"]["episode_len_mean"] * r["stats"]["num_episodes"]
+            for r in results) / max(n_eps, 1),
+        "episode_return_mean": float(sum(agent_returns.values())),
+        "agent_episode_returns": agent_returns,
+        "env_steps": sum(r["stats"]["env_steps"] for r in results),
+        "agent_steps": sum(r["stats"]["agent_steps"] for r in results),
+    }
+    return {"batches": merged, "stats": stats}
+
 
 class MultiAgentEnvRunnerGroup:
-    """The local MultiAgentEnvRunner (the multi-agent EnvRunnerGroup).
-    Remote runners need an actor runtime, which the port does not have
-    yet (ROADMAP.md §A5), so ``num_env_runners > 0`` is refused."""
+    """Local or remote fleet of MultiAgentEnvRunners (mirror of
+    env_runner_group.EnvRunnerGroup for the multi-agent path); remote
+    runners run on `device` in their own processes (None: the card)."""
 
     def __init__(self, env, policy_mapping_fn, num_env_runners: int = 0,
                  num_envs_per_runner: int = 8, rollout_length: int = 128,
                  seed: int = 0,
                  module_classes: Optional[Dict[str, type]] = None,
                  model_configs: Optional[Dict[str, dict]] = None,
+                 runner_resources: Optional[Dict[str, float]] = None,
                  device=None):
-        if num_env_runners > 0:
-            raise ValueError(
-                f"num_env_runners={num_env_runners}: remote env runners "
-                f"wait for an actor runtime in ray_tpu_torch (ROADMAP.md "
-                f"§A5); use num_env_runners=0 for the local runner")
         self.num_env_runners = num_env_runners
-        self._local = MultiAgentEnvRunner(
-            env, policy_mapping_fn, num_envs_per_runner, rollout_length,
-            seed, module_classes, model_configs, device=device)
+        # specs computed here (not via an actor round-trip): env + mapping
+        # fully determine them
+        self.mapping, self._module_specs = derive_module_specs(
+            make_multi_agent_env(env), policy_mapping_fn)
+        if num_env_runners == 0:
+            self._local = MultiAgentEnvRunner(
+                env, policy_mapping_fn, num_envs_per_runner,
+                rollout_length, seed, module_classes, model_configs,
+                device=device)
+            self._remote = []
+        else:
+            self._local = None
+            remote_cls = rt.remote(
+                **(runner_resources or {"num_cpus": 1}))(MultiAgentEnvRunner)
+            self._remote = [
+                remote_cls.remote(env, policy_mapping_fn,
+                                  num_envs_per_runner, rollout_length,
+                                  seed + 1000 * (i + 1), module_classes,
+                                  model_configs, device=device)
+                for i in range(num_env_runners)]
+            rt.get([r.ping.remote() for r in self._remote])
 
     def sample(self) -> Dict[str, Any]:
-        return self._local.sample()
+        if self._local is not None:
+            return self._local.sample()
+        return _merge_ma(rt.get([r.sample.remote() for r in self._remote]))
 
     def sync_weights(self, weights_by_module) -> None:
-        self._local.set_weights(weights_by_module)
+        if self._local is not None:
+            self._local.set_weights(weights_by_module)
+            return
+        ref = rt.put(weights_by_module)
+        rt.get([r.set_weights.remote(ref) for r in self._remote])
 
     def get_weights(self):
-        return self._local.get_weights()
-
-    @property
-    def mapping(self):
-        return self._local.mapping
+        if self._local is not None:
+            return self._local.get_weights()
+        return rt.get(self._remote[0].get_weights.remote())
 
     @property
     def module_specs(self):
-        return self._local.module_specs
+        return self._module_specs
 
     def stop(self) -> None:
-        pass
+        if not self._remote:
+            return
+        for r in self._remote:
+            try:
+                rt.kill(r)
+            except Exception:
+                pass

@@ -1867,3 +1867,41 @@ def test_runtime_two_gpu_actors_in_turn(dev):
         rt.shutdown()
     assert pa[1:] == (True, True) and pb[1:] == (True, True)
     assert pa[0] != pb[0]
+
+
+@pytest.mark.cuda
+def test_runtime_cpu_worker_that_used_the_card_gets_no_pin(dev):
+    """A CPU task that puts a tensor on the card (no pin: it sees every
+    device) leaves its worker with a CUDA context; the daemon never
+    hands that worker a num_gpus=1 task after."""
+    import os
+    import time
+
+    import ray_tpu_torch as rt
+
+    def touch():
+        torch.zeros(1, device="cuda")
+        return os.getpid()
+
+    def pinned():
+        time.sleep(0.05)
+        return os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    rt.init(num_cpus=2)
+    try:
+        pid = rt.get(rt.remote(num_cpus=1)(touch).remote(), timeout=300)
+        daemon = rt.current_runtime().head_daemon
+        handle = lambda: next((h for h in daemon.workers.values()
+                               if h.pid == pid), None)
+        deadline = time.time() + 30
+        while time.time() < deadline and (handle() is None
+                                          or handle().gpu_pin != "*"):
+            time.sleep(0.05)
+        mark = handle().gpu_pin
+        got = rt.get([rt.remote(num_gpus=1)(pinned).remote()
+                      for _ in range(4)], timeout=300)
+    finally:
+        rt.shutdown()
+    assert mark == "*"
+    assert all(p != pid and v == "0" for p, v in got), (pid, got)
+

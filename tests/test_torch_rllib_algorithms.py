@@ -1,8 +1,8 @@
 """ray_tpu_torch.rllib's learners and algorithms against ray_tpu.rllib's,
 on the CPU: the PPO, IMPALA, APPO and DQN losses and gradients on one
 seeded minibatch, one full ``Learner.update`` (the optimizer's order of
-operations), the replay buffer, the checkpoint round trip and the
-refusals. Float32.
+operations), the replay buffer and the checkpoint round trip. Float32.
+(Remote runners and several learners: ``test_torch_rllib_remote.py``.)
 
 Tolerances: losses 1e-5 relative and gradients 1e-4 relative (plus 1e-7
 absolute for elements that cancel to ~0): the same sums in another
@@ -27,9 +27,7 @@ from ray_tpu.rllib.utils.replay_buffers import ReplayBuffer as JReplay
 from ray_tpu_torch.rllib import (DQNConfig, IMPALAConfig, PPOConfig,
                                  ReplayBuffer)
 from ray_tpu_torch.rllib.algorithms import appo, dqn, impala, ppo
-from ray_tpu_torch.rllib.core.learner import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import params_from_flax
-from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.rllib.env.torch_env import CartPole, Pendulum
 
 
@@ -306,17 +304,6 @@ def test_checkpoint_round_trip():
     for a, b in zip(d2.learner_group._local.target.parameters(),
                     d.learner_group._local.target.parameters()):
         assert torch.equal(a, b)
-
-
-def test_remote_runners_and_several_learners_are_refused():
-    with pytest.raises(ValueError, match="actor runtime"):
-        _small_ppo(num_env_runners=2).build()
-    with pytest.raises(ValueError, match="actor runtime"):
-        EnvRunnerGroup("CartPole-v1", num_env_runners=1, device="cpu")
-    with pytest.raises(ValueError, match=r"§A5"):
-        _small_ppo().learners(num_learners=2).build()
-    with pytest.raises(ValueError, match="actor runtime"):
-        LearnerGroup(lambda d: None, num_learners=3, device="cpu")
 
 
 def test_dqn_learns_cartpole():

@@ -362,10 +362,3 @@ def test_same_arch_policies_start_distinct():
     wb = algo.learners["b"].get_weights()
     assert any(not torch.allclose(wa[k], wb[k]) for k in wa)
     algo.cleanup()
-
-
-def test_remote_runners_and_several_learners_are_refused():
-    with pytest.raises(ValueError, match="actor runtime"):
-        _rps_config().env_runners(num_env_runners=2).build()
-    with pytest.raises(ValueError, match="actor runtime"):
-        _rps_config().learners(num_learners=2).build()
