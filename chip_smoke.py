@@ -41,14 +41,16 @@ Phases (any failure raises and exits non-zero):
      a 5200-token prompt beside a decoding request drives ticks at the
      full table width (512 context pages, 1024 tokens): their peak
      device memory and the ragged kernel's largest key-chunk scratch;
-  5b. quantized engine: the same on int8 and then fp8 KV pages (same
-     weights, full depth): the kind's launch counters equal layers x
-     ticks and every other counter stays 0; kernel vs gather as in 5
-     (fp8 with its own near-tie margin); a small f32 engine on int8
-     pages token-exact; agreement with the bf16-pool streams, decode
-     tick, kernel device time a tick and pool bytes printed;
-  5c. decode tick mechanics: on bf16, int8 and fp8 pages (same weights,
-     full depth), the default engines of phases 5 and 5b (one CUDA graph
+  5b. quantized engine: the same on int8 and then fp8 KV pages, on the
+     first QUANT_LAYERS (4) of the same weights' 32 layers (the int8
+     and fp8 drives of 5b, 5c, 5d and 5f all run that depth; bf16 keeps
+     32): the kind's launch counters equal layers x ticks and every
+     other counter stays 0; kernel vs gather as in 5 (fp8 with its own
+     near-tie margin); a small f32 engine on int8 pages token-exact;
+     decode tick, kernel device time a tick and pool bytes printed;
+  5c. decode tick mechanics: on bf16, int8 and fp8 pages (same weights;
+     int8 and fp8 at QUANT_LAYERS layers), the default engines of
+     phases 5 and 5b (one CUDA graph
      replay a decode tick, lagged readback) against cuda_graph=False,
      async_readback=False: greedy and sampled streams (temperature 0.8,
      top_p 0.95, top_k 50, per-request seeds) token-exact; the decode
@@ -59,7 +61,9 @@ Phases (any failure raises and exits non-zero):
      no capture, one readback a tick, and, in the profiler, no Memcpy
      HtoD and one cudaGraphLaunch a tick; each engine's peak memory;
   5d. KV memory hierarchy: on bf16, int8 and fp8 pages (same weights,
-     full depth, default engines): 16 seeded prompts of 240-720 tokens,
+     default engines; bf16 at full depth, int8 and fp8 on the first
+     QUANT_LAYERS, 4, of the 32 layers): 16 seeded prompts of 240-720
+     tokens,
      96 tokens each, at B 8 on 128 usable pages (kv_watermark_tokens
      32, an unbounded host tier) against the same requests on 1024
      pages, greedy (bf16) and sampled: every request finishes, at least
@@ -108,7 +112,9 @@ Phases (any failure raises and exits non-zero):
      +1, graph captures +0; a later registration of the same ranks +0,
      +0, and no capture after it); 8 requests at once (2 base, 2 on each
      adapter, prompts of 14-1535 tokens, 32 tokens), greedy and sampled,
-     on bf16, int8 and fp8 pages: the default engine against
+     on bf16 pages at full depth and on int8 and fp8 pages at
+     QUANT_LAYERS (4) layers (the adapters cut alike): the default
+     engine against
      cuda_graph=False, async_readback=False token-exact, against the
      gather engine within phase 5's near tie (greedy) or phase 5d's
      pickable rule (sampled), with each request's adapter in the
@@ -314,10 +320,43 @@ Phases (any failure raises and exits non-zero):
      losses; (d) Tuner over a GPU TorchTrainer at (b)'s configuration,
      lr grid_search over LIB_TUNE_LRS, LIB_TUNE_STEPS steps a trial,
      max_concurrent_trials 1: 2 results, no errors, the larger lr best,
-     each trial's wall; the runtime shuts down before phase 7;
-  7. summary: one {"kernels": [...]} line (each row with the actor's
-     launches of phase 6f and the TrainWorker's of 6g), the card line,
-     then the {"ok": true, "device": ...} line last.
+     each trial's wall; the runtime stays up for 6h;
+  6h. the Serve plane on the runtime: (a) build_openai_app over phase
+     5e's configuration (the `8b` preset at full width and depth, seed
+     0, SERVER_KW) with accelerator_type the card's GPU-<type>, so its
+     LLMServer replica is a num_gpus=1 actor (working directory outside
+     the checkout), deployed by serve.run(route_prefix="/") behind the
+     HTTP proxy: the replica alone joins this process on the card (its
+     device nodes open, read from /proc), its engine on CUDA pinned
+     with CUDA_VISIBLE_DEVICES=0; GET /v1/models; a warm-up stream for
+     the first request's first token; a cold pass of the 12 bodies
+     shifted by two characters (the fresh process's first use of its
+     shapes and the anomaly detector's warm-up, no page shared with what
+     follows); 5e's 12 bodies at once over HTTP
+     (8 completions, 2 chats, 2 SSE streams): 200s of the reference's
+     shape, completion_tokens as 5e's, streams ending in [DONE], each
+     text the decode of 5e's tokens or of (b)'s for the body; an
+     unknown model 404; /metrics with the JAX family names; /stats's
+     launch counters #1 = layers x mixed ticks and #2/#3 = layers x
+     decode ticks, all pipelined; serve.run to RUNNING, TTFT/TPOT
+     p50/p99 from the replica's lifecycles and over HTTP against 5e's,
+     tokens/s; delete, and the card released; (b) build_llm_fleet_app
+     on one such replica behind HTTP: the 12 bodies as SSE streams
+     whose token_ids equal 5e's tokens (a first difference within
+     phase 5's near tie by the teacher logits of a num_gpus=1 task on
+     the gather impl, run after the apps are gone), two unary calls
+     equal to their streams, /fleet one ACTIVE replica of 1 chip,
+     /fleet/debug/events, /metrics with the JAX fleet families, the
+     launches as in (a); (c) the LLMServer replica's actor killed: the
+     controller starts a new one, which pins the released card and
+     serves SERVE_PROBE (a greedy body (b) served alone after its 12)
+     with (b)'s tokens; kill to the next token;
+     then delete, serve.shutdown() and the runtime's shutdown, with no
+     rtpu_* segment left and this process's counters unchanged;
+  7. summary: one {"kernels": [...], "phase_seconds": {...}} line (each
+     row with the actor's launches of phase 6f, the TrainWorker's of 6g
+     and the serve replicas' of 6h), the card line, then the
+     {"ok": true, "device": ...} line last.
 
 `--only decode` (development) stops after phase 3's decode rows and
 prints them instead of the result line. `--only profiler` (development)
@@ -1249,27 +1288,27 @@ def agreement(out_q, out_ref):
     return same / total, first
 
 
-def run_quant_engine(dev, kind, params, out_bf16):
-    """The 8b engine on `kind` (int8/fp8) KV pages at full depth, with the
-    bf16 phase's weights: the kind's kernels on the main path (counters
-    equal layers x ticks, the bf16 counters untouched), kernel vs gather
-    greedy streams (near ties allowed, as in the bf16 phase), and a small
-    f32 engine on the same pages token-exact between the impls. The
-    engine is the default one, and so also phase 5c's graph side."""
+def run_quant_engine(dev, kind, params):
+    """The 8b engine on `kind` (int8/fp8) KV pages at QUANT_LAYERS layers
+    of the bf16 phase's weights (`kind_model`): the kind's kernels on the
+    main path (counters equal layers x ticks, the bf16 counters
+    untouched), kernel vs gather greedy streams (near ties allowed, as in
+    the bf16 phase), and a small f32 engine on the same pages token-exact
+    between the impls. The engine is the default one, and so also phase
+    5c's graph side."""
     from ray_tpu_torch import ByteTokenizer, EngineConfig, InferenceEngine
     from ray_tpu_torch.models import llama
     tok = ByteTokenizer(128256)
     prompts = [tok.encode(t) for t in PROMPT_TEXTS]
-    kw = dict(ENGINE_KW, kv_dtype=kind)
+    model, params = kind_model(kind, params)
+    kw = dict(ENGINE_KW, kv_dtype=kind, model=model)
     eng = InferenceEngine(EngineConfig(decode_impl="kernel", **kw),
                           params=params)
     out_k, out_s, graph = serve_streams(eng, kind, prompts, f"graph {kind}")
     counts = graph["greedy"]["launches"]
     ticks_k = graph["greedy"]["ticks_ms"]
-    share, first = agreement(out_k, out_bf16)
     nbytes = pool_bytes(eng)
-    log(f"[engine {kind}] greedy agreement with the bf16-pool engine "
-        f"{share:.3f}, first divergence per request {first}; pools "
+    log(f"[engine {kind}] {eng.model_cfg.n_layers} layers; pools "
         f"{nbytes / 2**30:.3f} GiB (scales included), "
         f"{eng.stats()['kv_page_bytes']} bytes a page")
     prof = run_profile(eng, prompts)
@@ -1304,8 +1343,7 @@ def run_quant_engine(dev, kind, params, out_bf16):
     return counts, dict(tick_ms_kernel=statistics.median(ticks_k),
                         tick_ms_gather=statistics.median(ticks_g),
                         ticks_ms_kernel=ticks_k, exact=exact,
-                        bf16_agreement=share, first_divergence=first,
-                        pool_bytes=nbytes,
+                        layers=eng.model_cfg.n_layers, pool_bytes=nbytes,
                         page_bytes=eng.stats()["kv_page_bytes"],
                         decode_launch_ms=launch, profile=prof), graph_side
 
@@ -1796,9 +1834,11 @@ def eager_engine(kind, params, prompts):
     from ray_tpu_torch import EngineConfig, InferenceEngine
     gc.collect()
     torch.cuda.empty_cache()
+    model, params = kind_model(kind, params)
     eng = InferenceEngine(EngineConfig(
         decode_impl="kernel", kv_dtype=kind, cuda_graph=False,
-        async_readback=False, **ENGINE_KW), params=params)
+        async_readback=False, **dict(ENGINE_KW, model=model)),
+        params=params)
     label = f"eager {kind}"
     greedy, sampled, res = serve_streams(eng, kind, prompts, label)
     res["steady"] = steady_decode(eng, label, guard=False)
@@ -1809,8 +1849,9 @@ def eager_engine(kind, params, prompts):
 
 
 def run_tick_mechanics(dev, params, graph_sides):
-    """Phase 5c: the decode tick's mechanics at 8b, full depth, on bf16,
-    int8 and fp8 pages with the bf16 phase's weights: the default
+    """Phase 5c: the decode tick's mechanics at 8b on bf16 pages (full
+    depth) and int8 and fp8 pages (QUANT_LAYERS layers) with the bf16
+    phase's weights: the default
     engines of phases 5 and 5b (one CUDA graph a decode tick, lagged
     readback; `graph_sides`) against cuda_graph=False,
     async_readback=False; token-exact greedy and sampled streams, honest
@@ -1853,6 +1894,25 @@ MOVE_ITERS = 5
 
 def kind_label(kind):
     return "bf16" if kind == "f32" else kind
+
+
+# the int8 and fp8 drives of 5b, 5c, 5d and 5f run the first
+# QUANT_LAYERS layers of the 8b tree (bf16 pages keep the full 32): the
+# quantized pages' path is the same at every layer, and the depth is
+# what the card's time went to
+QUANT_LAYERS = 4
+
+
+def kind_model(kind, params):
+    """(model, params) of `kind`'s engines in 5b-5d and 5f: the `8b`
+    preset on bf16 pages; on int8/fp8 pages its first QUANT_LAYERS
+    layers (views of the same tensors)."""
+    if kind == "f32":
+        return "8b", params
+    from ray_tpu_torch.models import llama
+    cut = dict(params, layers={k: v[:QUANT_LAYERS]
+                               for k, v in params["layers"].items()})
+    return llama.config("8b", n_layers=QUANT_LAYERS), cut
 
 
 def oversub_requests(tag, sp):
@@ -2232,8 +2292,8 @@ def transport(eng, params, kind, frames):
     blob = kvt.encode_session(state)
     frames[kind] = blob
     dst = InferenceEngine(EngineConfig(decode_impl="kernel", **dict(
-        KV_KW, num_pages=257, kv_dtype=kind, enable_kv_offload=True)),
-        params=params)
+        KV_KW, num_pages=257, kv_dtype=kind, enable_kv_offload=True,
+        model=eng.model_cfg)), params=params)
     got = dst.import_session(kvt.decode_session(blob))
     while dst.has_work():
         dst.step()
@@ -2301,19 +2361,20 @@ def run_kv_hierarchy(params):
     for kind in ("f32", "int8", "fp8"):
         modes = ([("greedy", {}), ("sampled", SAMPLED)] if kind == "f32"
                  else [("sampled", SAMPLED)])
+        model, kparams = kind_model(kind, params)
         eng = InferenceEngine(EngineConfig(
-            decode_impl="kernel", **dict(OVERSUB_KW, kv_dtype=kind)),
-            params=params)
+            decode_impl="kernel", **dict(OVERSUB_KW, kv_dtype=kind,
+                                         model=model)), params=kparams)
         ample = InferenceEngine(EngineConfig(
-            decode_impl="kernel", **dict(KV_KW, kv_dtype=kind)),
-            params=params)
+            decode_impl="kernel", **dict(KV_KW, kv_dtype=kind,
+                                         model=model)), params=kparams)
         res = dict(runs=oversubscribe(eng, ample, kind, modes))
         ample.release_graphs()
         del ample
         res["guard"] = steady_guard(eng, kind)
         res["manual"] = manual_preempt(eng, kind)
         res["moves"] = time_moves(eng, kind)
-        res["transport"] = transport(eng, params, kind, frames)
+        res["transport"] = transport(eng, kparams, kind, frames)
         eng.release_graphs()
         del eng
         gc.collect()
@@ -2904,6 +2965,7 @@ def run_server():
     del srv_b
     return dict(requests=len(reqs), output_tokens=n_out, wall_s=wall,
                 tokens_per_s=n_out / wall, exact=exact,
+                body_tokens=[list(r.output_tokens) for r in reqs],
                 times={k: dict(p50=pctl(v, 0.5), p99=pctl(v, 0.99))
                        for k, v in times.items()},
                 requests_summary=rq, perf={k: perf[k] for k in (
@@ -3262,7 +3324,11 @@ def lora_kind(kind, params, ads):
     base / zero pair bit-equal; the base / strong pair different (greedy,
     bf16). Returns (the default engine, numbers)."""
     from ray_tpu_torch import EngineConfig, InferenceEngine
-    kw = dict(LORA_KW, kv_dtype=kind)
+    model, params = kind_model(kind, params)
+    kw = dict(LORA_KW, kv_dtype=kind, model=model)
+    if kind != "f32":
+        ads = {n: {p: (a[:QUANT_LAYERS], b[:QUANT_LAYERS])
+                   for p, (a, b) in ad.items()} for n, ad in ads.items()}
     margin = NEAR_TIE_FP8 if kind == "fp8" else NEAR_TIE
     name = kind_label(kind)
     eng = InferenceEngine(EngineConfig(decode_impl="kernel", **kw),
@@ -7010,9 +7076,9 @@ def lib_tune(rt, storage):
 
 def run_libraries(dev, train_ref):
     """Phase 6g: Train, RLlib's remote paths and Tune on the runtime 6f
-    left up (started here if none runs), shut down at the end.
-    `train_ref`: phase 6's numbers. Returns them and the TrainWorker's
-    launch counts by kernel."""
+    left up (started here if none runs), left up for 6h (shut down if 6g
+    fails). `train_ref`: phase 6's numbers. Returns them and the
+    TrainWorker's launch counts by kernel."""
     import ray_tpu_torch as rt
     gc.collect()
     torch.cuda.empty_cache()
@@ -7036,10 +7102,651 @@ def run_libraries(dev, train_ref):
         t0 = time.perf_counter()
         res["tune"] = lib_tune(rt, storage)
         res["tune_s"] = time.perf_counter() - t0
-    finally:
+    except BaseException:
         rt.shutdown()
+        raise
+    finally:
         shutil.rmtree(storage, ignore_errors=True)
     return res, worker_counts
+
+
+# ------------------------------------------------ the Serve plane (6h)
+
+SERVE_WARM = dict(prompt="Hello there.", max_tokens=2, temperature=0.0)
+# (c)'s body, which (b) serves alone first: its first page shares no
+# prefix with 5e's bodies
+SERVE_PROBE = dict(prompt="Recovery probe. " + PROMPT_TEXTS[2],
+                   max_tokens=SERVER_TOKENS, temperature=0.0)
+SERVE_RECOVERY_S = 300.0  # kill to a served token, the longest waited
+
+
+def card_holders():
+    """Processes holding a CUDA context on the card: those with one of
+    its device nodes (/dev/nvidia<N>, not nvidiactl or nvidia-uvm) open,
+    read from /proc with each pid's CUDA_VISIBLE_DEVICES and cwd.
+    (nvidia-smi's compute-apps query lists one process for the whole
+    container when the card is reached from inside a container.)"""
+    import re
+    holders = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        pid = int(d)
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        nodes = set()
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                nodes.add(target)
+        if not nodes:
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                           if b"=" in kv)
+            visible = env.get(b"CUDA_VISIBLE_DEVICES", b"").decode() or None
+            cwd = os.readlink(f"/proc/{pid}/cwd")
+        except OSError as e:
+            visible, cwd = None, f"unreadable: {e!r}"
+        holders[pid] = dict(nodes=sorted(nodes), visible=visible, cwd=cwd)
+    return holders
+
+
+def replica_on_card(label, before):
+    """The one process besides this one that holds the card: the GPU
+    replica, pinned with CUDA_VISIBLE_DEVICES, its cwd outside the
+    checkout."""
+    holders = card_holders()
+    others = {p: h for p, h in holders.items() if p not in before}
+    log(f"[serve {label}] processes on the card (device nodes open): "
+        f"{holders}; this process {os.getpid()}")
+    expect(os.getpid() in holders, f"this process (pid {os.getpid()}) is "
+           f"not among the card's holders {holders}")
+    expect(len(others) == 1, f"{label}: expected the replica alone beside "
+           f"the processes already on the card, found {others}")
+    (pid, h), = others.items()
+    here = os.path.dirname(os.path.abspath(__file__))
+    expect(not h["cwd"].startswith(here), f"{label}: replica pid {pid}'s "
+           f"cwd {h['cwd']!r} lies inside the checkout {here}")
+    return pid
+
+
+def replica_pin(stats, label):
+    """The replica's engine on CUDA in a worker pinned to card 0."""
+    log(f"[serve {label}] replica engine on {stats['device']}, "
+        f"CUDA_VISIBLE_DEVICES={stats['visible_devices']}")
+    expect(stats["device"].startswith("cuda")
+           and stats["visible_devices"] == "0",
+           f"{label}: replica engine on {stats['device']}, pin "
+           f"{stats['visible_devices']!r}")
+
+
+def wait_released(pid, label, timeout=120.0):
+    """Wait until `pid` no longer holds the card; returns the seconds."""
+    t0 = time.perf_counter()
+    while pid in card_holders():
+        expect(time.perf_counter() - t0 < timeout,
+               f"{label}: pid {pid} still holds the card after {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def http_call(port, method, path, body=None, timeout=600):
+    """One HTTP/1.1 exchange with the serve proxy: (status, content type,
+    body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers=(
+            {"Content-Type": "application/json"} if data else {}))
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def proxy_routes_to(port, app, ingress, timeout=30.0):
+    """Wait until the proxy's route table (polled from the controller
+    once a second) sends "/" to `app`'s ingress."""
+    t0 = time.perf_counter()
+    while http_json(port, "GET", "/-/routes").get("/") != f"{app}#{ingress}":
+        expect(time.perf_counter() - t0 < timeout,
+               f"the proxy does not route / to {app} after {timeout} s")
+        time.sleep(0.1)
+
+
+def http_json(port, method, path, body=None, status=200):
+    got, ctype, data = http_call(port, method, path, body)
+    expect(got == status, f"{method} {path}: HTTP {got} (want {status}): "
+           f"{data[:300]!r}")
+    return json.loads(data) if ctype.startswith("application/json") \
+        else data.decode()
+
+
+def http_sse(port, path, body, timeout=600):
+    """A streamed POST: the SSE events' payloads with their arrival
+    times, the last one "[DONE]"."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"POST {path} (stream): HTTP {r.status}: "
+                                 f"{r.read()[:300]!r}")
+        ctype = r.getheader("Content-Type") or ""
+        expect(ctype.startswith("text/event-stream"), f"SSE {ctype!r}")
+        events = []
+        for line in iter(r.readline, b""):
+            if line.startswith(b"data: "):
+                events.append((time.perf_counter(), line[6:].strip().decode()))
+    finally:
+        conn.close()
+    expect(events and events[-1][1] == "[DONE]",
+           f"POST {path}: the stream did not end in [DONE]: {events[-2:]}")
+    docs = [(t, json.loads(e)) for t, e in events[:-1]]
+    for _, d in docs:
+        expect("error" not in d, f"POST {path}: SSE error event {d}")
+    return t0, docs
+
+
+def serve_routes(bodies):
+    """(path, body) of 5e's bodies in its order: 8 completions, 2 chats,
+    2 streams (completions)."""
+    comp, chat, stream = bodies
+    return ([("/v1/completions", b) for b in comp]
+            + [("/v1/chat/completions", b) for b in chat]
+            + [("/v1/completions", b) for b in stream])
+
+
+def cold_pass(port, routes, stream_all):
+    """The 12 bodies once on a fresh replica, each prompt behind "~ " (a
+    first page no measured body shares, so no prefix-cache hit later):
+    the new process's first use of its shapes, and more ticks than the
+    anomaly detector's 64-tick warm-up, so the profiles it arms for the
+    cold ticks it flags (in a fresh process the first one imports
+    torch.profiler's dependencies on the step thread) fall here, not in
+    the measured pass. Returns its wall s and tokens/s."""
+    def shifted(body):
+        if "prompt" in body:
+            return dict(body, prompt="~ " + body["prompt"])
+        msgs = [dict(m) for m in body["messages"]]
+        msgs[0]["content"] = "~ " + msgs[0]["content"]
+        return dict(body, messages=msgs)
+    out, wall = http_at_once(port, [(p, shifted(b)) for p, b in routes],
+                             stream_all)
+    n = sum(r["doc"]["usage"]["completion_tokens"] if r["kind"] == "unary"
+            else len(sse_parts(r["docs"])[1]) for r in out)
+    return dict(wall_s=wall, output_tokens=n, tokens_per_s=n / wall)
+
+
+def sse_parts(docs):
+    """Text, token ids (fleet chunks carry them), finish reason."""
+    text, toks, reason = "", [], None
+    for _, d in docs:
+        c = d["choices"][0]
+        text += c.get("text") or (c.get("delta") or {}).get("content") or ""
+        toks += c.get("token_ids") or []
+        reason = c.get("finish_reason") or reason
+    return text, toks, reason
+
+
+def stream_text_agrees(streamed, final):
+    """SSE deltas are suffixes of whole-prefix decodes: a multi-byte
+    character still incomplete when its chunk went out was sent as one
+    U+FFFD, so the concatenation has the final text's length and agrees
+    with it everywhere else."""
+    return len(streamed) == len(final) and all(
+        a == b or a == "�" for a, b in zip(streamed, final))
+
+
+class MetricsProbe:
+    """While the replica serves, call its `metrics` (the controller's
+    health probe, health_check_timeout_s 10 s) every 0.5 s from a thread;
+    every call must answer inside the timeout."""
+
+    def __init__(self, rt, replica):
+        self.rt, self.replica = rt, replica
+        self.ms, self.stop = [], threading.Event()
+
+    def _run(self):
+        while not self.stop.is_set():
+            t0 = time.perf_counter()
+            self.rt.get(self.replica.metrics.remote(), timeout=10)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.stop.wait(0.5)
+
+    def __enter__(self):
+        from concurrent.futures import ThreadPoolExecutor
+        self._ex = ThreadPoolExecutor(1)
+        self._fut = self._ex.submit(self._run)
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self._fut.result()          # a probe that timed out raises here
+        self._ex.shutdown()
+        return False
+
+    def summary(self):
+        expect(self.ms, "no metrics call completed while the replica served")
+        return dict(n=len(self.ms), p50=pctl(self.ms, 0.5), max=max(self.ms))
+
+
+def http_at_once(port, routes, stream_all):
+    """All bodies at once over HTTP, one connection each. Streams go as
+    SSE (every body when `stream_all`, else 5e's two streams)."""
+    from concurrent.futures import ThreadPoolExecutor
+    n_stream = len(routes) if stream_all else 2
+
+    def one(i):
+        path, body = routes[i]
+        body = dict(body, model="8b")
+        if i >= len(routes) - n_stream:
+            t0, docs = http_sse(port, path, dict(body, stream=True))
+            return dict(kind="stream", t0=t0, docs=docs,
+                        times=[t for t, _ in docs], t1=docs[-1][0])
+        t0 = time.perf_counter()
+        doc = http_json(port, "POST", path, body)
+        return dict(kind="unary", t0=t0, doc=doc, t1=time.perf_counter())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(routes)) as ex:
+        res = list(ex.map(one, range(len(routes))))
+    return res, time.perf_counter() - t0
+
+
+def http_times(res, per_token):
+    """HTTP-side ms: e2e of every response and, where the SSE chunks
+    come one a token (`per_token`: the fleet's token chunks), TTFT and
+    TPOT of the streams (first data chunk; chunks after it). The OpenAI
+    app's text chunks carry only the text a token adds, and the byte
+    tokenizer maps most of the 8b vocabulary to none."""
+    e2e = [(r["t1"] - r["t0"]) * 1e3 for r in res]
+    ttft, tpot = [], []
+    for r in res:
+        if r["kind"] == "stream" and per_token:
+            ttft.append((r["times"][0] - r["t0"]) * 1e3)
+            if len(r["times"]) > 1:
+                tpot.append((r["times"][-1] - r["times"][0]) * 1e3
+                            / (len(r["times"]) - 1))
+    return {k: dict(p50=pctl(v, 0.5), p99=pctl(v, 0.99), n=len(v))
+            for k, v in (("e2e", e2e), ("ttft", ttft), ("tpot", tpot))}
+
+
+def engine_times(trace, exclude):
+    lc = {k: v for k, v in lifecycles(trace).items() if k not in exclude}
+    return {k: dict(p50=pctl([x[k] for x in lc.values()], 0.5),
+                    p99=pctl([x[k] for x in lc.values()], 0.99))
+            for k in ("ttft", "tpot", "e2e")}, lc
+
+
+def in_step_s(st0, st1):
+    """Seconds the replica spent inside step() between two /stats reads
+    (its tick_times window holds up to 512 ticks: the two windows'
+    sums, while the replica has ticked fewer)."""
+    a, b = st0["tick_times"], st1["tick_times"]
+    expect(st1["ticks"] <= 512, f"{st1['ticks']} ticks: past the window")
+    return (b["wall_ms_avg"] * b["window"]
+            - a["wall_ms_avg"] * a["window"]) / 1e3
+
+
+def replica_launches(stats, label):
+    """The replica's own launch counters against its ticks: #1 layers x
+    mixed ticks, #2/#3 layers x decode ticks, every decode launch on
+    the pipelined route."""
+    from ray_tpu_torch.models import llama
+    L = llama.config(SERVER_MODEL).n_layers
+    want = {"ragged_paged": L * stats["ragged_ticks"],
+            "paged_decode": L * stats["decode_ticks"]}
+    got = {k: n for k, n in stats["kernel_launches"].items() if n}
+    log(f"[serve {label}] replica: {stats['ragged_ticks']} mixed and "
+        f"{stats['decode_ticks']} decode ticks, launches {got}, routes "
+        f"{stats['kernel_routes']}, device {stats['device']}, graph "
+        f"captures {stats['graph_captures']}")
+    expect(got == want and min(want.values()) > 0,
+           f"{label}: replica launches {got}, expected {want}")
+    expect(stats["kernel_routes"].get("paged_decode") ==
+           {"pipelined": want["paged_decode"]},
+           f"{label}: decode routes {stats['kernel_routes']}")
+    return got
+
+
+def serve_teacher(engine_kw, cases):
+    """6h's near-tie oracle in a num_gpus=1 task: the seed's weights
+    rebuilt on the gather impl; for each (tokens, a, b) the next-token
+    logits of a and b after `tokens`."""
+    from ray_tpu_torch import EngineConfig, InferenceEngine
+    eng = InferenceEngine(EngineConfig(model=SERVER_MODEL,
+                                       decode_impl="gather", **engine_kw))
+    out = []
+    for tokens, a, b in cases:
+        lg = teacher_logits(eng, tokens).float()
+        out.append((lg[a].item(), lg[b].item()))
+    return out
+
+
+def first_split(a, b):
+    return next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def serve_openai(rt, serve, cfg, routes, ref, tok, before):
+    """6h (a): build_openai_app behind the HTTP proxy, the 12 bodies at
+    once. Returns the numbers, the replica's launches and the texts."""
+    from ray_tpu_torch.llm import build_openai_app
+    res = {}
+    t0 = time.perf_counter()
+    serve.run(build_openai_app({"llm_configs": [cfg]}), name="openai",
+              route_prefix="/", http_options=serve.HTTPOptions(port=0),
+              timeout_s=600)
+    res["to_running_s"] = time.perf_counter() - t0
+    port = rt.get(rt.get_actor("SERVE_PROXY").ready.remote(), timeout=60)
+    proxy_routes_to(port, "openai", "LLMRouter")
+    pid = replica_on_card("openai", before)
+    stats = http_json(port, "GET", "/stats")["models"]["8b"]
+    log(f"[serve openai] serve.run to RUNNING {res['to_running_s']:.2f} s; "
+        f"proxy on port {port}; replica pid {pid}")
+    replica_pin(stats, "openai")
+    models = http_json(port, "GET", "/v1/models")
+    expect([m["id"] for m in models["data"]] == ["8b"], f"/v1/models {models}")
+    t0 = time.perf_counter()
+    _, warm = http_sse(port, "/v1/completions", dict(SERVE_WARM, stream=True))
+    res["first_request_to_first_token_ms"] = (warm[0][0] - t0) * 1e3
+    res["cold"] = cold_pass(port, routes, stream_all=False)
+    warm_ids = set(lifecycles(http_json(port, "GET", "/debug/trace")))
+    st0 = http_json(port, "GET", "/stats")["models"]["8b"]
+    controller = rt.get_actor("SERVE_CONTROLLER")
+    (_, replica, _), = rt.get(controller.get_deployment_targets.remote(
+        "openai#LLMServer:8b"), timeout=30)["replicas"]
+    with MetricsProbe(rt, replica) as probe:
+        out, wall = http_at_once(port, routes, stream_all=False)
+    res["metrics_probe_ms"] = probe.summary()
+    texts = []
+    for i, (r, want) in enumerate(zip(out, ref)):
+        if r["kind"] == "unary":
+            d = r["doc"]
+            c = d["choices"][0]
+            chat = d["object"] == "chat.completion"
+            expect(d["object"] in ("text_completion", "chat.completion")
+                   and (not chat or c["message"]["role"] == "assistant"),
+                   f"body {i}: response shape {d}")
+            text = c["message"]["content"] if chat else c["text"]
+            expect(d["usage"]["completion_tokens"] == len(want),
+                   f"body {i}: completion_tokens "
+                   f"{d['usage']['completion_tokens']}, 5e {len(want)}")
+            texts.append(("unary", text))
+        else:
+            text, _, reason = sse_parts(r["docs"])
+            expect(reason is not None and all(
+                d["object"] == "text_completion" for _, d in r["docs"]),
+                f"body {i}: SSE chunks {r['docs'][-1]}")
+            texts.append(("stream", text))
+    n_out = sum(len(w) for w in ref)
+    status, ctype, data = http_call(port, "POST", "/v1/completions",
+                                    dict(model="nope", prompt="x"))
+    expect(status == 404, f"unknown model: HTTP {status} {data[:200]!r}")
+    status, ctype, metrics = http_call(port, "GET", "/metrics")
+    expect(status == 200 and ctype.startswith("text/plain"),
+           f"/metrics HTTP {status} {ctype}")
+    n_samples = check_exposition(metrics.decode())
+    stats = http_json(port, "GET", "/stats")["models"]["8b"]
+    launches = replica_launches(stats, "openai")
+    res["in_step_s"] = in_step_s(st0, stats)
+    eng_t, lc = engine_times(http_json(port, "GET", "/debug/trace"),
+                             warm_ids)
+    expect(len(lc) == len(ref), f"{len(lc)} lifecycles for {len(ref)} bodies")
+    res.update(wall_s=wall, output_tokens=n_out, tokens_per_s=n_out / wall,
+               http=http_times(out, False), engine=eng_t, samples=n_samples,
+               mixed_ticks=stats["ragged_ticks"],
+               decode_ticks=stats["decode_ticks"], replica_pid=pid)
+    log(f"[serve openai] first request to first token "
+        f"{res['first_request_to_first_token_ms']:.1f} ms; the cold pass "
+        f"(12 shifted bodies on the fresh replica) "
+        f"{res['cold']['tokens_per_s']:.1f} tokens/s in "
+        f"{res['cold']['wall_s']:.2f} s; 12 bodies over "
+        f"HTTP: {n_out} output tokens in {wall:.2f} s, "
+        f"{n_out / wall:.1f} tokens/s; lifecycles ms p50 / p99: "
+        + "; ".join(f"{k} {v['p50']:.2f} / {v['p99']:.2f}"
+                    for k, v in eng_t.items())
+        + f"; {res['in_step_s']:.2f} s of the pass inside the replica's "
+        f"step()"
+        + f"; the replica's metrics (the controller's health probe) "
+        f"answered {res['metrics_probe_ms']['n']} calls while it served, "
+        f"p50 {res['metrics_probe_ms']['p50']:.1f} ms, max "
+        f"{res['metrics_probe_ms']['max']:.1f} ms"
+        + f"; over HTTP e2e {res['http']['e2e']['p50']:.2f} / "
+        f"{res['http']['e2e']['p99']:.2f}; unknown model 404; /metrics "
+        f"{n_samples} samples")
+    t0 = time.perf_counter()
+    serve.delete("openai")
+    res["released_s"] = wait_released(pid, "openai") + (
+        time.perf_counter() - t0)
+    log(f"[serve openai] deleted; card released {res['released_s']:.2f} s "
+        f"after the delete")
+    return res, launches, texts
+
+
+def serve_fleet(rt, serve, cfg, routes, ref, before):
+    """6h (b): build_llm_fleet_app on one replica behind HTTP, every body
+    as an SSE stream with token ids, then unary calls. Returns the
+    numbers, the replica's launches and each body's tokens."""
+    from ray_tpu_torch.serve.llm import FleetConfig, build_llm_fleet_app
+    res = {}
+    t0 = time.perf_counter()
+    serve.run(build_llm_fleet_app(FleetConfig(
+        llm_config=cfg, min_replicas=1, max_replicas=1)), name="fleet",
+        route_prefix="/", timeout_s=600)
+    res["to_running_s"] = time.perf_counter() - t0
+    port = rt.get(rt.get_actor("SERVE_PROXY").ready.remote(), timeout=60)
+    proxy_routes_to(port, "fleet", "LLMFleet:8b")
+    pid = replica_on_card("fleet", before)
+    _, warm = http_sse(port, "/v1/completions", dict(SERVE_WARM, stream=True))
+    res["cold"] = cold_pass(port, routes, stream_all=True)
+    st0 = http_json(port, "GET", "/stats")["replicas"]["r0"]
+    out, wall = http_at_once(port, routes, stream_all=True)
+    res["in_step_s"] = in_step_s(
+        st0, http_json(port, "GET", "/stats")["replicas"]["r0"])
+    toks = []
+    for i, r in enumerate(out):
+        _, ids, reason = sse_parts(r["docs"])
+        expect(reason is not None and len(ids) == len(ref[i]),
+               f"fleet body {i}: {len(ids)} tokens (5e {len(ref[i])}), "
+               f"finish {reason}")
+        toks.append(ids)
+    unary = []
+    for path, body in (routes[0], routes[8]):
+        unary.append(http_json(port, "POST", path, dict(body, model="8b")))
+    fleet = http_json(port, "GET", "/fleet")
+    rows = {rid: (r["status"], r.get("chips"))
+            for rid, r in fleet["replicas"].items()}
+    expect(rows == {"r0": ("ACTIVE", 1)}, f"/fleet rows {rows}")
+    events = http_json(port, "GET", "/fleet/debug/events")
+    expect(events["object"] == "events" and events["events"],
+           "/fleet/debug/events is empty")
+    status, ctype, metrics = http_call(port, "GET", "/metrics")
+    expect(status == 200, f"fleet /metrics HTTP {status}")
+    text = metrics.decode()
+    n_samples = check_exposition(text)
+    missing = [f for f in FLEET_FAMILIES if text.count(f"# TYPE {f} ") != 1]
+    expect(not missing, f"fleet /metrics: families {missing} not declared "
+           f"exactly once")
+    stats = http_json(port, "GET", "/stats")["replicas"]["r0"]
+    replica_pin(stats, "fleet")
+    launches = replica_launches(stats, "fleet")
+    # the body (c) sends again, alone: no page of it in the cache
+    _, docs = http_sse(port, "/v1/completions", dict(SERVE_PROBE, stream=True))
+    probe = sse_parts(docs)[1]
+    res.update(wall_s=wall, http=http_times(out, True), replica_pid=pid,
+               unary=[u["usage"]["completion_tokens"] for u in unary],
+               samples=n_samples,
+               mixed_ticks=stats["ragged_ticks"],
+               decode_ticks=stats["decode_ticks"],
+               output_tokens=sum(len(t) for t in toks),
+               fleet_events=len(events["events"]))
+    res["tokens_per_s"] = res["output_tokens"] / wall
+    log(f"[serve fleet] serve.run to RUNNING {res['to_running_s']:.2f} s; "
+        f"cold pass {res['cold']['tokens_per_s']:.1f} tokens/s; 12 "
+        f"SSE streams: {res['output_tokens']} tokens in {wall:.2f} s "
+        f"({res['in_step_s']:.2f} s inside step()), "
+        f"{res['tokens_per_s']:.1f} tokens/s; over HTTP ms p50 / p99: "
+        + "; ".join(f"{k} {v['p50']:.2f} / {v['p99']:.2f} (n {v['n']})"
+                    for k, v in res["http"].items())
+        + f"; /fleet rows {rows}; {len(events['events'])} fleet events; "
+        f"/metrics {n_samples} samples, the fleet families once each")
+    return res, launches, toks, unary, port, pid, probe
+
+
+def serve_recovery(rt, serve, port, pid, probe, before):
+    """6h (c): kill the LLMServer replica's actor under the fleet app;
+    the controller starts a new one, which pins the released card and
+    serves the first body again."""
+    controller = rt.get_actor("SERVE_CONTROLLER")
+    key = "fleet#LLMServer:8b:r0"
+    wire = rt.get(controller.get_deployment_targets.remote(key), timeout=30)
+    (old_id, victim, _), = wire["replicas"]
+    t0 = time.perf_counter()
+    rt.kill(victim)
+    released = wait_released(pid, "killed replica")
+    new_id = None
+    while new_id is None:
+        expect(time.perf_counter() - t0 < SERVE_RECOVERY_S,
+               f"no new replica RUNNING {SERVE_RECOVERY_S} s after the kill")
+        states = serve.status()["applications"]["fleet"]["deployments"][
+            "LLMServer:8b:r0"]["replica_states"]
+        new_id = next((r for r, s in states.items()
+                       if r != old_id and s == "RUNNING"), None)
+        time.sleep(0.2)
+    running_s = time.perf_counter() - t0
+    attempts = []
+    while True:
+        try:
+            _, docs = http_sse(port, "/v1/completions",
+                               dict(SERVE_PROBE, stream=True))
+            break
+        except AssertionError as e:
+            # the fleet's router learns of the new replica within its
+            # refresh period: a request routed to the dead one fails
+            attempts.append(repr(e)[:200])
+            expect(time.perf_counter() - t0 < SERVE_RECOVERY_S,
+                   f"no token {SERVE_RECOVERY_S} s after the kill: "
+                   f"{attempts[-3:]}")
+            time.sleep(0.5)
+    next_token_s = docs[0][0] - t0
+    _, toks, _ = sse_parts(docs)
+    log(f"[serve recovery] killed {old_id}: card released {released:.2f} s "
+        f"after the kill, {new_id} RUNNING after {running_s:.2f} s, next "
+        f"token {next_token_s:.2f} s after the kill ({len(attempts)} "
+        f"requests failed before it: {attempts[:2]}); tokens equal (b)'s: "
+        f"{toks == probe}")
+    expect(toks == probe and toks, "the recovered "
+           "replica's tokens differ from (b)'s for the same lone body")
+    new_pid = replica_on_card("recovered", before)
+    stats = http_json(port, "GET", "/stats")["replicas"]["r0"]
+    replica_pin(stats, "recovered")
+    launches = replica_launches(stats, "recovered")
+    return dict(card_released_s=released, running_s=running_s,
+                next_token_s=next_token_s, failed_requests=len(attempts),
+                new_pid=new_pid), launches
+
+
+def rtpu_segments():
+    return {f for f in os.listdir("/dev/shm") if f.startswith("rtpu_")}
+
+
+def run_serve_plane(server5, shm_before):
+    """Phase 6h: the Serve plane on 6f's runtime (started here if none
+    runs), shut down at the end. `server5`: phase 5e's numbers, with
+    each body's tokens; `shm_before`: the rtpu_* segments before the
+    runtime started. Returns the numbers and the replicas' launch counts
+    by part."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ByteTokenizer, serve
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.ops import _kernels
+    before_counts = _kernels.launch_counts()
+    if not rt.is_initialized():
+        rt.init()
+    try:
+        types = [k for k in rt.cluster_resources() if k.startswith("GPU-")]
+        expect(len(types) == 1, f"GPU types {types}")
+        cfg = LLMConfig(
+            model_id="8b", model_source=SERVER_MODEL, engine_kwargs=SERVER_KW,
+            accelerator_type=types[0], deployment_config=dict(
+                ray_actor_options=dict(runtime_env=dict(
+                    working_dir=tempfile.gettempdir()))))
+        tok = ByteTokenizer(128256)
+        routes = serve_routes(server_bodies())
+        ref = server5["body_tokens"]
+        before = set(card_holders())
+        res = dict(accelerator_type=types[0], on_card_before=sorted(before))
+        res["openai"], l_openai, texts = serve_openai(
+            rt, serve, cfg, routes, ref, tok, before)
+        res["fleet"], l_fleet, ftoks, unary, port, pid, probe = serve_fleet(
+            rt, serve, cfg, routes, ref, before)
+        res["recovery"], l_rec = serve_recovery(rt, serve, port, pid, probe,
+                                                before)
+        serve.delete("fleet")
+        wait_released(res["recovery"]["new_pid"], "fleet")
+        serve.shutdown()
+        # judge: (b)'s tokens against 5e's, first divergences by the
+        # near-tie rule on a gather engine of the seed's weights; (a)'s
+        # texts against 5e's tokens, else (b)'s
+        cases, prompts = [], [tok.encode(b["prompt"]) if "prompt" in b else
+                              tok.encode(tok.apply_chat_template(
+                                  b["messages"])) for _, b in routes]
+        for i, (a, b) in enumerate(zip(ftoks, ref)):
+            j = first_split(a, b)
+            if j is not None:
+                expect(len(a) == len(b) and j < len(a), f"body {i}: fleet "
+                       f"stream of {len(a)} tokens, 5e {len(b)}")
+                cases.append((i, j, (prompts[i] + a[:j], a[j], b[j])))
+        gaps = []
+        if cases:
+            lg = rt.get(rt.remote(num_gpus=1)(serve_teacher).remote(
+                SERVER_KW, [c for _, _, c in cases]), timeout=600)
+            for (i, j, c), (la, lb) in zip(cases, lg):
+                gaps.append(abs(la - lb))
+                log(f"[serve] fleet body {i} diverges from 5e at output {j}: "
+                    f"{c[1]} against {c[2]}, gap {gaps[-1]:.4f} (margin "
+                    f"{NEAR_TIE})")
+                expect(gaps[-1] <= NEAR_TIE, f"fleet body {i}: beyond a "
+                       f"near tie")
+        for i, (kind, text) in enumerate(texts):
+            finals = {tok.decode(ref[i]), tok.decode(ftoks[i])}
+            ok = any((text == f) if kind == "unary"
+                     else stream_text_agrees(text, f) for f in finals)
+            expect(ok, f"openai body {i} ({kind}): text agrees with neither "
+                   f"5e's tokens nor (b)'s")
+        for u, i in zip(unary, (0, 8)):
+            c = u["choices"][0]
+            got = c["text"] if "text" in c else c["message"]["content"]
+            expect(got == tok.decode(ftoks[i]) and u["usage"][
+                "completion_tokens"] == len(ftoks[i]),
+                f"fleet unary body {i} disagrees with its stream")
+        res.update(exact_fleet=not cases, near_tie_gaps=gaps,
+                   server5=dict(times=server5["times"],
+                                tokens_per_s=server5["tokens_per_s"]))
+        log(f"[serve] fleet streams equal 5e's: {not cases} ({len(cases)} "
+            f"near ties); openai texts agree; 5e's lifecycles ms p50 / p99: "
+            + "; ".join(f"{k} {v['p50']:.2f} / {v['p99']:.2f}"
+                        for k, v in server5["times"].items())
+            + f", {server5['tokens_per_s']:.1f} tokens/s")
+    finally:
+        rt.shutdown()
+    left = sorted(rtpu_segments() - shm_before)
+    expect(not left, f"rtpu_* segments left behind: {left}")
+    expect(_kernels.launch_counts() == before_counts,
+           "this process's launch counters moved in 6h")
+    return res, dict(openai=l_openai, fleet=l_fleet, recovered=l_rec)
 
 
 def _clone_tree(tree):
@@ -7094,8 +7801,8 @@ def main():
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     info = _kernels.build(verbose=True)
-    log(f"[build] {info['compiled']} in {time.perf_counter() - t0:.1f} s "
-        f"into {info['dir']}")
+    build_s = time.perf_counter() - t0
+    log(f"[build] {info['compiled']} in {build_s:.1f} s into {info['dir']}")
     decode_isa = decode_ptxas(info)
     if len(decode_isa) != 6:
         raise AssertionError(f"expected 6 instances of the pipelined "
@@ -7127,7 +7834,7 @@ def main():
     noise = check_noise(dev)
     flash = check_flash(gen, dev)
     ticks = dict(bf16=ragged_ticks, **quant_ticks)
-    phase_s = {"3-4": time.perf_counter() - t_kernels}
+    phase_s = {"1-2": build_s, "3-4": time.perf_counter() - t_kernels}
     t0 = time.perf_counter()
     counts, engine, params, out_bf16, graph_f32 = run_engine(dev)
     graph_sides = dict(f32=graph_f32)
@@ -7138,7 +7845,7 @@ def main():
     for kind in ("int8", "fp8"):
         t0 = time.perf_counter()
         quant_counts[kind], quant_engine[kind], graph_sides[kind] = \
-            run_quant_engine(dev, kind, params, out_bf16)
+            run_quant_engine(dev, kind, params)
         gc.collect()
         torch.cuda.empty_cache()
         phase_s[f"5b {kind}"] = time.perf_counter() - t0
@@ -7195,12 +7902,16 @@ def main():
     rllib_more = run_rllib_more(dev)
     phase_s["6e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    shm_before = rtpu_segments()
     runtime, actor_launches = run_runtime(dev, out_bf16,
                                           engine["ticks_ms_kernel"])
     phase_s["6f"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     libraries, worker_launches = run_libraries(dev, train)
     phase_s["6g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_plane, serve_launches = run_serve_plane(server, shm_before)
+    phase_s["6h"] = time.perf_counter() - t0
     log(f"[phases] seconds: {({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[profiler] {PROFILES['windows']} profile windows, "
         f"{PROFILES['lost']} of them lost records and were taken again; "
@@ -7281,7 +7992,15 @@ def main():
     for k in kernels:
         k["launches_train_worker"] = worker_launches.get(
             k["name"].replace("_narrow_table", ""), 0)
-    summary = {"kernels": kernels}
+    # phase 6h's main paths (the 8b engine in the serve replica of the
+    # OpenAI app, of the fleet app, and of the fleet app's replacement
+    # replica) launches, counted in each replica's process
+    for k in kernels:
+        base = k["name"].replace("_narrow_table", "")
+        k["launches_serve"] = {part: n.get(base, 0)
+                               for part, n in serve_launches.items()}
+    summary = {"kernels": kernels,
+               "phase_seconds": {k: round(v, 1) for k, v in phase_s.items()}}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -7291,6 +8010,7 @@ def main():
                            train_moe=train_moe, checkpoint=checkpoint,
                            rllib=rllib, rllib_more=rllib_more,
                            runtime=runtime, libraries=libraries,
+                           serve_plane=serve_plane,
                            sanitizer=sanitizer,
                            tick_mechanics=tick_mechanics,
                            kv_hierarchy=kv_hierarchy, server=server,

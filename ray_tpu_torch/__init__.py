@@ -4,7 +4,8 @@ Mirrors ``ray_tpu``'s layout (``models``, ``ops``, ``llm``, ``_private``,
 ...). Device code is PyTorch; the Pallas kernels of those paths are
 hand-written CUDA kernels for Hopper (``ops/csrc``). Training is
 ``models.training.TrainStepBundle``; the serving replica is
-``llm.LLMServerImpl``. The actor runtime is the reference's
+``llm.LLMServerImpl``, which ``serve`` deploys behind HTTP
+(``llm.build_openai_app``). The actor runtime is the reference's
 (tasks/actors/objects over an asyncio control plane, placement groups)
 with the GPU in the role of the TPU: ``init(num_gpus=...)`` and
 ``@remote(num_gpus=1)`` pin a task or an actor to a card with

@@ -109,6 +109,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import os
 import tempfile
 import threading
 import time
@@ -1477,6 +1478,9 @@ class InferenceEngine:
     def _stats_locked(self) -> Dict[str, Any]:
         return {
             "device": str(self.device),
+            # the physical cards behind the process's cuda:N names (a
+            # pinned worker's CUDA_VISIBLE_DEVICES; None when unset)
+            "visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "decode_impl": self.impl,
             "ticks": self.ticks,
             "dispatches": self.dispatches,
@@ -1501,6 +1505,7 @@ class InferenceEngine:
             "kv_host_bytes_used": (self.host_tier.used_bytes
                                    if self.host_tier is not None else 0),
             "kernel_launches": _kernels.launch_counts(),
+            "kernel_routes": _kernels.route_counts(),
             "async_readback": self._async,
             "lagged_ticks": self._lagged_ticks,
             "drains": self._drains,
@@ -1540,8 +1545,9 @@ class InferenceEngine:
 
     def _tick_times_summary(self) -> Dict[str, Any]:
         """Recent ticks (up to 512): average and p50/p95/p99 of wall,
-        host (fold) and device (blocked in _read_tokens) ms, and the
-        share of wall time not spent waiting on the device."""
+        host (fold) and device (blocked in _read_tokens) ms, the share
+        of wall time not spent waiting on the device, and, as in the
+        JAX engine's, the pipeline's lagged ticks, drains and mode."""
         ticks = tuple(self._tick_times)
         n = len(ticks)
         sums = [sum(t[i] for t in ticks) for i in range(3)]
@@ -1554,6 +1560,8 @@ class InferenceEngine:
                     vals[min(int(q * (n - 1) + 0.5), n - 1)] if n else 0.0)
         out["overlap_ratio"] = (max(0.0, 1.0 - sums[2] / sums[0])
                                 if sums[0] > 0 else 0.0)
+        out.update(lagged_ticks=self._lagged_ticks, drains=self._drains,
+                   async_readback=self._async)
         return out
 
     # -- observability --------------------------------------------------

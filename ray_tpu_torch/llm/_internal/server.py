@@ -1,16 +1,17 @@
-"""LLMServerImpl: the OpenAI-compatible serving replica.
+"""LLMServer + LLMRouter serve deployments (OpenAI-compatible).
 
-The counterpart of ``ray_tpu/llm/_internal/server.py``'s
-``LLMServerImpl`` over this package's engine (on the card unless
-``engine_kwargs`` asks for ``device="cpu"``): OpenAI completions and
-chat, unary and streamed (text chunks and token-structured chunks),
-session and prefix export/import over ``serve/llm/kv_transport.py``,
-and the observability surfaces (``/metrics``, ``/stats``,
-``/debug/trace``, ``/debug/events``, ``/debug/attribution``,
-``/debug/dump``, ``/debug/profile``). The JAX package's router and
-deployment functions wrap this class in its serve control plane, which
-this package does not have; the class is driven directly here (for
-example with ``asyncio.run``).
+The counterpart of ``ray_tpu/llm/_internal/server.py`` over this
+package's engine (on the card unless ``engine_kwargs`` asks for
+``device="cpu"``). ``LLMServerImpl`` is the replica: OpenAI
+completions and chat, unary and streamed (text chunks and
+token-structured chunks), session and prefix export/import over
+``serve/llm/kv_transport.py``, and the observability surfaces
+(``/metrics``, ``/stats``, ``/debug/trace``, ``/debug/events``,
+``/debug/attribution``, ``/debug/dump``, ``/debug/profile``).
+``LLMRouterImpl`` is the OpenAI-route ingress that fans out to the
+replicas' deployment handles. ``ray_tpu_torch.llm.build_openai_app``
+binds both into a serve application; ``LLMServerImpl`` also runs on
+its own (for example under ``asyncio.run``).
 
 The server pumps engine.step() on a background asyncio task (each step
 on an executor thread); each request registers an asyncio.Queue that
@@ -924,3 +925,215 @@ class LLMServerImpl:
 
     async def check_health(self) -> None:
         return None
+
+
+class LLMRouterImpl:
+    """OpenAI-route ingress; fans out to per-model LLMServer handles."""
+
+    def __init__(self, *server_handles):
+        self._servers: Dict[str, Any] = {}
+        self._handles = list(server_handles)
+        self._resolved = False
+
+    async def _resolve(self) -> None:
+        if not self._resolved:
+            for h in self._handles:
+                info = await h.model_info.remote()
+                self._servers[info["id"]] = h
+                # adapter names route to their base model's server
+                # (vLLM convention: model=<adapter> selects base+LoRA)
+                for adapter in info.get("adapters") or []:
+                    self._servers.setdefault(adapter, h)
+            self._resolved = True
+
+    def _pick(self, body: Dict[str, Any]):
+        model = body.get("model")
+        if model and model in self._servers:
+            return self._servers[model]
+        if model and model not in self._servers:
+            return None
+        return next(iter(self._servers.values()))
+
+    def _unique_servers(self) -> List[tuple]:
+        """(model_id, handle) per distinct server. Adapter names alias
+        their base model's handle; _resolve inserts each handle under
+        its model_id FIRST, so the first key seen per handle is the
+        model id."""
+        out: List[tuple] = []
+        for mid, h in self._servers.items():
+            if any(h is s for _, s in out):
+                continue
+            out.append((mid, h))
+        return out
+
+    async def _handle_get(self, norm: str,
+                          query: "Dict[str, Any] | None" = None
+                          ) -> Any:
+        """Every GET endpoint, dispatched BEFORE any body parse — an
+        unknown GET path is a clean 404 instead of the confusing
+        'invalid JSON body' 400 the old fallthrough produced."""
+        from ...serve import Response
+
+        query = query or {}
+
+        if norm == "/v1/models":
+            models = [{"id": mid, "object": "model", "owned_by": "ray_tpu"}
+                      for mid in self._servers]
+            return {"object": "list", "data": models}
+        if norm == "/stats":
+            # serving observability: per-model engine
+            # stats — tick_times (pipelined-tick overlap) plus the
+            # request-lifecycle SLO summary ("requests": TTFT/ITL/
+            # queue-wait aggregates, finish-reason counts).
+            stats: Dict[str, Any] = {}
+            for _, h in self._unique_servers():
+                info = await h.model_info.remote()
+                stats[info["id"]] = info["engine"]
+            return {"object": "stats", "models": stats}
+        if norm == "/metrics":
+            # Prometheus text exposition: every replica
+            # renders its own process registry (samples tagged per
+            # model), then the blocks MERGE — in-process replicas
+            # share one registry, so naive concatenation would repeat
+            # every series once per replica and Prometheus rejects
+            # the scrape; merging collapses duplicate samples and
+            # keeps one # HELP/# TYPE header per family.
+            from ...util.metrics import merge_expositions
+            texts = []
+            for _, h in self._unique_servers():
+                texts.append(await h.metrics_text.remote())
+            return Response(merge_expositions(texts), status=200,
+                            content_type="text/plain")
+        if norm == "/debug/trace":
+            # Chrome-trace JSON (chrome://tracing, Perfetto): one tid
+            # per request with queued/prefill/decode lifecycle spans;
+            # metadata carries each engine's tracing-ring fill/drop
+            # counters so a truncated ring reads as truncated
+            events: List[Any] = []
+            meta: Dict[str, Any] = {}
+            for mid, h in self._unique_servers():
+                doc = await h.debug_trace.remote()
+                events.extend(doc.get("traceEvents") or [])
+                if doc.get("metadata"):
+                    meta[mid] = doc["metadata"]
+            return {"traceEvents": events, "displayTimeUnit": "ms",
+                    "metadata": meta}
+        if norm == "/debug/events":
+            # engine flight recorders (bounded structured-event
+            # rings); ?since=<seq> polls incrementally: each model
+            # returns only events newer than the cursor plus its
+            # ring's high-water mark
+            since = parse_since(query.get("since"))
+            out: Dict[str, Any] = {}
+            for mid, h in self._unique_servers():
+                out[mid] = await h.debug_events.remote(since)
+            return {"object": "events", "models": out}
+        if norm == "/debug/attribution":
+            # per-request cost receipts + tenant rollups
+            out = {}
+            for mid, h in self._unique_servers():
+                out[mid] = await h.debug_attribution.remote()
+            return {"object": "attribution", "models": out}
+        return Response({"error": f"no route {norm}"}, status=404,
+                        content_type="application/json")
+
+    async def _handle_profile(self, body: Dict[str, Any]) -> Any:
+        """POST /debug/profile: arm a capture of the next N engine
+        ticks under torch.profiler ({"ticks": N, "model": optional
+        target, "log_dir": optional}). Responds per model with the
+        log dir (or the arming error, e.g. a capture already
+        pending)."""
+        from ...serve import Response
+
+        target = body.get("model")
+        out: Dict[str, Any] = {}
+        for mid, h in self._unique_servers():
+            if target and mid != target:
+                continue
+            try:
+                out[mid] = await h.start_profile.remote(body)
+            except Exception as e:
+                out[mid] = {"error": repr(e)}
+        if not out:
+            return Response(
+                {"error": f"model {target!r} not found"},
+                status=404, content_type="application/json")
+        return {"object": "profile", "models": out}
+
+    async def __call__(self, request) -> Any:
+        from ...serve import Response
+
+        await self._resolve()
+        path = getattr(request, "path", "/")
+        method = getattr(request, "method", "POST")
+        norm = path.rstrip("/") or "/"
+        if method == "GET":
+            return await self._handle_get(
+                norm, dict(getattr(request, "query_params", None)
+                           or {}))
+        try:
+            body = request.json()
+        except Exception:
+            return Response({"error": "invalid JSON body"}, status=400,
+                            content_type="application/json")
+        if isinstance(body, dict):
+            # plumbing keys are INTERNAL (the fleet ingress mints
+            # them): a client forging `_request_id`/`_trace` through
+            # this standalone ingress could replay a finished
+            # request's id or stitch its spans into another trace's
+            # forensics, and `_continue_tokens`/`_token_offset`/
+            # `_deadline_epoch` are the failover continuation's
+            # plumbing — strip them all at the door
+            # (clients express deadlines via `deadline_s`)
+            for k in INTERNAL_BODY_KEYS:
+                body.pop(k, None)
+        if norm == "/debug/profile":
+            return await self._handle_profile(
+                body if isinstance(body, dict) else {})
+        if norm == "/debug/dump":
+            # POST /debug/dump: black-box every model's engine now
+            out = {}
+            for mid, h in self._unique_servers():
+                out[mid] = await h.debug_dump.remote(
+                    body if isinstance(body, dict) else {})
+            return {"object": "dump", "models": out}
+        server = self._pick(body)
+        if server is None:
+            # a LoRA adapter may have been registered after the first
+            # resolve: refresh the model map once before 404ing
+            self._resolved = False
+            await self._resolve()
+            server = self._pick(body)
+        if server is None:
+            return Response(
+                {"error": f"model {body.get('model')!r} not found"},
+                status=404, content_type="application/json")
+        streaming = bool(body.get("stream"))
+        if path.rstrip("/").endswith("/chat/completions"):
+            if streaming:
+                from ...serve import StreamingHint
+                return StreamingHint("stream_chat", body)
+            return await server.chat.remote(body)
+        if path.rstrip("/").endswith("/completions"):
+            if streaming:
+                from ...serve import StreamingHint
+                return StreamingHint("stream_completions", body)
+            return await server.completions.remote(body)
+        return Response({"error": f"no route {path}"}, status=404,
+                        content_type="application/json")
+
+    async def stream_chat(self, body: Dict[str, Any]):
+        """Proxy-invoked SSE relay: streams from the model server
+        deployment through this ingress to the HTTP client."""
+        await self._resolve()
+        server = self._pick(body)
+        gen = server.chat_stream.options(stream=True).remote(body)
+        async for chunk in gen:
+            yield chunk
+
+    async def stream_completions(self, body: Dict[str, Any]):
+        await self._resolve()
+        server = self._pick(body)
+        gen = server.completions_stream.options(stream=True).remote(body)
+        async for chunk in gen:
+            yield chunk

@@ -18,11 +18,14 @@ package's ``LLMServerImpl`` replicas:
   replicas', the traffic recorder and its capture codec) and the
   preemptible `BatchLane`.
 
-The serve deployments that wrap a fleet (the fleet ingress, the
-functions that build its app and the OpenAI app) are not ported; a
-fleet is driven through its methods (`dispatch`, `dispatch_stream`,
-`refresh`, `autoscale_tick`, `watchdog_tick`, `status`,
-`metrics_text`).
+- `FleetConfig` + `build_llm_fleet_app`: N `LLMServerImpl` replica
+  deployments behind one `LLMFleetIngressImpl`, deployed through
+  `serve.run` (deployment.py); the OpenAI app (`build_openai_app`,
+  `build_llm_deployment`) is re-exported from ``ray_tpu_torch.llm``.
+
+A fleet also runs without serve, driven through its methods
+(`dispatch`, `dispatch_stream`, `refresh`, `autoscale_tick`,
+`watchdog_tick`, `status`, `metrics_text`).
 Metric family names, label sets, wire formats and decisions are the
 JAX package's.
 """
@@ -31,7 +34,8 @@ from __future__ import annotations
 
 from ...llm import (ByteTokenizer, EngineConfig,  # noqa: F401
                     InferenceEngine, LLMConfig, Request,
-                    SamplingParams, load_tokenizer)
+                    SamplingParams, build_llm_deployment,
+                    build_openai_app, load_tokenizer)
 
 from .admission import (AdmissionConfig, AdmissionController,  # noqa: F401
                         AdmissionRejected)
@@ -41,6 +45,8 @@ from .batch import (BATCH_PRIORITY, INTERACTIVE_PRIORITY,  # noqa: F401
                     BatchJob, BatchLane, BatchLaneConfig)
 from .chaos import (ChaosError, ChaosReplicaClient,  # noqa: F401
                     ChaosSchedule, FaultSpec, StreamSevered)
+from .deployment import (FleetConfig, LLMFleetIngressImpl,  # noqa: F401
+                         build_llm_fleet_app)
 from .failover import (CircuitBreaker, HealthConfig,  # noqa: F401
                        StreamTranscript)
 from .fleet import (FleetManager, HandleReplicaClient,  # noqa: F401
@@ -63,6 +69,7 @@ from .watchdog import SLOBurnWatchdog, WatchdogConfig  # noqa: F401
 
 __all__ = [
     # fleet layer
+    "FleetConfig", "build_llm_fleet_app", "LLMFleetIngressImpl",
     "FleetManager", "LocalReplicaClient", "HandleReplicaClient",
     "FleetRouter", "RouterConfig", "ReplicaSnapshot", "HashRing",
     "prefix_fingerprint",
@@ -87,6 +94,7 @@ __all__ = [
     "decode_capture", "load_capture", "sampling_brief",
     "traffic_metrics",
     # single-model surface (ray_tpu_torch.llm re-exports)
-    "LLMConfig", "InferenceEngine", "EngineConfig", "SamplingParams",
+    "LLMConfig", "build_openai_app", "build_llm_deployment",
+    "InferenceEngine", "EngineConfig", "SamplingParams",
     "Request", "ByteTokenizer", "load_tokenizer",
 ]

@@ -254,3 +254,6 @@ def test_tick_times_summary():
         assert tt[f"{name}_avg"] >= 0
     assert tt["wall_ms_avg"] >= tt["device_ms_avg"]
     assert 0.0 <= tt["overlap_ratio"] <= 1.0
+    st = eng.stats()
+    assert (tt["lagged_ticks"], tt["drains"], tt["async_readback"]) == (
+        st["lagged_ticks"], st["drains"], True)
